@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port's eval path on one NVIDIA card.
+"""Smoke test of the PyTorch port's eval and training paths on one NVIDIA
+card.
 
-    python3 chip_smoke.py [--targets 40] [--out results/chip_smoke.json]
+    python3 chip_smoke.py [--targets 40] [--steps 10] [--out results/chip_smoke.json]
 
 1. Prints the card's name and power limit, builds every CUDA kernel of
    ``videowalk_tpu_torch/ops/csrc`` (one nvcc each, started together).
@@ -17,6 +18,21 @@
 4. Checks the result: finite predictions of the right shape, the first
    target equal to the frame-0 ground truth, one launch per target, and the
    card's end-to-end predictions against the CPU path on a small video.
+
+5. Holds the fused walk kernels (forward and backward, ``ops/csrc/walk.cu``)
+   against their plain PyTorch version with rate-0.1 edge-drop masks at the
+   flagship shape (B=8, T=8, N=49, C=128) and at the gate's edge (T=10,
+   N=128, C=512), and times both with CUDA events.
+6. Drives the training slice: ``bench.py``'s flagship step (8-frame clips,
+   batch 8, a 7x7 grid of 64 px patches, the ``scratch`` ResNet-18 with a
+   bf16 trunk in BN-train mode, edge dropout 0.1, T 0.05, Adam lr 3e-4)
+   from a seeded init through ``make_train_step``: a few warm-up steps,
+   then ``--steps`` timed ones, with the walk kernels' launch counts zeroed
+   just before and read just after. Every loss must be finite and each
+   kernel launched once per step. Then 3 more steps under
+   ``torch.profiler``: device time by kernel and kind, idle share.
+7. A small f32 step on the card against the same step on the CPU (plain
+   versions), same weights and edge-drop masks: loss and gradients.
 
 Prints one JSON line of kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -38,14 +54,21 @@ import torch
 
 from videowalk_tpu_torch.cli.test import build_model, encode_video, test
 from videowalk_tpu_torch.eval.propagation import context_index_bank
+from videowalk_tpu_torch.models import CRW, CRWConfig
 from videowalk_tpu_torch.ops import _build
 from videowalk_tpu_torch.ops import prop_sparse as ps
+from videowalk_tpu_torch.ops import walk as wk
+from videowalk_tpu_torch.parallel import (create_train_state, make_optimizer,
+                                          make_train_step)
 
 # DAVIS-480p eval geometry of the config of record
 H, W, C, NL = 60, 107, 256, 4
 N_CONTEXT, LONG_MEM, TOPK, RADIUS, TEMP = 20, [0], 10, 12.0, 0.05
 FP32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
+BF16_PEAK = 989e12       # H100 SXM dense bf16 FLOP/s (tensor cores)
 HBM_RATE = 3.35e12       # H100 SXM bytes/s
+# bench.py's flagship training step
+CLIP_LEN, N_PATCHES, PATCH, BATCH, WALK_TEMP, EDGEDROP = 8, 49, 64, 8, 0.05, 0.1
 
 
 def fail(msg: str) -> None:
@@ -227,9 +250,261 @@ def small_card_vs_cpu() -> dict:
     return dict(encoder_max_abs_err=enc_err, pred_max_abs_err=err)
 
 
+def _walk_inputs(B, T, N, C, rate, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, T, N, C), generator=g, device="cuda")
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    m12, m21 = ((torch.rand((B, T - 1, N, N), generator=g, device="cuda")
+                 < rate).to(torch.uint8) for _ in range(2))
+    dl = torch.randn((B, T - 2), generator=g, device="cuda")
+    return q, m12, m21, dl
+
+
+def walk_bounds(B, T, N, C) -> dict:
+    """Least times of the two kernels on this card: bytes (each input read
+    once, each output written once) over the HBM rate, f32 operations (the
+    products' multiply-adds) over the f32 peak."""
+    S = T - 1
+    nn, q_bytes = B * S * N * N, 4 * B * T * N * C
+    fwd_bytes = q_bytes + 2 * nn + 4 * 4 * nn + 2 * 4 * B * (S - 1)
+    bwd_bytes = q_bytes + 4 * 4 * nn + 4 * B * (S - 1) + q_bytes
+    fwd_flops = 2 * B * S * N * N * C + 2 * 3 * B * (S - 1) * N ** 3
+    bwd_flops = B * ((S - 1) * (14 * N ** 3 + 4 * N * N * C) + 4 * N * N * C)
+    out = {}
+    for name, nbytes, flops in (("fwd", fwd_bytes, fwd_flops),
+                                ("bwd", bwd_bytes, bwd_flops)):
+        b_ms, o_ms = nbytes / HBM_RATE * 1e3, flops / FP32_PEAK * 1e3
+        out[name] = dict(bytes=nbytes, flops=flops, bound_ms=max(b_ms, o_ms),
+                         bound_by="bytes" if b_ms >= o_ms else "operations")
+    return out
+
+
+def walk_kernels_vs_plain() -> dict:
+    """Phase 5: the walk kernels and their plain version on the same inputs,
+    at the flagship shape and at the gate's edge. Tolerances: losses rtol
+    1e-5, accuracies 1e-6, residuals rtol 1e-5 + atol 1e-6, dq 2e-5 of its
+    largest entry (f32 products summed in another order)."""
+    res = {}
+    for tag, shape in (("flagship", (BATCH, CLIP_LEN, N_PATCHES, 128)),
+                       ("edge", (BATCH, 10, 128, 512))):
+        q, m12, m21, dl = _walk_inputs(*shape, rate=EDGEDROP, seed=4)
+        before = (wk.walk_fwd.launches, wk.walk_bwd.launches)
+        got = wk.walk_fwd(q, m12, m21, WALK_TEMP)
+        got_dq = wk.walk_bwd(q, *got[2:], dl, WALK_TEMP)
+        want = wk.fused_walk_plain_fwd(q, m12, m21, WALK_TEMP)
+        want_dq = wk.fused_walk_plain_bwd(q, *want[2:], dl, WALK_TEMP)
+        torch.cuda.synchronize()
+        err = dict(
+            losses=float((got[0] - want[0]).abs().max()),
+            loss_rel=float(((got[0] - want[0]).abs() / want[0].abs()).max()),
+            accs=float((got[1] - want[1]).abs().max()),
+            residuals=float(max((g - w).abs().max() for g, w in
+                                zip(got[2:], want[2:]))),
+            dq=float((got_dq - want_dq).abs().max()),
+            dq_scale=float(want_dq.abs().max()))
+        res_ok = all(torch.allclose(g, w, rtol=1e-5, atol=1e-6)
+                     for g, w in zip(got[2:], want[2:]))
+        if not (torch.isfinite(got[0]).all() and torch.isfinite(got_dq).all()
+                and err["loss_rel"] <= 1e-5 and err["accs"] <= 1e-6
+                and res_ok and err["dq"] <= 2e-5 * err["dq_scale"]):
+            fail(f"walk kernels disagree with their plain version at {tag} "
+                 f"{shape}: {err}")
+        res_fwd = got[2:]
+        times = dict(
+            fwd_ms=cuda_ms(lambda: wk.walk_fwd(q, m12, m21, WALK_TEMP), 50),
+            bwd_ms=cuda_ms(lambda: wk.walk_bwd(q, *res_fwd, dl, WALK_TEMP), 50),
+            plain_fwd_ms=cuda_ms(
+                lambda: wk.fused_walk_plain_fwd(q, m12, m21, WALK_TEMP), 20),
+            plain_bwd_ms=cuda_ms(lambda: wk.fused_walk_plain_bwd(
+                q, *res_fwd, dl, WALK_TEMP), 20))
+        wk.walk_fwd.launches, wk.walk_bwd.launches = before  # not the path's
+        bounds = walk_bounds(*shape)
+        res[tag] = dict(shape=shape, err=err, bounds=bounds, **times)
+        print(f"walk kernels vs plain at {tag} (B,T,N,C)={shape}, edge-drop "
+              f"rate {EDGEDROP}: max|d| losses {err['losses']:.3e} (rel "
+              f"{err['loss_rel']:.2e}), accs {err['accs']:.1e}, residuals "
+              f"{err['residuals']:.3e}, dq {err['dq']:.3e} of {err['dq_scale']:.3e} "
+              f"(tolerance: losses rtol 1e-5, accs 1e-6, residuals rtol 1e-5 "
+              f"+ 1e-6, dq 2e-5 of its largest entry)", flush=True)
+        print(f"  fwd {times['fwd_ms']:.4f} ms (plain {times['plain_fwd_ms']:.4f}, "
+              f"bound {bounds['fwd']['bound_ms']:.5f} by {bounds['fwd']['bound_by']})"
+              f"; bwd {times['bwd_ms']:.4f} ms (plain {times['plain_bwd_ms']:.4f}, "
+              f"bound {bounds['bwd']['bound_ms']:.5f} by {bounds['bwd']['bound_by']})",
+              flush=True)
+    return res
+
+
+def conv_fwd_flops_per_image() -> int:
+    """bench.py:140-151: forward conv FLOPs of the modified ResNet-18 on one
+    64 px patch (stride-1 layer3/4), 2*H*W*K*K*Cin*Cout per conv."""
+    f = 2 * 32 * 32 * 49 * 3 * 64                      # stem 7x7/2
+    f += 4 * 2 * 16 * 16 * 9 * 64 * 64                 # layer1
+    f += (2 * 8 * 8 * 9 * 64 * 128 + 2 * 8 * 8 * 64 * 128
+          + 3 * 2 * 8 * 8 * 9 * 128 * 128)             # layer2 (+ds)
+    f += (2 * 8 * 8 * 9 * 128 * 256 + 2 * 8 * 8 * 128 * 256
+          + 3 * 2 * 8 * 8 * 9 * 256 * 256)             # layer3 (+ds)
+    f += (2 * 8 * 8 * 9 * 256 * 512 + 2 * 8 * 8 * 256 * 512
+          + 3 * 2 * 8 * 8 * 9 * 512 * 512)             # layer4 (+ds)
+    return f
+
+
+def seeded_crw(cfg: CRWConfig, device, seed: int) -> CRW:
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = CRW(cfg)
+    return model.to(device)
+
+
+def profile_steps(state, step, batch, gen, n: int = 3) -> dict:
+    """``n`` more steps under ``torch.profiler``: device time by kernel and
+    by kind, and the device's idle share of the host clock's window (one
+    stream, so kernel times add up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            kernels[e.key] = kernels.get(e.key, 0.0) + t
+    busy = sum(kernels.values())
+    if busy <= 0:
+        fail("the profiler saw no device time")
+    kinds = {}
+    for name, t in kernels.items():
+        low = name.lower()
+        kind = ("walk kernels" if low.startswith("walk_") else
+                "convolutions" if any(w in low for w in (
+                    "conv", "cudnn", "xmma", "gemm", "dgrad", "wgrad",
+                    "implicit")) else
+                "reductions" if "reduce" in low else
+                "elementwise" if "elementwise" in low else
+                "optimizer" if ("adam" in low or "foreach" in low) else
+                "other")
+        kinds[kind] = kinds.get(kind, 0.0) + t
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    res = dict(steps=n, wall_ms_per_step=wall_us / n / 1e3,
+               device_ms_per_step=busy / n / 1e3,
+               idle_share=max(0.0, 1 - busy / wall_us),
+               kinds_ms_per_step={k: v / n / 1e3 for k, v in
+                                  sorted(kinds.items(), key=lambda kv: -kv[1])},
+               top_kernels_ms_per_step=[(k[:90], v / n / 1e3) for k, v in top])
+    print(f"profile of {n} steps: {res['wall_ms_per_step']:.2f} ms/step by the "
+          f"host clock, device busy {res['device_ms_per_step']:.2f} ms/step, "
+          f"idle share {res['idle_share']:.3f}", flush=True)
+    for k, v in res["kinds_ms_per_step"].items():
+        print(f"  {k:13s} {v:9.3f} ms/step", flush=True)
+    for k, v in res["top_kernels_ms_per_step"]:
+        print(f"  {v:9.3f} ms/step  {k}", flush=True)
+    return res
+
+
+def train_step_phase(n_steps: int, n_warmup: int = 3) -> dict:
+    """Phase 6: the flagship training step, ``bench.py``'s config."""
+    dev = torch.device("cuda")
+    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
+                    edgedrop_rate=EDGEDROP, dtype=torch.bfloat16)
+    state = create_train_state(seeded_crw(cfg, dev, seed=0),
+                               make_optimizer(lr=3e-4))
+    step = make_train_step()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = torch.randn((BATCH, CLIP_LEN, N_PATCHES, PATCH, PATCH, 3),
+                        generator=gen, device=dev)
+    for _ in range(n_warmup):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wk.walk_fwd.launches = wk.walk_bwd.launches = 0   # counts: this path only
+    t0 = time.perf_counter()
+    metrics = [step(state, batch, gen) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_steps
+    launches = (wk.walk_fwd.launches, wk.walk_bwd.launches)
+    losses = [float(m["loss"]) for m in metrics]
+    if launches != (n_steps, n_steps):
+        fail(f"walk kernels launched {launches} times in {n_steps} steps")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    flops = 3 * conv_fwd_flops_per_image() * BATCH * CLIP_LEN * N_PATCHES
+    res = dict(steps=n_steps, step_ms=dt * 1e3, clips_per_s=BATCH / dt,
+               tflop_per_step=flops / 1e12, mfu=flops / dt / BF16_PEAK,
+               max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               losses=losses, walk_fwd_launches=launches[0],
+               walk_bwd_launches=launches[1], state_step=state.step,
+               acc_last={k: float(v) for k, v in metrics[-1].items()
+                         if k.startswith("acc")})
+    print(f"training step, bench.py config (batch {BATCH}, {CLIP_LEN} frames, "
+          f"{N_PATCHES}x{PATCH}px patches, bf16 trunk): {res['step_ms']:.2f} "
+          f"ms/step over {n_steps} steps, {res['clips_per_s']:.2f} clips/s, "
+          f"{res['tflop_per_step']:.2f} TFLOP/step (analytic convs), MFU "
+          f"{100 * res['mfu']:.2f}% of {BF16_PEAK / 1e12:.0f} TFLOP/s bf16; "
+          f"peak memory {res['max_memory_gib']:.2f} GiB; losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; walk launches {launches}",
+          flush=True)
+    # 3 more steps under the profiler, after the path's counts were read
+    res["profile"] = profile_steps(state, step, batch, gen)
+    return res
+
+
+def small_step_card_vs_cpu() -> dict:
+    """Phase 7: one f32 forward/backward, card (kernels) vs CPU (plain
+    versions), same weights, same clips, same edge-drop masks. Tolerances:
+    loss rtol 1e-4 and q atol 1e-4 (f32 convolutions by different
+    algorithms); gradients 2e-2 relative in L2 over all parameters (the
+    early layers' f32 gradients are badly conditioned at random weights;
+    the CPU tests measure the same spread against JAX and f64)."""
+    B, T, N = 2, 4, 4
+    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP)
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(B, T, N, 32, 32, 3).astype(np.float32))
+    masks = [torch.from_numpy(rng.rand(B, T - 1, N, N) < EDGEDROP)
+             for _ in range(2)]
+    out = {}
+    before = (wk.walk_fwd.launches, wk.walk_bwd.launches)
+    for name in ("cuda", "cpu"):
+        dev = torch.device(name)
+        model = seeded_crw(cfg, dev, seed=3)
+        q, loss, _ = model(x.to(dev), train=True,
+                           walk_masks=[m.to(dev) for m in masks])
+        loss.backward()
+        out[name] = (q.detach().cpu(), float(loss.detach()),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()})
+    launched = (wk.walk_fwd.launches - before[0],
+                wk.walk_bwd.launches - before[1])
+    wk.walk_fwd.launches, wk.walk_bwd.launches = before  # not the path's
+    (qc, lc, gc), (qh, lh, gh) = out["cuda"], out["cpu"]
+    num = sum(float(((gc[k] - gh[k]) ** 2).sum()) for k in gh)
+    den = sum(float((gh[k] ** 2).sum()) for k in gh)
+    res = dict(loss_cuda=lc, loss_cpu=lh, loss_rel=abs(lc - lh) / abs(lh),
+               q_max_abs_err=float((qc - qh).abs().max()),
+               grad_rel_l2=(num / den) ** 0.5, kernel_launches=launched)
+    print(f"small f32 step (B,T,N)=({B},{T},{N}) 32px, card vs CPU: loss "
+          f"{lc:.6f} vs {lh:.6f} (rel {res['loss_rel']:.2e}), q max|d| "
+          f"{res['q_max_abs_err']:.2e}, grads rel L2 {res['grad_rel_l2']:.2e} "
+          f"(tolerance: loss rtol 1e-4, q 1e-4, grads 2e-2); walk kernel "
+          f"launches on the card {launched}", flush=True)
+    if launched != (1, 1):
+        fail("the card's small step did not go through the walk kernels")
+    if not (res["loss_rel"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
+            and res["grad_rel_l2"] <= 2e-2):
+        fail("card and CPU training steps disagree")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--targets", type=int, default=40)
+    ap.add_argument("--steps", type=int, default=10,
+                    help="timed training steps (after 3 warm-up steps)")
     ap.add_argument("--out", default="", help="also write the results here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -257,6 +532,9 @@ def main() -> int:
     kp = kernel_vs_plain()
     e2e = end_to_end(args.targets)
     small = small_card_vs_cpu()
+    walk = walk_kernels_vs_plain()
+    train = train_step_phase(args.steps)
+    small_train = small_step_card_vs_cpu()
 
     kernels = [dict(
         name="prop_sparse_topk", route="cuda",
@@ -265,12 +543,24 @@ def main() -> int:
         launches=e2e["launches"], max_abs_err=kp["max_abs_err"], ms=kp["ms"],
         plain_ms=kp["plain_ms"], bound_ms=kp["bound_ms"],
         bound_by=kp["bound_by"], library_ms=None)]
+    flag = walk["flagship"]
+    for d, line, err in (("fwd", 70, flag["err"]["losses"]),
+                         ("bwd", 118, flag["err"]["dq"])):
+        kernels.append(dict(
+            name=f"walk_{d}", route="cuda",
+            source="videowalk_tpu_torch/ops/csrc/walk.cu",
+            replaces=f"videowalk_tpu/ops/walk_kernel.py:{line}",
+            launches=train[f"walk_{d}_launches"], max_abs_err=err,
+            ms=flag[f"{d}_ms"], plain_ms=flag[f"plain_{d}_ms"],
+            bound_ms=flag["bounds"][d]["bound_ms"],
+            bound_by=flag["bounds"][d]["bound_by"], library_ms=None))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(dict(card=smi, build_s=build_s, kernel=kp,
-                           end_to_end=e2e, small=small, ptxas=logs), fh,
-                      indent=1)
+                           end_to_end=e2e, small=small, walk=walk,
+                           train=train, small_train=small_train,
+                           kernels=kernels, ptxas=logs), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

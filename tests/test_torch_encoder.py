@@ -59,7 +59,7 @@ def test_features_match_jax(model_type):
                           head_depth=0)).eval()
     model.load_state_dict(state_from_flax(variables), strict=True)
     with torch.no_grad():
-        q_t, maps_t = model(torch.from_numpy(x), just_feats=True)
+        q_t, maps_t = model(torch.from_numpy(x), just_feats=True, train=False)
     assert maps_t.shape == maps_j.shape == (1, 2, 8, 12, 256)
     assert model.spec.map_scale == 8
     np.testing.assert_allclose(maps_t.numpy(), np.asarray(maps_j), atol=1e-4)

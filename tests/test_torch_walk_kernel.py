@@ -1,0 +1,200 @@
+"""The fused walk (``videowalk_tpu_torch/ops/walk.py``): its plain PyTorch
+forward/backward against the JAX package's fused walk ``_fused_walk``
+(Pallas, interpret mode on the CPU) and against the port's own core loss
+with autograd; its guards; and, on the card (``-m cuda``), the CUDA kernels
+against the plain version.
+
+Tolerances: losses rtol 1e-5, accuracies exact to 1e-6 (f32 sums in
+another order; the diagonal-is-max test on identical products); dq atol
+2e-5 of its largest entry (hand VJP vs autograd, f32, ZeroSoftmax chains
+at T 0.05).
+
+JAX is imported inside the tests that compare with it, so that the card
+tests run where JAX is not installed (``--noconftest -m cuda``)."""
+
+import numpy as np
+import pytest
+import torch
+
+from videowalk_tpu_torch.core import walk as tw
+from videowalk_tpu_torch.ops import _build
+from videowalk_tpu_torch.ops import walk as wk
+
+torch.set_num_threads(1)
+
+TEMP = 0.05
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _inputs(B, T, N, C, rate, seed):
+    """q (B, T, N, C) unit rows, uint8 masks (B, S, N, N), upstream dl."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, T, N, C).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    m12, m21 = ((rng.rand(B, T - 1, N, N) < rate).astype(np.uint8)
+                for _ in range(2))
+    dl = rng.randn(B, T - 2).astype(np.float32)
+    return q, m12, m21, dl
+
+
+def _assert_grads(got, want):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("B,T,N,C,rate", [
+    (2, 4, 10, 16, 0.0), (2, 5, 13, 24, 0.1), (2, 8, 49, 128, 0.1)])
+def test_plain_matches_jax_fused_walk(B, T, N, C, rate):
+    """Same q and masks; JAX pads N and C to 128 lanes with zeros (padded
+    nodes are unreachable under ZeroSoftmax, ``n_valid`` keeps them out of
+    the loss), the port does not pad."""
+    import jax
+    import jax.numpy as jnp
+
+    from videowalk_tpu.ops.walk_kernel import _fused_walk
+
+    q, m12, m21, dl = _inputs(B, T, N, C, rate, seed=N + C)
+    S, NP, CP = T - 1, 128, max(128, C)
+    qp = np.zeros((B, T, NP, CP), np.float32)
+    qp[:, :, :N, :C] = q
+    mp = [np.zeros((B, S, NP, NP), np.uint8) for _ in range(2)]
+    mp[0][:, :, :N, :N], mp[1][:, :, :N, :N] = m12, m21
+    (l_j, a_j), vjp = jax.vjp(
+        lambda v: _fused_walk(v, jnp.asarray(mp[0]), jnp.asarray(mp[1]),
+                              TEMP, N), jnp.asarray(qp))
+    dq_j = np.asarray(vjp((jnp.asarray(dl), jnp.zeros_like(a_j)))[0])
+
+    losses, accs, *res = wk.fused_walk_plain_fwd(
+        torch.from_numpy(q), torch.from_numpy(m12), torch.from_numpy(m21),
+        TEMP)
+    dq = wk.fused_walk_plain_bwd(torch.from_numpy(q), *res,
+                                 torch.from_numpy(dl), TEMP)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(l_j), rtol=1e-5)
+    np.testing.assert_allclose(accs.numpy(), np.asarray(a_j), atol=1e-6)
+    _assert_grads(dq.numpy(), dq_j[:, :, :N, :C])
+
+
+@pytest.mark.parametrize("shape,rate", [((2, 16, 5, 9), 0.0),
+                                        ((2, 16, 5, 9), 0.2),
+                                        ((8, 128, 8, 49), 0.1)])
+def test_fused_loss_matches_core_loss_and_autograd(shape, rate):
+    """The fused autograd Function (plain version on the CPU) against the
+    core loss differentiated by autograd, with the same masks."""
+    B, C, T, N = shape
+    q, m12, m21, _ = _inputs(B, T, N, C, rate, seed=3)
+    q = np.ascontiguousarray(q.transpose(0, 3, 1, 2))          # (B, C, T, N)
+    masks = (torch.from_numpy(m12).bool(), torch.from_numpy(m21).bool())
+    out = {}
+    for name, fn in (("core", tw.crw_walk_loss), ("fused", wk.fused_walk_loss)):
+        qt = torch.from_numpy(q).requires_grad_()
+        loss, diags = fn(qt, TEMP, masks=masks)
+        loss.backward()
+        out[name] = (float(loss.detach()),
+                     {k: float(v.detach()) for k, v in diags.items()},
+                     qt.grad.numpy())
+    np.testing.assert_allclose(out["fused"][0], out["core"][0], rtol=1e-5)
+    assert set(out["fused"][1]) == set(out["core"][1])
+    for k, v in out["core"][1].items():
+        np.testing.assert_allclose(out["fused"][1][k], v, rtol=1e-5,
+                                   atol=1e-6)
+    _assert_grads(out["fused"][2], out["core"][2])
+
+
+def test_masks_from_generator_are_reproducible():
+    q = torch.from_numpy(np.ascontiguousarray(
+        _inputs(2, 5, 9, 16, 0.0, seed=4)[0].transpose(0, 3, 1, 2)))
+    a = wk.fused_walk_loss(q, TEMP, edgedrop_rate=0.1,
+                           generator=torch.Generator().manual_seed(5))[0]
+    b = wk.fused_walk_loss(q, TEMP, edgedrop_rate=0.1,
+                           generator=torch.Generator().manual_seed(5))[0]
+    clean = wk.fused_walk_loss(q, TEMP)[0]
+    assert float(a) == float(b) != float(clean)
+    assert float(wk.fused_walk_loss(q[:, :, :2], TEMP)[0]) == 0.0
+
+
+def test_gate():
+    assert wk.walk_supported(8, 49, 128)
+    assert wk.walk_supported(10, 128, 512) and wk.walk_supported(3, 1, 1)
+    assert not wk.walk_supported(11, 49, 128)
+    assert not wk.walk_supported(8, 129, 128)
+    assert not wk.walk_supported(8, 49, 513)
+    assert not wk.walk_supported(2, 49, 128)
+
+
+def test_wrappers_refuse_other_devices():
+    q = torch.zeros((1, 4, 3, 8), device="meta")
+    m = torch.zeros((1, 3, 3, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        wk.walk_fwd(q, m, m, TEMP)
+    r = torch.zeros((1, 3, 3, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        wk.walk_bwd(q, r, r, r, r, torch.zeros((1, 2), device="meta"), TEMP)
+
+
+def test_fused_on_outside_the_gate_raises():
+    from videowalk_tpu_torch.models import CRW, CRWConfig
+
+    x = torch.zeros((1, 11, 2, 16, 16, 3))
+    model = CRW(CRWConfig(model_type="scratch_zeropad", fused_walk="on",
+                          remove_layers=("layer3", "layer4")))
+    with pytest.raises(ValueError, match="clip_len > 10"):
+        model(x, train=False)
+    flip = CRW(CRWConfig(model_type="scratch_zeropad", fused_walk="on",
+                         flip=True, remove_layers=("layer3", "layer4")))
+    with pytest.raises(ValueError, match="fused_walk='on'"):
+        flip(x[:, :4], train=False)
+    auto = CRW(CRWConfig(model_type="scratch_zeropad", fused_walk="auto",
+                         remove_layers=("layer3", "layer4")))
+    _, loss, _ = auto(x, train=False)                # core path, no raise
+    assert torch.isfinite(loss)
+    with pytest.raises(ValueError, match="fused_walk"):
+        CRW(CRWConfig(fused_walk="maybe"))
+
+
+@pytest.mark.cuda
+def test_kernel_raises_without_its_library(monkeypatch, tmp_path):
+    _need_card()
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_libs", {})
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    q, m12, m21, _ = _inputs(1, 4, 5, 8, 0.0, seed=0)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        wk.walk_fwd(torch.from_numpy(q).cuda(), torch.from_numpy(m12).cuda(),
+                    torch.from_numpy(m21).cuda(), TEMP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,N,C,rate", [
+    (2, 3, 1, 1, 0.0), (3, 5, 13, 24, 0.1), (8, 8, 49, 128, 0.1),
+    (2, 6, 101, 40, 0.1),          # largest N with the backward in shared memory
+    (2, 10, 128, 512, 0.1)])       # the gate's edge: global backward scratch
+def test_kernels_match_plain_on_card(B, T, N, C, rate):
+    """Kernel vs plain version on the card, f32 (TF32 off). Tolerance as
+    above: products summed in another order."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, m12, m21, dl = (torch.from_numpy(a).cuda()
+                       for a in _inputs(B, T, N, C, rate, seed=T * N))
+    want = wk.fused_walk_plain_fwd(q, m12, m21, TEMP)
+    want_dq = wk.fused_walk_plain_bwd(q, *want[2:], dl, TEMP)
+    f0, b0 = wk.walk_fwd.launches, wk.walk_bwd.launches
+    got = wk.walk_fwd(q, m12, m21, TEMP)
+    got_dq = wk.walk_bwd(q, *got[2:], dl, TEMP)
+    torch.cuda.synchronize()
+    assert (wk.walk_fwd.launches, wk.walk_bwd.launches) == (f0 + 1, b0 + 1)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               atol=1e-6)
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    _assert_grads(got_dq.cpu().numpy(), want_dq.cpu().numpy())

@@ -1,4 +1,4 @@
-"""Model layer: ResNet trunk, encoder factory, CRW feature path."""
+"""Model layer: ResNet trunk, encoder factory, CRW."""
 
 from videowalk_tpu_torch.models.crw import CRW, CRWConfig, Head
 from videowalk_tpu_torch.models.encoder import From3D, make_encoder

@@ -29,9 +29,10 @@ class From3D(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         B, T = x.shape[:2]
-        m = self.model(x.reshape(B * T, *x.shape[2:]).permute(0, 3, 1, 2))
+        m = self.model(x.reshape(B * T, *x.shape[2:]).permute(0, 3, 1, 2),
+                       train)
         return m.permute(0, 2, 3, 1).reshape(B, T, *m.shape[2:], m.shape[1])
 
 
@@ -54,13 +55,16 @@ def map_scale(trunk: ResNet) -> int:
 
 
 def make_encoder(model_type: str = "scratch",
-                 remove_layers: Sequence[str] = ()) -> EncoderSpec:
+                 remove_layers: Sequence[str] = (),
+                 dtype: torch.dtype = torch.float32) -> EncoderSpec:
     """``scratch``: ResNet-18, reflect padding, stride-1 layer3/4;
-    ``scratch_zeropad``: the same with zeros padding."""
+    ``scratch_zeropad``: the same with zeros padding. ``dtype`` is the
+    trunk's compute type (parameters stay f32). Rematerialization
+    (``remat_stages``) is still queued (ROADMAP.md, Queue 1 item 2)."""
     if model_type == "scratch":
-        trunk = resnet18("reflect", tuple(remove_layers))
+        trunk = resnet18("reflect", tuple(remove_layers), dtype)
     elif model_type == "scratch_zeropad":
-        trunk = resnet18("zeros", tuple(remove_layers))
+        trunk = resnet18("zeros", tuple(remove_layers), dtype)
     elif model_type in _QUEUED_TYPES:
         raise NotImplementedError(
             f"model type {model_type!r} is not ported yet (ROADMAP.md, "

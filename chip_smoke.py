@@ -348,11 +348,11 @@ def conv_fwd_flops_per_image() -> int:
     return f
 
 
-def seeded_crw(cfg: CRWConfig, device, seed: int) -> CRW:
+def seeded_crw(cfg: CRWConfig, seed: int) -> CRW:
+    """The model, initialized on the CPU from ``seed``."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = CRW(cfg)
-    return model.to(device)
+        return CRW(cfg)
 
 
 def profile_steps(state, step, batch, gen, n: int = 3) -> dict:
@@ -379,6 +379,9 @@ def profile_steps(state, step, batch, gen, n: int = 3) -> dict:
     busy = sum(kernels.values())
     if busy <= 0:
         fail("the profiler saw no device time")
+    if busy > 1.02 * wall_us:
+        fail(f"device time {busy:.0f} us exceeds the host's window "
+             f"{wall_us:.0f} us on one stream: events counted twice")
     kinds = {}
     for name, t in kernels.items():
         low = name.lower()
@@ -394,7 +397,7 @@ def profile_steps(state, step, batch, gen, n: int = 3) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     res = dict(steps=n, wall_ms_per_step=wall_us / n / 1e3,
                device_ms_per_step=busy / n / 1e3,
-               idle_share=max(0.0, 1 - busy / wall_us),
+               idle_share=1 - busy / wall_us,
                kinds_ms_per_step={k: v / n / 1e3 for k, v in
                                   sorted(kinds.items(), key=lambda kv: -kv[1])},
                top_kernels_ms_per_step=[(k[:90], v / n / 1e3) for k, v in top])
@@ -413,8 +416,8 @@ def train_step_phase(n_steps: int, n_warmup: int = 3) -> dict:
     dev = torch.device("cuda")
     cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
                     edgedrop_rate=EDGEDROP, dtype=torch.bfloat16)
-    state = create_train_state(seeded_crw(cfg, dev, seed=0),
-                               make_optimizer(lr=3e-4))
+    state = create_train_state(seeded_crw(cfg, seed=0),
+                               make_optimizer(lr=3e-4), device=dev)
     step = make_train_step()
     gen = torch.Generator(device=dev).manual_seed(1)
     batch = torch.randn((BATCH, CLIP_LEN, N_PATCHES, PATCH, PATCH, 3),
@@ -472,7 +475,7 @@ def small_step_card_vs_cpu() -> dict:
     before = (wk.walk_fwd.launches, wk.walk_bwd.launches)
     for name in ("cuda", "cpu"):
         dev = torch.device(name)
-        model = seeded_crw(cfg, dev, seed=3)
+        model = seeded_crw(cfg, seed=3).to(dev)
         q, loss, _ = model(x.to(dev), train=True,
                            walk_masks=[m.to(dev) for m in masks])
         loss.backward()

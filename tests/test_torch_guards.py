@@ -61,6 +61,27 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
         resolve_device(torch.device("cuda", 0))
 
 
+def test_train_state_defaults_to_the_card(monkeypatch):
+    """``create_train_state`` runs on the card unless asked for the CPU:
+    without CUDA the default raises; 'cpu' keeps the model there, and the
+    step refuses a batch on another device."""
+    from videowalk_tpu_torch.models import CRW, CRWConfig
+    from videowalk_tpu_torch.parallel import (create_train_state,
+                                              make_optimizer, make_train_step)
+
+    model = CRW(CRWConfig(model_type="scratch_zeropad",
+                          remove_layers=("layer3", "layer4")))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(model, make_optimizer())
+    state = create_train_state(model, make_optimizer(), device="cpu")
+    assert state.device == torch.device("cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    batch = torch.zeros((1, 2, 2, 32, 32, 3), device="meta")
+    with pytest.raises(ValueError, match="batch on meta"):
+        make_train_step()(state, batch)
+
+
 @pytest.mark.cuda
 def test_wrapper_raises_without_its_library(monkeypatch, tmp_path):
     _need_card()

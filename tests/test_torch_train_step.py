@@ -156,7 +156,7 @@ def test_crw_train_forward_matches_jax(fused):
     masks are held to JAX in tests/test_torch_walk*.py). 'on' runs the JAX
     Pallas walk in interpret mode and the port's fused plain version. q
     atol 1e-4, loss rtol 1e-4, new running statistics atol 1e-4 of their
-    scale. (Gradients: the next test, with zeros padding.)"""
+    scale. (Gradients: ``test_crw_grads_match_jax_in_float64``.)"""
     jm, variables, x, head_bias = _jax_setup("scratch", fused)
     out_j = jax.jit(_jax_loss_fn(jm, variables, x))(variables["params"])
     model = _torch_model(variables, model_type="scratch", fused_walk=fused,
@@ -172,13 +172,11 @@ def test_crw_train_forward_and_grads_match_jax(fused):
     parameter's gradient against ``jax.grad``, mapped by
     ``state_from_flax``. Tolerance 1e-2 of each tensor's largest entry: at
     these random weights the f32 gradients are badly conditioned (sums that
-    nearly cancel through train-mode BN, the walk at T 0.05). Measured by
-    ``tests/torch_grad_conditioning.py`` against the port's f64 gradient,
-    the JAX package's f32 gradient is off by up to 2.4e-3 of a tensor's
-    largest entry with zeros padding, and by 0.11 with reflect padding
-    (where the port's own f32 gradient is off by 0.042), which is why the
-    reflect trunk is held to JAX by its forward only; in x64 JAX agrees
-    with the port's f64 gradient to 5.8e-6 with reflect padding."""
+    nearly cancel through train-mode BN, the walk at T 0.05), so two f32
+    evaluations by different algorithms part by far more than f32
+    rounding; with reflect padding they part further still. Gradients of
+    both trunks are held tightly in f64 by
+    ``test_crw_grads_match_jax_in_float64``."""
     jm, variables, x, head_bias = _jax_setup("scratch_zeropad", fused)
     out_j, grads_j = jax.jit(jax.value_and_grad(
         _jax_loss_fn(jm, variables, x), has_aux=True))(variables["params"])
@@ -195,6 +193,45 @@ def test_crw_train_forward_and_grads_match_jax(fused):
         np.testing.assert_allclose(params[k].grad.numpy(), g.numpy(), rtol=0,
                                    atol=1e-2 * np.abs(g.numpy()).max(),
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("model_type", ["scratch", "scratch_zeropad"])
+def test_crw_grads_match_jax_in_float64(model_type):
+    """Every parameter's gradient of the train-mode loss, the port in f64
+    against ``jax.grad`` under x64, for the reflect-padded flagship trunk
+    (``scratch``: the reflect pad's backward) and the zeros-padded one.
+    B=2, T=4, N=4 at 16 px (f64 convolutions are slow on the CPU; 16 px
+    still reflect-pads every stage, layer4 at 2x2), walk off the fused
+    path, the JAX model's f32 init cast to f64. Tolerance 3e-5 of each
+    tensor's largest entry: both packages run the walk in f32 on the f64
+    embeddings (the affinity einsum returns f32,
+    ``preferred_element_type`` at ``videowalk_tpu/core/walk.py:72``), so
+    the gradients keep f32 roundings of the affinities, summed in another
+    order on each side and magnified by the walk at T 0.05; a fault in a
+    gradient is of the order of its entries."""
+    x = np.random.RandomState(1).randn(2, 4, 4, 16, 16, 3)
+    cfg = dict(model_type=model_type, temperature=0.05, fused_walk="off")
+    variables = _np(dict(JaxCRW(JaxConfig(**cfg)).init(
+        jax.random.PRNGKey(0), jnp.asarray(x, jnp.float32), train=False)))
+    with jax.enable_x64(True):
+        jm = JaxCRW(JaxConfig(dtype=jnp.float64, **cfg))
+        v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
+                                     variables)
+        grads_j = _np(jax.jit(jax.grad(
+            lambda p: _jax_loss_fn(jm, v64, jnp.asarray(x))(p)[0]))(
+                v64["params"]))
+    grads = state_from_flax({"params": grads_j})
+    model = _torch_model(variables, dtype=torch.float64, **{
+        k: v for k, v in cfg.items() if k != "temperature"}).double()
+    q, loss, _ = model(torch.from_numpy(x), train=True)
+    assert q.dtype == torch.float64
+    loss.backward()
+    params = dict(model.named_parameters())
+    assert set(grads) == set(params)
+    for k, g in grads.items():          # f32 copies: 6e-8 of each entry
+        g = g.double().numpy()
+        np.testing.assert_allclose(params[k].grad.numpy(), g, rtol=0,
+                                   atol=3e-5 * np.abs(g).max(), err_msg=k)
 
 
 def test_crw_train_forward_bf16_trunk_matches_jax():
@@ -272,7 +309,8 @@ def test_train_step_updates_state_in_place():
     model = CRW(CRWConfig(model_type="scratch", temperature=0.05,
                           edgedrop_rate=0.1, featdrop_rate=0.1,
                           remove_layers=("layer4",)))
-    state = create_train_state(model, make_optimizer(lr=3e-4, milestones=(1,)))
+    state = create_train_state(model, make_optimizer(lr=3e-4, milestones=(1,)),
+                               device="cpu")
     step = make_train_step()
     x = torch.from_numpy(_clips())
     w0 = model.encoder.model.conv1.weight.detach().clone()

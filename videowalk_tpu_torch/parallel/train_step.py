@@ -16,16 +16,18 @@ from typing import Callable, Sequence
 import torch
 
 from videowalk_tpu_torch.models.crw import CRW
+from videowalk_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (parameters + BN running statistics), its optimizer, the
-    per-step LR schedule and the count of steps taken."""
+    """The model (parameters + BN running statistics) on ``device``, its
+    optimizer, the per-step LR schedule and the count of steps taken."""
 
     model: CRW
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
+    device: torch.device
     step: int = 0
 
 
@@ -60,27 +62,36 @@ def make_optimizer(
     return build
 
 
-def create_train_state(model: CRW, optimizer: Callable) -> TrainState:
-    """Bind ``make_optimizer``'s ``optimizer`` to ``model``'s parameters.
-    The model is already initialized (seed it when it is built)."""
+def create_train_state(model: CRW, optimizer: Callable,
+                       device: str | torch.device = "cuda") -> TrainState:
+    """Move ``model`` to ``device`` (the card unless the caller asks for
+    ``'cpu'``; raises where CUDA is asked for and missing) and bind
+    ``make_optimizer``'s ``optimizer`` to its parameters there. The model is
+    already initialized (seed it when it is built)."""
+    model.to(resolve_device(device))
     opt, sched = optimizer(model.parameters())
-    return TrainState(model=model, optimizer=opt, scheduler=sched)
+    return TrainState(model=model, optimizer=opt, scheduler=sched,
+                      device=next(model.parameters()).device)  # with its index
 
 
 def make_train_step() -> Callable:
     """``step(state, batch, generator) -> metrics``.
 
     One reference training step on ``batch`` (patches
-    ``(B, T, N, h, w, 3)`` on the model's device): forward in train mode
-    (BN batch statistics; edge dropout and featdrop drawn from
-    ``generator``, a ``torch.Generator`` on that device), backward, an
-    optimizer step and a scheduler step. Parameters, BN running statistics
-    and optimizer state are updated in place. ``metrics`` holds the loss and
-    the walk diagnostics as detached 0-d tensors on the device (reading them
-    synchronizes; the step itself does not)."""
+    ``(B, T, N, h, w, 3)`` on ``state.device``; another device raises):
+    forward in train mode (BN batch statistics; edge dropout and featdrop
+    drawn from ``generator``, a ``torch.Generator`` on that device),
+    backward, an optimizer step and a scheduler step. Parameters, BN
+    running statistics and optimizer state are updated in place.
+    ``metrics`` holds the loss and the walk diagnostics as detached 0-d
+    tensors on the device (reading them synchronizes; the step itself does
+    not)."""
 
     def step(state: TrainState, batch: torch.Tensor,
              generator: torch.Generator | None = None) -> dict:
+        if batch.device != state.device:
+            raise ValueError(f"batch on {batch.device}, train state on "
+                             f"{state.device}")
         state.optimizer.zero_grad(set_to_none=True)
         _, loss, diags = state.model(batch, train=True, generator=generator)
         loss.backward()

@@ -23,16 +23,28 @@ card.
    against their plain PyTorch version with rate-0.1 edge-drop masks at the
    flagship shape (B=8, T=8, N=49, C=128) and at the gate's edge (T=10,
    N=128, C=512), and times both with CUDA events.
-6. Drives the training slice: ``bench.py``'s flagship step (8-frame clips,
+6. Holds the reflect-conv kernels (``ops/csrc/rconv.cu``: forward #4,
+   forward with BN moments #5, dx #9, dW #10) against their plain PyTorch
+   version on bf16 inputs at the step's shapes (the layer4 interior, 3136
+   images of 8x8 with 512 channels; layer1's 16x16x64; 8x8 128->256; a
+   32x32x512 map), and times kernel, plain version and the library call
+   (``F.pad`` + cuDNN ``conv2d`` and its autograd backward) with CUDA
+   events.
+7. Drives the training slice: ``bench.py``'s flagship step (8-frame clips,
    batch 8, a 7x7 grid of 64 px patches, the ``scratch`` ResNet-18 with a
    bf16 trunk in BN-train mode, edge dropout 0.1, T 0.05, Adam lr 3e-4)
-   from a seeded init through ``make_train_step``: a few warm-up steps,
-   then ``--steps`` timed ones, with the walk kernels' launch counts zeroed
-   just before and read just after. Every loss must be finite and each
-   kernel launched once per step. Then 3 more steps under
-   ``torch.profiler``: device time by kernel and kind, idle share.
-7. A small f32 step on the card against the same step on the CPU (plain
-   versions), same weights and edge-drop masks: loss and gradients.
+   from a seeded init through ``make_train_step``, in four arms one after
+   another that differ only by the reflect-conv route: ``rconv='off'``
+   (cuDNN), the default ``auto`` + ``bn_fuse='stats'``, ``on`` + ``stats``
+   and ``on`` + ``off``. Each arm takes 3 warm-up steps, then ``--steps``
+   timed ones with every kernel count zeroed just before and read just
+   after: every loss must be finite, each walk kernel launched once a step
+   and each reflect-conv kernel as often as the route says. The default
+   arm takes 3 more steps under ``torch.profiler``: device time by kernel
+   and kind, idle share.
+8. A small f32 step with ``rconv='on'`` (64 px patches) on the card
+   against the same step on the CPU (plain versions), same weights and
+   edge-drop masks: loss and gradients.
 
 Prints one JSON line of kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -57,6 +69,7 @@ from videowalk_tpu_torch.eval.propagation import context_index_bank
 from videowalk_tpu_torch.models import CRW, CRWConfig
 from videowalk_tpu_torch.ops import _build
 from videowalk_tpu_torch.ops import prop_sparse as ps
+from videowalk_tpu_torch.ops import rconv as rc
 from videowalk_tpu_torch.ops import walk as wk
 from videowalk_tpu_torch.parallel import (create_train_state, make_optimizer,
                                           make_train_step)
@@ -69,6 +82,18 @@ BF16_PEAK = 989e12       # H100 SXM dense bf16 FLOP/s (tensor cores)
 HBM_RATE = 3.35e12       # H100 SXM bytes/s
 # bench.py's flagship training step
 CLIP_LEN, N_PATCHES, PATCH, BATCH, WALK_TEMP, EDGEDROP = 8, 49, 64, 8, 0.05, 0.1
+# reflect-conv kernels at the step's shapes: (tag, N, Cin, Cout, H, W)
+RCONV_SHAPES = (("flagship", 3136, 512, 512, 8, 8),     # layer4 interior
+                ("layer1", 3136, 64, 64, 16, 16),
+                ("cin_ne_cout", 3136, 128, 256, 8, 8),  # layer3.0.conv1
+                ("32x32", 196, 512, 512, 32, 32))       # the same pixels
+RCONV = (("fwd", rc.reflect_conv_fwd), ("fwd_stats", rc.reflect_conv_fwd_stats),
+         ("dx", rc.reflect_conv_dx), ("dw", rc.reflect_conv_dw))
+# training arms: (rconv, bn_fuse) -> reflect-conv launches per step
+ARMS = ((("off", "stats"), dict(fwd=0, fwd_stats=0, dx=0, dw=0)),
+        (("auto", "stats"), dict(fwd=0, fwd_stats=3, dx=3, dw=3)),
+        (("on", "stats"), dict(fwd=0, fwd_stats=15, dx=15, dw=15)),
+        (("on", "off"), dict(fwd=15, fwd_stats=0, dx=15, dw=15)))
 
 
 def fail(msg: str) -> None:
@@ -334,6 +359,135 @@ def walk_kernels_vs_plain() -> dict:
     return res
 
 
+def rconv_counts() -> dict:
+    return {name: f.launches for name, f in RCONV}
+
+
+def set_rconv_counts(counts: dict) -> None:
+    for name, f in RCONV:
+        f.launches = counts[name]
+
+
+def rconv_bounds(N, cin, cout, H, W, itemsize=2, peak=BF16_PEAK) -> dict:
+    """Least times of the four kernels: each input read once and each
+    output written once over the HBM rate, against the bf16 (or f32)
+    multiply-adds over the peak; the moments add 2*Cout f32."""
+    M = N * H * W
+    flops = 2 * M * 9 * cin * cout
+    wb, xb, yb = 9 * cin * cout * itemsize, M * cin * itemsize, M * cout * itemsize
+    nbytes = dict(fwd=xb + wb + yb, fwd_stats=xb + wb + yb + 8 * cout,
+                  dx=yb + wb + xb, dw=xb + yb + wb)
+    out = {}
+    for name, b in nbytes.items():
+        b_ms, o_ms = b / HBM_RATE * 1e3, flops / peak * 1e3
+        out[name] = dict(bytes=b, flops=flops, bound_ms=max(b_ms, o_ms),
+                         bound_by="bytes" if b_ms >= o_ms else "operations")
+    return out
+
+
+def rconv_kernels_vs_plain() -> dict:
+    """The reflect-conv kernels #4, #5, #9, #10 against their plain version
+    on the same bf16 inputs at the step's shapes, and their times.
+    Tolerances, relative to each output's largest entry: y and dW 1e-2, dx
+    2e-2 (each side rounds f32 sums to bf16, ~4e-3; the plain dx rounds the
+    padded gradient before folding the pad back); moments against the
+    kernel's own cast y within 1e-4 of sum|y| (f32 sums in another order).
+    ``plain_ms`` is the plain version as the wrapper would call it
+    (forward: ``F.pad`` + ``conv2d``, + its f32 sums for the moments;
+    backward: autograd of the same, dx and dW together); ``library_ms`` is
+    one PyTorch call of the same function, ``F.pad`` + cuDNN ``conv2d``
+    forward, and the autograd backward (dx and dW together) on a kept
+    graph."""
+    res = {}
+    saved = rconv_counts()
+    for tag, N, cin, cout, H, W in RCONV_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(cin + cout + H)
+        cl = torch.channels_last
+        x = torch.randn((N, cin, H, W), generator=g, device="cuda",
+                        dtype=torch.bfloat16).contiguous(memory_format=cl)
+        gy = torch.randn((N, cout, H, W), generator=g, device="cuda",
+                         dtype=torch.bfloat16).contiguous(memory_format=cl)
+        w = (torch.randn((cout, cin, 3, 3), generator=g, device="cuda")
+             / (9 * cin) ** 0.5).to(torch.bfloat16)
+        got = dict(fwd=rc.reflect_conv_fwd(x, w),
+                   fwd_stats=rc.reflect_conv_fwd_stats(x, w),
+                   dx=rc.reflect_conv_dx(gy, w, x),
+                   dw=rc.reflect_conv_dw(x, gy, w))
+        y_ref = rc.reflect_conv_plain(x, w)
+        dx_ref, dw_ref = rc.reflect_conv_plain_bwd(x, w, gy)
+        ys, s1, s2 = got["fwd_stats"]
+        m1, m2 = rc.moments_plain(ys)
+        torch.cuda.synchronize()
+
+        def rel(a, b):
+            return float((a.float() - b.float()).abs().max()
+                         / b.float().abs().max())
+
+        err = dict(fwd=rel(got["fwd"], y_ref), dx=rel(got["dx"], dx_ref),
+                   dw=rel(got["dw"], dw_ref),
+                   fwd_stats=float(max((s1 - m1).abs().max(),
+                                       (s2 - m2).abs().max())),
+                   moments_mass=float(ys.float().abs().sum()),
+                   y_stats_equal=bool(torch.equal(ys, got["fwd"])))
+        err["fwd_stats_rel"] = err["fwd_stats"] / err["moments_mass"]
+        abs_err = dict(fwd=float((got["fwd"].float() - y_ref.float()).abs().max()),
+                       fwd_stats=err["fwd_stats"],
+                       dx=float((got["dx"].float() - dx_ref.float()).abs().max()),
+                       dw=float((got["dw"].float() - dw_ref.float()).abs().max()))
+        ok = (err["fwd"] <= 1e-2 and err["dw"] <= 1e-2 and err["dx"] <= 2e-2
+              and err["fwd_stats"] <= 1e-4 * err["moments_mass"]
+              and err["y_stats_equal"]
+              and all(torch.isfinite(t).all() for t in
+                      (got["fwd"], got["dx"], got["dw"], s1, s2)))
+        print(f"reflect-conv kernels vs plain at {tag} (N,Cin,Cout,H,W)="
+              f"{(N, cin, cout, H, W)} bf16: |d|/max y {err['fwd']:.2e}, dx "
+              f"{err['dx']:.2e}, dW {err['dw']:.2e}; moments |d| "
+              f"{err['fwd_stats']:.3e} of sum|y| {err['moments_mass']:.3e} "
+              f"(tolerance: y, dW 1e-2, dx 2e-2 of the largest entry; "
+              f"moments 1e-4 of sum|y|)", flush=True)
+        if not ok:
+            fail(f"reflect-conv kernels disagree with their plain version at "
+                 f"{tag}: {err}")
+        del got, y_ref, dx_ref, dw_ref
+        xx = x.detach().requires_grad_()
+        ww = w.detach().requires_grad_()
+        yy = torch.nn.functional.conv2d(
+            torch.nn.functional.pad(xx, (1, 1, 1, 1), mode="reflect"), ww)
+        reps = 10
+        times = dict(
+            fwd=cuda_ms(lambda: rc.reflect_conv_fwd(x, w), reps),
+            fwd_stats=cuda_ms(lambda: rc.reflect_conv_fwd_stats(x, w), reps),
+            dx=cuda_ms(lambda: rc.reflect_conv_dx(gy, w, x), reps),
+            dw=cuda_ms(lambda: rc.reflect_conv_dw(x, gy, w), reps))
+        plain = dict(
+            fwd=cuda_ms(lambda: rc.reflect_conv_plain(x, w), reps),
+            fwd_stats=cuda_ms(lambda: rc.moments_plain(
+                rc.reflect_conv_plain(x, w)), reps),
+            bwd=cuda_ms(lambda: rc.reflect_conv_plain_bwd(x, w, gy), reps))
+        library = dict(
+            fwd=cuda_ms(lambda: torch.nn.functional.conv2d(
+                torch.nn.functional.pad(x, (1, 1, 1, 1), mode="reflect"), w),
+                reps),
+            bwd=cuda_ms(lambda: torch.autograd.grad(
+                yy, (xx, ww), gy, retain_graph=True), reps))
+        del yy, xx, ww
+        bounds = rconv_bounds(N, cin, cout, H, W)
+        res[tag] = dict(shape=(N, cin, cout, H, W), err=err, abs_err=abs_err,
+                        ms=times, plain_ms=plain, library_ms=library,
+                        bounds=bounds)
+        library["fwd_stats"] = library["fwd"]   # the conv alone: no moments
+        for name in ("fwd", "fwd_stats", "dx", "dw"):
+            p = plain.get(name, plain["bwd"])
+            lib = library.get(name, library["bwd"])
+            print(f"  {name:9s} {times[name]:8.3f} ms (plain {p:8.3f}, library "
+                  f"{lib:8.3f}, bound {bounds[name]['bound_ms']:.3f} by "
+                  f"{bounds[name]['bound_by']})", flush=True)
+        del x, w, gy
+        torch.cuda.empty_cache()
+    set_rconv_counts(saved)                 # comparison launches do not count
+    return res
+
+
 def conv_fwd_flops_per_image() -> int:
     """bench.py:140-151: forward conv FLOPs of the modified ResNet-18 on one
     64 px patch (stride-1 layer3/4), 2*H*W*K*K*Cin*Cout per conv."""
@@ -386,6 +540,8 @@ def profile_steps(state, step, batch, gen, n: int = 3) -> dict:
     for name, t in kernels.items():
         low = name.lower()
         kind = ("walk kernels" if low.startswith("walk_") else
+                "reflect-conv kernels" if ("rconv_gemm" in low
+                                           or "reduce_rows" in low) else
                 "convolutions" if any(w in low for w in (
                     "conv", "cudnn", "xmma", "gemm", "dgrad", "wgrad",
                     "implicit")) else
@@ -411,11 +567,17 @@ def profile_steps(state, step, batch, gen, n: int = 3) -> dict:
     return res
 
 
-def train_step_phase(n_steps: int, n_warmup: int = 3) -> dict:
-    """Phase 6: the flagship training step, ``bench.py``'s config."""
+def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
+              n_warmup: int = 3, profile: bool = False) -> dict:
+    """``bench.py``'s flagship training step with the reflect convs routed
+    by ``rconv`` / ``bn_fuse``: seeded init, ``n_warmup`` steps, then
+    ``n_steps`` timed ones with every kernel count zeroed just before and
+    read just after. Each walk kernel must run once a step and each
+    reflect-conv kernel ``expect[name]`` times a step."""
     dev = torch.device("cuda")
     cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
-                    edgedrop_rate=EDGEDROP, dtype=torch.bfloat16)
+                    edgedrop_rate=EDGEDROP, dtype=torch.bfloat16,
+                    rconv=rconv, bn_fuse=bn_fuse)
     state = create_train_state(seeded_crw(cfg, seed=0),
                                make_optimizer(lr=3e-4), device=dev)
     step = make_train_step()
@@ -427,52 +589,85 @@ def train_step_phase(n_steps: int, n_warmup: int = 3) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wk.walk_fwd.launches = wk.walk_bwd.launches = 0   # counts: this path only
+    set_rconv_counts(dict.fromkeys(expect, 0))
     t0 = time.perf_counter()
     metrics = [step(state, batch, gen) for _ in range(n_steps)]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_steps
-    launches = (wk.walk_fwd.launches, wk.walk_bwd.launches)
+    launches = dict(walk_fwd=wk.walk_fwd.launches,
+                    walk_bwd=wk.walk_bwd.launches, **rconv_counts())
     losses = [float(m["loss"]) for m in metrics]
-    if launches != (n_steps, n_steps):
-        fail(f"walk kernels launched {launches} times in {n_steps} steps")
+    want = dict(walk_fwd=n_steps, walk_bwd=n_steps,
+                **{k: v * n_steps for k, v in expect.items()})
+    tag = f"rconv={rconv!r}, bn_fuse={bn_fuse!r}"
+    if launches != want:
+        fail(f"{tag}: kernel launches {launches} in {n_steps} steps, want "
+             f"{want}")
     if not all(np.isfinite(losses)):
-        fail(f"non-finite training loss: {losses}")
+        fail(f"{tag}: non-finite training loss: {losses}")
     flops = 3 * conv_fwd_flops_per_image() * BATCH * CLIP_LEN * N_PATCHES
-    res = dict(steps=n_steps, step_ms=dt * 1e3, clips_per_s=BATCH / dt,
-               tflop_per_step=flops / 1e12, mfu=flops / dt / BF16_PEAK,
+    res = dict(rconv=rconv, bn_fuse=bn_fuse, steps=n_steps, step_ms=dt * 1e3,
+               clips_per_s=BATCH / dt, tflop_per_step=flops / 1e12,
+               mfu=flops / dt / BF16_PEAK,
                max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               losses=losses, walk_fwd_launches=launches[0],
-               walk_bwd_launches=launches[1], state_step=state.step,
+               losses=losses, launches=launches,
+               launches_per_step={k: v / n_steps for k, v in launches.items()},
+               state_step=state.step,
                acc_last={k: float(v) for k, v in metrics[-1].items()
                          if k.startswith("acc")})
-    print(f"training step, bench.py config (batch {BATCH}, {CLIP_LEN} frames, "
-          f"{N_PATCHES}x{PATCH}px patches, bf16 trunk): {res['step_ms']:.2f} "
-          f"ms/step over {n_steps} steps, {res['clips_per_s']:.2f} clips/s, "
-          f"{res['tflop_per_step']:.2f} TFLOP/step (analytic convs), MFU "
-          f"{100 * res['mfu']:.2f}% of {BF16_PEAK / 1e12:.0f} TFLOP/s bf16; "
-          f"peak memory {res['max_memory_gib']:.2f} GiB; losses "
-          f"{losses[0]:.4f} .. {losses[-1]:.4f}; walk launches {launches}",
+    print(f"training step {tag}, bench.py config (batch {BATCH}, {CLIP_LEN} "
+          f"frames, {N_PATCHES}x{PATCH}px patches, bf16 trunk): "
+          f"{res['step_ms']:.2f} ms/step over {n_steps} steps, "
+          f"{res['clips_per_s']:.2f} clips/s, {res['tflop_per_step']:.2f} "
+          f"TFLOP/step (analytic convs), MFU {100 * res['mfu']:.2f}% of "
+          f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16; peak memory "
+          f"{res['max_memory_gib']:.2f} GiB; losses {losses[0]:.4f} .. "
+          f"{losses[-1]:.4f}; launches per step {res['launches_per_step']}",
           flush=True)
-    # 3 more steps under the profiler, after the path's counts were read
-    res["profile"] = profile_steps(state, step, batch, gen)
+    if profile:   # 3 more steps, after the path's counts were read
+        res["profile"] = profile_steps(state, step, batch, gen)
+    del state, batch
+    torch.cuda.empty_cache()
     return res
 
 
+def train_step_phase(n_steps: int) -> dict:
+    """Phase 6: the flagship training step in four arms that differ only by
+    the reflect-conv route, one after another in this process: the
+    cuDNN path (``rconv='off'``), the default (``auto`` + ``stats``,
+    profiled), every supported conv with moments (``on`` + ``stats``) and
+    without (``on`` + ``off``)."""
+    arms = {}
+    for (rconv, bn_fuse), expect in ARMS:
+        default = (rconv, bn_fuse) == ("auto", "stats")
+        arms[f"{rconv}+{bn_fuse}"] = train_arm(rconv, bn_fuse, expect,
+                                               n_steps, profile=default)
+    print("A/B of the full step (same process, same seeds):", flush=True)
+    for name, a in arms.items():
+        print(f"  {name:12s} {a['step_ms']:8.2f} ms/step  "
+              f"{a['clips_per_s']:6.2f} clips/s  MFU {100 * a['mfu']:5.2f}%  "
+              f"{a['max_memory_gib']:6.2f} GiB", flush=True)
+    return arms
+
+
 def small_step_card_vs_cpu() -> dict:
-    """Phase 7: one f32 forward/backward, card (kernels) vs CPU (plain
-    versions), same weights, same clips, same edge-drop masks. Tolerances:
-    loss rtol 1e-4 and q atol 1e-4 (f32 convolutions by different
-    algorithms); gradients 2e-2 relative in L2 over all parameters (the
-    early layers' f32 gradients are badly conditioned at random weights;
-    the CPU tests measure the same spread against JAX and f64)."""
+    """Phase 7: one f32 forward/backward with every supported reflect conv
+    routed (``rconv='on'``, ``bn_fuse='stats'``), card (kernels) vs CPU
+    (plain versions), same weights, same 64 px clips, same edge-drop masks.
+    Tolerances: loss rtol 1e-4 and q atol 1e-4 (f32 convolutions by
+    different algorithms); gradients 2e-2 relative in L2 over all
+    parameters (the early layers' f32 gradients are badly conditioned at
+    random weights; the CPU tests measure the same spread against JAX and
+    f64)."""
     B, T, N = 2, 4, 4
-    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP)
+    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP, rconv="on",
+                    bn_fuse="stats")
     rng = np.random.RandomState(6)
-    x = torch.from_numpy(rng.randn(B, T, N, 32, 32, 3).astype(np.float32))
+    x = torch.from_numpy(rng.randn(B, T, N, PATCH, PATCH, 3).astype(np.float32))
     masks = [torch.from_numpy(rng.rand(B, T - 1, N, N) < EDGEDROP)
              for _ in range(2)]
     out = {}
-    before = (wk.walk_fwd.launches, wk.walk_bwd.launches)
+    before = (wk.walk_fwd.launches, wk.walk_bwd.launches, rconv_counts())
     for name in ("cuda", "cpu"):
         dev = torch.device(name)
         model = seeded_crw(cfg, seed=3).to(dev)
@@ -481,22 +676,25 @@ def small_step_card_vs_cpu() -> dict:
         loss.backward()
         out[name] = (q.detach().cpu(), float(loss.detach()),
                      {k: p.grad.cpu() for k, p in model.named_parameters()})
-    launched = (wk.walk_fwd.launches - before[0],
-                wk.walk_bwd.launches - before[1])
-    wk.walk_fwd.launches, wk.walk_bwd.launches = before  # not the path's
+    launched = dict(walk_fwd=wk.walk_fwd.launches - before[0],
+                    walk_bwd=wk.walk_bwd.launches - before[1],
+                    **{k: v - before[2][k] for k, v in rconv_counts().items()})
+    wk.walk_fwd.launches, wk.walk_bwd.launches = before[:2]  # not the path's
+    set_rconv_counts(before[2])
     (qc, lc, gc), (qh, lh, gh) = out["cuda"], out["cpu"]
     num = sum(float(((gc[k] - gh[k]) ** 2).sum()) for k in gh)
     den = sum(float((gh[k] ** 2).sum()) for k in gh)
     res = dict(loss_cuda=lc, loss_cpu=lh, loss_rel=abs(lc - lh) / abs(lh),
                q_max_abs_err=float((qc - qh).abs().max()),
                grad_rel_l2=(num / den) ** 0.5, kernel_launches=launched)
-    print(f"small f32 step (B,T,N)=({B},{T},{N}) 32px, card vs CPU: loss "
-          f"{lc:.6f} vs {lh:.6f} (rel {res['loss_rel']:.2e}), q max|d| "
-          f"{res['q_max_abs_err']:.2e}, grads rel L2 {res['grad_rel_l2']:.2e} "
-          f"(tolerance: loss rtol 1e-4, q 1e-4, grads 2e-2); walk kernel "
-          f"launches on the card {launched}", flush=True)
-    if launched != (1, 1):
-        fail("the card's small step did not go through the walk kernels")
+    print(f"small f32 step (B,T,N)=({B},{T},{N}) {PATCH}px, rconv='on', card "
+          f"vs CPU: loss {lc:.6f} vs {lh:.6f} (rel {res['loss_rel']:.2e}), q "
+          f"max|d| {res['q_max_abs_err']:.2e}, grads rel L2 "
+          f"{res['grad_rel_l2']:.2e} (tolerance: loss rtol 1e-4, q 1e-4, "
+          f"grads 2e-2); kernel launches on the card {launched}", flush=True)
+    if launched != dict(walk_fwd=1, walk_bwd=1, **ARMS[2][1]):
+        fail("the card's small step did not go through the walk and the "
+             "reflect-conv kernels")
     if not (res["loss_rel"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
             and res["grad_rel_l2"] <= 2e-2):
         fail("card and CPU training steps disagree")
@@ -536,6 +734,7 @@ def main() -> int:
     e2e = end_to_end(args.targets)
     small = small_card_vs_cpu()
     walk = walk_kernels_vs_plain()
+    rconv = rconv_kernels_vs_plain()
     train = train_step_phase(args.steps)
     small_train = small_step_card_vs_cpu()
 
@@ -546,6 +745,7 @@ def main() -> int:
         launches=e2e["launches"], max_abs_err=kp["max_abs_err"], ms=kp["ms"],
         plain_ms=kp["plain_ms"], bound_ms=kp["bound_ms"],
         bound_by=kp["bound_by"], library_ms=None)]
+    default = train["auto+stats"]
     flag = walk["flagship"]
     for d, line, err in (("fwd", 70, flag["err"]["losses"]),
                          ("bwd", 118, flag["err"]["dq"])):
@@ -553,16 +753,30 @@ def main() -> int:
             name=f"walk_{d}", route="cuda",
             source="videowalk_tpu_torch/ops/csrc/walk.cu",
             replaces=f"videowalk_tpu/ops/walk_kernel.py:{line}",
-            launches=train[f"walk_{d}_launches"], max_abs_err=err,
+            launches=default["launches"][f"walk_{d}"], max_abs_err=err,
             ms=flag[f"{d}_ms"], plain_ms=flag[f"plain_{d}_ms"],
             bound_ms=flag["bounds"][d]["bound_ms"],
             bound_by=flag["bounds"][d]["bound_by"], library_ms=None))
+    # #4 runs on the route-on, BN-unfused path; #5, #9, #10 on the default
+    rflag = rconv["flagship"]
+    for name, line, arm in (("fwd", 224, "on+off"), ("fwd_stats", 291, "auto+stats"),
+                            ("dx", 607, "auto+stats"), ("dw", 660, "auto+stats")):
+        kernels.append(dict(
+            name=f"reflect_conv_{name}", route="cuda",
+            source="videowalk_tpu_torch/ops/csrc/rconv.cu",
+            replaces=f"videowalk_tpu/ops/rconv_kernel.py:{line}",
+            launches=train[arm]["launches"][name],
+            max_abs_err=rflag["abs_err"][name], ms=rflag["ms"][name],
+            plain_ms=rflag["plain_ms"].get(name, rflag["plain_ms"]["bwd"]),
+            bound_ms=rflag["bounds"][name]["bound_ms"],
+            bound_by=rflag["bounds"][name]["bound_by"],
+            library_ms=rflag["library_ms"].get(name, rflag["library_ms"]["bwd"])))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(dict(card=smi, build_s=build_s, kernel=kp,
                            end_to_end=e2e, small=small, walk=walk,
-                           train=train, small_train=small_train,
+                           rconv=rconv, train=train, small_train=small_train,
                            kernels=kernels, ptxas=logs), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -101,6 +101,29 @@ def test_wrapper_raises_without_its_library(monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
+def test_rconv_raises_without_its_library(monkeypatch, tmp_path):
+    """The reflect-conv wrappers on a CUDA tensor: the kernel or an error,
+    never the plain version."""
+    from videowalk_tpu_torch.ops import rconv
+
+    _need_card()
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_libs", {})
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    x = torch.ones((2, 64, 8, 8), device="cuda", dtype=torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.ones((64, 64, 3, 3), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        rconv.reflect_conv3x3(x, w)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        rconv.reflect_conv3x3_stats(x, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("H,W,C,radius,topk,n_long", [
     (9, 12, 8, 3.0, 5, 1), (16, 11, 12, 4.0, 7, 2), (13, 10, 256, 5.0, 10, 1),
     (9, 20, 512, 4.0, 10, 1),      # C=512: the 16-key chunk variant

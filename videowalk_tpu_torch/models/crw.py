@@ -52,6 +52,13 @@ class CRWConfig:
     # fused walk kernels (ops/walk.py): 'auto' takes them where the config
     # allows; 'on' forces them and raises where they do not apply; 'off'
     fused_walk: str = "auto"
+    # reflect-conv kernels (ops/rconv.py): 'auto' routes the JAX package's
+    # shape set (the 8x8 interiors with C >= 512), 'on' every supported
+    # shape, 'off' none (ops/reflect_conv.py::rconv_kernel_routes)
+    rconv: str = "auto"
+    # BN fused into routed convs: 'stats' takes the moments from the conv's
+    # epilogue, 'off' reduces them apart; 'auto' (the BN-input chain) raises
+    bn_fuse: str = "stats"
 
 
 class Head(nn.Sequential):
@@ -78,7 +85,8 @@ class CRW(nn.Module):
         if cfg.fused_walk not in ("auto", "on", "off"):
             raise ValueError(f"fused_walk={cfg.fused_walk!r}: want auto | on | off")
         self.cfg = cfg
-        self.spec = make_encoder(cfg.model_type, cfg.remove_layers, cfg.dtype)
+        self.spec = make_encoder(cfg.model_type, cfg.remove_layers, cfg.dtype,
+                                 cfg.rconv, cfg.bn_fuse)
         self.encoder = self.spec.module
         self.selfsim_fc = Head(self.spec.hid_dim, cfg.head_depth,
                                bias=cfg.head_bias)

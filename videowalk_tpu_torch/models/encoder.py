@@ -56,15 +56,18 @@ def map_scale(trunk: ResNet) -> int:
 
 def make_encoder(model_type: str = "scratch",
                  remove_layers: Sequence[str] = (),
-                 dtype: torch.dtype = torch.float32) -> EncoderSpec:
+                 dtype: torch.dtype = torch.float32, rconv: str = "auto",
+                 bn_fuse: str = "stats") -> EncoderSpec:
     """``scratch``: ResNet-18, reflect padding, stride-1 layer3/4;
     ``scratch_zeropad``: the same with zeros padding. ``dtype`` is the
-    trunk's compute type (parameters stay f32). Rematerialization
+    trunk's compute type (parameters stay f32); ``rconv`` and ``bn_fuse``
+    route its reflect convs (``models/resnet.py``). Rematerialization
     (``remat_stages``) is still queued (ROADMAP.md, Queue 1 item 2)."""
     if model_type == "scratch":
-        trunk = resnet18("reflect", tuple(remove_layers), dtype)
+        trunk = resnet18("reflect", tuple(remove_layers), dtype, rconv,
+                         bn_fuse)
     elif model_type == "scratch_zeropad":
-        trunk = resnet18("zeros", tuple(remove_layers), dtype)
+        trunk = resnet18("zeros", tuple(remove_layers), dtype, rconv, bn_fuse)
     elif model_type in _QUEUED_TYPES:
         raise NotImplementedError(
             f"model type {model_type!r} is not ported yet (ROADMAP.md, "

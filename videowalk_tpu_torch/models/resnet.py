@@ -19,10 +19,17 @@ semantics, reference ``code/resnet.py``):
 
 Layout is NCHW (PyTorch's habit); module and parameter names are the
 reference ``state_dict`` names (``layer1.0.conv1.weight``,
-``layer2.0.downsample.0.weight``, ...). The train-mode BN fusions of the JAX
-package (``FusedStatsBN``, ``BNAffine``) ride on its reflect-conv kernels,
-which the port does not have yet (the JAX package's own route off every backend
-but the TPU): the BN here is the unfused one.
+``layer2.0.downsample.0.weight``, ...).
+
+Reflect convs that pass ``ops/reflect_conv.py::rconv_kernel_routes`` under
+the ``rconv`` mode (``auto``: the layer4 interiors at 8x8; ``on``: every 3x3
+stride-1 conv on 8-32 power-of-two maps) go through ``ops/rconv.py``: the
+CUDA kernels on the card, their plain versions on the CPU. With
+``bn_fuse="stats"`` (the JAX package's ``VIDEOWALK_BN_FUSE=stats``), a
+routed conv in train mode emits the following BN's moments from its
+epilogue and the BN takes them (``BatchNorm(..., moments=)``, the JAX
+``FusedStatsBN``); ``"off"`` keeps the unfused BN. The BN-input chain
+(``bn_fuse="auto"``, ``BNAffine``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +39,11 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from videowalk_tpu_torch.ops.rconv import (reflect_conv3x3,
+                                           reflect_conv3x3_stats)
+from videowalk_tpu_torch.ops.reflect_conv import (check_rconv_mode,
+                                                  rconv_kernel_routes)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1      # torch convention: new = 0.9 * running + 0.1 * batch
@@ -49,20 +61,32 @@ class BatchNorm(nn.BatchNorm2d):
     - running statistics ``0.9 * running + 0.1 * batch`` with that *biased*
       variance (``nn.BatchNorm2d`` uses the unbiased one), updated in place.
 
+    ``moments=(s1, s2)`` (train mode) are the f32 per-channel sums of ``x``
+    and ``x²`` over N·H·W, from the conv's epilogue (the JAX package's
+    ``FusedStatsBN``): mean = s1/count and var = max(0, s2/count − mean²)
+    with count = N·H·W, and no reduction over ``x``.
+
     Eval mode normalizes with the running statistics in f32."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                moments: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if not train:
             y = F.batch_norm(xf, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(self.dtype)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if moments is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            ex2 = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            count = x.numel() // x.shape[1]
+            mean, ex2 = moments[0] / count, moments[1] / count
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(1 - self.momentum).add_(
                 mean.detach(), alpha=self.momentum)
@@ -76,26 +100,53 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 class PadConv2d(nn.Conv2d):
-    """Bias-free conv with torch-style explicit padding: ``reflect`` pads
-    with ``F.pad`` and convolves unpadded; ``zeros`` uses the conv's own
-    zero padding."""
+    """Bias-free conv with torch-style explicit padding: ``reflect`` takes
+    the reflect-conv kernels where ``rconv_kernel_routes`` admits the
+    geometry under ``rconv``, else pads with ``F.pad`` and convolves
+    unpadded; ``zeros`` uses the conv's own zero padding."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
                  padding: int, padding_mode: str,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, rconv: str = "off"):
         if padding_mode not in ("zeros", "reflect"):
             raise ValueError(f"padding_mode {padding_mode!r}: want zeros | reflect")
+        check_rconv_mode(rconv)
         self.reflect_pad = padding if padding_mode == "reflect" else 0
         super().__init__(cin, cout, kernel, stride=stride,
                          padding=0 if self.reflect_pad else padding, bias=False)
         self.dtype = dtype
+        self.rconv = rconv
+
+    def routes(self, x: torch.Tensor) -> bool:
+        """Whether this conv of ``x`` takes the reflect-conv kernels."""
+        return self.reflect_pad > 0 and rconv_kernel_routes(
+            x.shape[2], x.shape[3], x.shape[1], self.out_channels,
+            self.rconv, kernel=self.kernel_size[0], stride=self.stride[0],
+            pad=self.reflect_pad)
+
+    def forward_stats(self, x: torch.Tensor):
+        """A routed conv plus the following BN's moments ``(y, s1, s2)``."""
+        return reflect_conv3x3_stats(x.to(self.dtype),
+                                     self.weight.to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
+        if self.routes(x):
+            return reflect_conv3x3(x, self.weight.to(self.dtype))
         if self.reflect_pad:
             p = self.reflect_pad
             x = F.pad(x, (p, p, p, p), mode="reflect")
         return self._conv_forward(x, self.weight.to(self.dtype), None)
+
+
+def check_bn_fuse(bn_fuse: str) -> None:
+    if bn_fuse == "auto":
+        raise NotImplementedError(
+            "bn_fuse='auto' (the BN-input chain: BNAffine and kernels #6-#8) "
+            "is not ported yet: ROADMAP.md, Queue 2, slice 4; use 'stats' or "
+            "'off'")
+    if bn_fuse not in ("stats", "off"):
+        raise ValueError(f"bn_fuse={bn_fuse!r}: want stats | off")
 
 
 class BasicBlock(nn.Module):
@@ -104,11 +155,16 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, filters: int, stride: int, padding_mode: str,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, rconv: str = "auto",
+                 bn_fuse: str = "stats"):
         super().__init__()
-        self.conv1 = PadConv2d(cin, filters, 3, stride, 1, padding_mode, dtype)
+        check_bn_fuse(bn_fuse)
+        self.bn_fuse = bn_fuse
+        self.conv1 = PadConv2d(cin, filters, 3, stride, 1, padding_mode, dtype,
+                               rconv)
         self.bn1 = BatchNorm(filters, dtype)
-        self.conv2 = PadConv2d(filters, filters, 3, 1, 1, padding_mode, dtype)
+        self.conv2 = PadConv2d(filters, filters, 3, 1, 1, padding_mode, dtype,
+                               rconv)
         self.bn2 = BatchNorm(filters, dtype)
         self.downsample = None
         if stride != 1 or cin != filters:
@@ -116,9 +172,19 @@ class BasicBlock(nn.Module):
                 PadConv2d(cin, filters, 1, stride, 0, padding_mode, dtype),
                 BatchNorm(filters, dtype)])
 
+    def _conv_bn(self, conv: PadConv2d, bn: BatchNorm, x: torch.Tensor,
+                 train: bool) -> torch.Tensor:
+        """Conv + BN, the BN's moments from the conv's epilogue where the
+        conv routes to the kernels and BN is in train mode (the JAX
+        ``_conv_bn``)."""
+        if train and self.bn_fuse == "stats" and conv.routes(x):
+            y, s1, s2 = conv.forward_stats(x)
+            return bn(y, train, moments=(s1, s2))
+        return bn(conv(x), train)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x), train))
-        y = self.bn2(self.conv2(y), train)
+        y = F.relu(self._conv_bn(self.conv1, self.bn1, x, train))
+        y = self._conv_bn(self.conv2, self.bn2, y, train)
         residual = x
         if self.downsample is not None:
             conv, bn = self.downsample
@@ -131,15 +197,19 @@ class ResNet(nn.Module):
 
     ``stage_strides`` is the per-stage first-block stride; ``(1, 2, 1, 1)``
     is torchvision's ``(1, 2, 2, 2)`` after ``modify()``. 256x256 input ->
-    32x32 map (map scale 8) with those strides.
+    32x32 map (map scale 8) with those strides. ``rconv`` and ``bn_fuse``
+    route the blocks' reflect convs (module docstring).
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  stage_strides: Sequence[int] = (1, 2, 1, 1),
                  padding_mode: str = "zeros",
                  remove_layers: Sequence[str] = (),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, rconv: str = "auto",
+                 bn_fuse: str = "stats"):
         super().__init__()
+        check_rconv_mode(rconv)
+        check_bn_fuse(bn_fuse)
         self.stage_strides = tuple(stage_strides)
         self.remove_layers = tuple(remove_layers)
         self.conv1 = PadConv2d(3, 64, 7, 2, 3, padding_mode, dtype)
@@ -154,7 +224,7 @@ class ResNet(nn.Module):
             blocks = []
             for b in range(n_blocks):
                 blocks.append(BasicBlock(cin, width, stride if b == 0 else 1,
-                                         padding_mode, dtype))
+                                         padding_mode, dtype, rconv, bn_fuse))
                 cin = width
             setattr(self, name, nn.ModuleList(blocks))
             self.stages.append(name)
@@ -171,7 +241,8 @@ class ResNet(nn.Module):
 
 
 def resnet18(padding_mode: str = "zeros", remove_layers: Sequence[str] = (),
-             dtype: torch.dtype = torch.float32) -> ResNet:
+             dtype: torch.dtype = torch.float32, rconv: str = "auto",
+             bn_fuse: str = "stats") -> ResNet:
     """ResNet-18 trunk (reference ``code/resnet.py`` ctor + ``modify``)."""
     return ResNet((2, 2, 2, 2), (1, 2, 1, 1), padding_mode, remove_layers,
-                  dtype)
+                  dtype, rconv, bn_fuse)

@@ -17,10 +17,12 @@
 // as (9, K, Nout) with tap t = 3*dy + dx.
 //
 // All four are one implicit GEMM engine (rconv_gemm): a block computes a
-// BM x BN output tile, looping over K in BK-deep steps; each step gathers
-// its A tile from device memory through the reflection (registers, then
-// shared memory, two stages so the next step's loads are in flight during
-// this step's products) and its B tile.
+// BM x BN output tile, looping over K in BK-deep steps through a ring of 4
+// shared-memory stages (3 steps in flight while one is multiplied, one
+// barrier a step). Each step's A tile is gathered through the reflection:
+// by cp.async for the forward and dW (one source row per tile row), through
+// registers for dx (a boundary pixel sums several rows); B (weights, or gy
+// for dW) by cp.async.
 //   forward  M = N*H*W output pixels, N = Cout, K = 9*Cin (tap-major). Row p
 //            of tap (dy, dx) reads x at (refl(h+dy-1), refl(w+dx-1)): the
 //            reflection is resolved in the loader and no padded copy exists.
@@ -54,9 +56,9 @@
 // bytes (~205 MB in, ~205 MB out) take 0.12 ms at 3.35 TB/s. So the passes
 // are bound by the tensor cores, and the design keeps the gathered operand
 // tiles reused across a 128 x 128 output tile (64 multiply-adds per loaded
-// element). This first version issues wmma (mma.sync) from a two-stage
-// register-staged pipeline; wgmma with TMA loads and a deeper ring is later
-// work.
+// element), and keeps 4 stages in flight at two blocks an SM to cover the
+// gather's latency. It issues wmma (mma.sync); wgmma with TMA loads is
+// later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (videowalk_tpu_torch/ops/_build.py); plain C interface, loaded with ctypes.
@@ -127,14 +129,17 @@ __device__ __forceinline__ int refl(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-// rows h of gy that tap offset d sends to input row i, through the pad
-__device__ __forceinline__ int legs(int i, int d, int n, int* out) {
-  int k = 0;
-  const int j = i - d + 1;
-  if (j >= 0 && j < n) out[k++] = j;
-  if (d == 0 && i == 1) out[k++] = 0;          // pad row -1 mirrors row 1
-  if (d == 2 && i == n - 2) out[k++] = n - 1;  // pad row n mirrors row n-2
-  return k;
+// 16-byte asynchronous copy to shared memory; zeros where !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N));
 }
 
 template <typename T, int BM_, int BN_, bool KMAJOR>
@@ -149,7 +154,8 @@ struct Cfg {
   static constexpr int B_ELEMS = BK * LDB;
   static constexpr int LDC = BN + 4;
   static constexpr int STAGE = A_ELEMS + B_ELEMS;
-  static constexpr int STAGE_BYTES = 2 * STAGE * (int)sizeof(T);
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE_BYTES = STAGES * STAGE * (int)sizeof(T);
   static constexpr int C_BYTES = BM * LDC * 4;
   static constexpr int SMEM = STAGE_BYTES > C_BYTES ? STAGE_BYTES : C_BYTES;
   static constexpr int A_VECS = BM * BK / E, B_VECS = BK * BN / E;
@@ -162,7 +168,7 @@ struct Cfg {
 // out: (M, nc) for the convolutions. part: FWD_STATS (mtiles, 2, nc)
 // moments; DW (splits, 9*kc, nc) f32 partials.
 template <typename T, int BM, int BN, int MODE>
-__global__ void __launch_bounds__(NT) rconv_gemm(
+__global__ void __launch_bounds__(NT, 2) rconv_gemm(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
     float* __restrict__ part, Geo g, int ntiles, int mtiles,
     long long kspan) {
@@ -197,104 +203,130 @@ __global__ void __launch_bounds__(NT) rconv_gemm(
   const int KT = MODE == DW
       ? (int)((k_end - k_begin + BK - 1) / BK) : 9 * kchunks;
 
-  uint4 ra[C::A_PER], rb[C::B_PER];
+  constexpr int S = C::STAGES;
+  uint4 ra[MODE == DX ? C::A_PER : 1];
   const uint4 zero = make_uint4(0, 0, 0, 0);
 
-  auto load = [&](int kt) {
+  // Where vector v of step kt's A tile comes from (every mode but DX:
+  // one source row each, the reflection resolved here); false = zeros.
+  auto a_src = [&](int kt, int v, const T*& src) -> bool {
     if constexpr (MODE == DW) {
-      const long long p0 = k_begin + (long long)kt * BK;
+      const long long p = k_begin + (long long)kt * BK + v / (BM / E);
+      const long long c = m0 + (v % (BM / E)) * E;
+      if (p >= k_end || c >= g.kc) return false;
       const int dy = t_dw / 3, dx = t_dw % 3;
-#pragma unroll
-      for (int i = 0; i < C::A_PER; ++i) {        // x tap view, (BK px, BM ch)
-        const int v = tid + i * NT;
-        const int r = v / (BM / E), cv = v % (BM / E);
-        const long long p = p0 + r;
-        const long long c = m0 + cv * E;
-        uint4 val = zero;
-        if (p < k_end && c < g.kc) {
-          const int w = (int)(p & cmask_w), h = (int)((p >> g.lw) & cmask_h);
-          const long long q = ((p >> lhw) << lhw)
-              + ((long long)refl(h + dy - 1, g.H) << g.lw) + refl(w + dx - 1, g.W);
-          val = __ldg(reinterpret_cast<const uint4*>(a + q * g.kc + c));
-        }
-        ra[i] = val;
-      }
-#pragma unroll
-      for (int i = 0; i < C::B_PER; ++i) {        // gy rows, (BK px, BN ch)
-        const int v = tid + i * NT;
-        const int r = v / (BN / E), cv = v % (BN / E);
-        const long long p = p0 + r;
-        const int n = n0 + cv * E;
-        rb[i] = (p < k_end && n < g.nc)
-            ? __ldg(reinterpret_cast<const uint4*>(b + p * g.nc + n)) : zero;
-      }
+      const int w = (int)(p & cmask_w), h = (int)((p >> g.lw) & cmask_h);
+      const long long q = ((p >> lhw) << lhw)
+          + ((long long)refl(h + dy - 1, g.H) << g.lw) + refl(w + dx - 1, g.W);
+      src = a + q * g.kc + c;
+      return true;
     } else {
       const int t = kt / kchunks;
-      const int c0 = (kt - t * kchunks) * BK;
+      const int c = (kt - t * kchunks) * BK + (v % (BK / E)) * E;
+      const long long p = m0 + v / (BK / E);
+      if (p >= g.M || c >= g.kc) return false;
       const int dy = t / 3, dx = t % 3;
-#pragma unroll
-      for (int i = 0; i < C::A_PER; ++i) {        // (BM px, BK ch)
-        const int v = tid + i * NT;
-        const int r = v / (BK / E), cv = v % (BK / E);
-        const long long p = m0 + r;
-        const int c = c0 + cv * E;
-        uint4 val = zero;
-        if (p < g.M && c < g.kc) {
-          const int w = (int)(p & cmask_w), h = (int)((p >> g.lw) & cmask_h);
-          const long long img = (p >> lhw) << lhw;
-          if constexpr (MODE == DX) {
-            int hs[2], ws[2];
-            const int nh = legs(h, dy, g.H, hs), nw = legs(w, dx, g.W, ws);
-            float acc[E];
-#pragma unroll
-            for (int e = 0; e < E; ++e) acc[e] = 0.f;
-            for (int ih = 0; ih < nh; ++ih)
-              for (int iw = 0; iw < nw; ++iw) {
-                const long long q = img + ((long long)hs[ih] << g.lw) + ws[iw];
-                Pack<T>::add(acc, __ldg(reinterpret_cast<const uint4*>(
-                                      a + q * g.kc + c)));
-              }
-            val = Pack<T>::make(acc);
-          } else {
-            const long long q = img + ((long long)refl(h + dy - 1, g.H) << g.lw)
-                + refl(w + dx - 1, g.W);
-            val = __ldg(reinterpret_cast<const uint4*>(a + q * g.kc + c));
-          }
-        }
-        ra[i] = val;
-      }
-#pragma unroll
-      for (int i = 0; i < C::B_PER; ++i) {        // weights (BK, BN)
-        const int v = tid + i * NT;
-        const int r = v / (BN / E), cv = v % (BN / E);
-        const int k = c0 + r, n = n0 + cv * E;
-        rb[i] = (k < g.kc && n < g.nc)
-            ? __ldg(reinterpret_cast<const uint4*>(
-                  b + ((long long)t * g.kc + k) * g.nc + n))
-            : zero;
-      }
+      const int w = (int)(p & cmask_w), h = (int)((p >> g.lw) & cmask_h);
+      const long long q = ((p >> lhw) << lhw)
+          + ((long long)refl(h + dy - 1, g.H) << g.lw) + refl(w + dx - 1, g.W);
+      src = a + q * g.kc + c;
+      return true;
     }
   };
-
-  auto store = [&](int s) {
+  // vector v of step kt's B tile: the weights (conv) or gy rows (dW)
+  auto b_src = [&](int kt, int v, const T*& src) -> bool {
+    const int n = n0 + (v % (BN / E)) * E;
+    const int r = v / (BN / E);
+    if constexpr (MODE == DW) {
+      const long long p = k_begin + (long long)kt * BK + r;
+      if (p >= k_end || n >= g.nc) return false;
+      src = b + p * g.nc + n;
+    } else {
+      const int t = kt / kchunks;
+      const int k = (kt - t * kchunks) * BK + r;
+      if (k >= g.kc || n >= g.nc) return false;
+      src = b + ((long long)t * g.kc + k) * g.nc + n;
+    }
+    return true;
+  };
+  // step kt's tiles into stage s by cp.async (DX's A tile: dx_load/store)
+  auto issue = [&](int kt, int s) {
     T* As = stage + s * C::STAGE;
     T* Bs = As + C::A_ELEMS;
+    if constexpr (MODE != DX) {
 #pragma unroll
-    for (int i = 0; i < C::A_PER; ++i) {
-      const int v = tid + i * NT;
-      const int rows_vecs = KMAJOR ? BM / E : BK / E;
-      const int r = v / rows_vecs, cv = v % rows_vecs;
-      *reinterpret_cast<uint4*>(As + r * C::LDA + cv * E) = ra[i];
+      for (int i = 0; i < C::A_PER; ++i) {
+        const int v = tid + i * NT;
+        constexpr int RV = KMAJOR ? BM / E : BK / E;
+        const T* src = a;
+        const bool ok = a_src(kt, v, src);
+        cp_async16(As + (v / RV) * C::LDA + (v % RV) * E, src, ok);
+      }
     }
 #pragma unroll
     for (int i = 0; i < C::B_PER; ++i) {
       const int v = tid + i * NT;
-      const int r = v / (BN / E), cv = v % (BN / E);
-      *reinterpret_cast<uint4*>(Bs + r * C::LDB + cv * E) = rb[i];
+      const T* src = b;
+      const bool ok = b_src(kt, v, src);
+      cp_async16(Bs + (v / (BN / E)) * C::LDB + (v % (BN / E)) * E, src, ok);
+    }
+  };
+  // DX's A tile: per input pixel the sum of its legs' gy rows (f32, one
+  // rounding); a pixel with one leg copies its row unchanged
+  auto dx_load = [&](int kt) {
+    if constexpr (MODE == DX) {
+      const int t = kt / kchunks;
+      const int c0 = (kt - t * kchunks) * BK;
+      const int dy = t / 3, dx = t % 3;
+#pragma unroll
+      for (int i = 0; i < C::A_PER; ++i) {
+        const int v = tid + i * NT;
+        const long long p = m0 + v / (BK / E);
+        const int c = c0 + (v % (BK / E)) * E;
+        uint4 val = zero;
+        if (p < g.M && c < g.kc) {
+          const int w = (int)(p & cmask_w), h = (int)((p >> g.lw) & cmask_h);
+          const T* img = a + ((p >> lhw) << lhw) * g.kc + c;
+          int h0 = h - dy + 1, w0 = w - dx + 1;        // the direct leg
+          if (h0 < 0 || h0 >= g.H) h0 = -1;
+          if (w0 < 0 || w0 >= g.W) w0 = -1;
+          // folded back through the pad: row -1 mirrors 1, row H mirrors H-2
+          const int h1 = (dy == 0 && h == 1) ? 0 : (dy == 2 && h == g.H - 2) ? g.H - 1 : -1;
+          const int w1 = (dx == 0 && w == 1) ? 0 : (dx == 2 && w == g.W - 2) ? g.W - 1 : -1;
+          auto row = [&](int hh, int ww) {
+            return __ldg(reinterpret_cast<const uint4*>(
+                img + ((long long)((hh << g.lw) + ww)) * g.kc));
+          };
+          if (h1 < 0 && w1 < 0) {
+            if (h0 >= 0 && w0 >= 0) val = row(h0, w0);
+          } else {
+            float acc[E];
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[e] = 0.f;
+            if (h0 >= 0 && w0 >= 0) Pack<T>::add(acc, row(h0, w0));
+            if (h0 >= 0 && w1 >= 0) Pack<T>::add(acc, row(h0, w1));
+            if (h1 >= 0 && w0 >= 0) Pack<T>::add(acc, row(h1, w0));
+            if (h1 >= 0 && w1 >= 0) Pack<T>::add(acc, row(h1, w1));
+            val = Pack<T>::make(acc);
+          }
+        }
+        ra[i] = val;
+      }
+    }
+  };
+  auto dx_store = [&](int s) {
+    if constexpr (MODE == DX) {
+      T* As = stage + s * C::STAGE;
+#pragma unroll
+      for (int i = 0; i < C::A_PER; ++i) {
+        const int v = tid + i * NT;
+        *reinterpret_cast<uint4*>(As + (v / (BK / E)) * C::LDA
+                                  + (v % (BK / E)) * E) = ra[i];
+      }
     }
   };
 
-  // ---- main loop
+  // ---- main loop: S stages in flight, one barrier per step
   constexpr bool TC = sizeof(T) == 2;
   constexpr int WM = BM / 2, WN = BN / 4, FM = WM / 16, FN = WN / 16;
   constexpr int RM = BM / 16, RN = BN / 16;
@@ -316,14 +348,7 @@ __global__ void __launch_bounds__(NT) rconv_gemm(
       for (int j = 0; j < RN; ++j) racc[i][j] = 0.f;
   }
 
-  if (KT > 0) {
-    load(0);
-    store(0);
-  }
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < KT) load(kt + 1);
+  auto compute = [&](int s) {
     const T* As = stage + s * C::STAGE;
     const T* Bs = As + C::A_ELEMS;
     if constexpr (TC) {
@@ -366,9 +391,31 @@ __global__ void __launch_bounds__(NT) rconv_gemm(
           for (int j = 0; j < RN; ++j) racc[i][j] = fmaf(av[i], bv[j], racc[i][j]);
       }
     }
-    if (kt + 1 < KT) store(s ^ 1);
-    __syncthreads();
+  };
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < KT) {
+      issue(s, s);
+      dx_load(s);
+      dx_store(s);
+    }
+    cp_async_commit();
   }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<S - 2>();
+    __syncthreads();          // step kt has landed; step kt-1's stage is free
+    const int nk = kt + S - 1;
+    if (nk < KT) {
+      issue(nk, nk % S);
+      dx_load(nk);
+    }
+    cp_async_commit();
+    compute(kt % S);
+    if (nk < KT) dx_store(nk % S);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 
   // ---- epilogue: the f32 tile through shared memory
   float* Cs = reinterpret_cast<float*>(smem);

@@ -205,7 +205,6 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
 
   constexpr int S = C::STAGES;
   uint4 ra[MODE == DX ? C::A_PER : 1];
-  const uint4 zero = make_uint4(0, 0, 0, 0);
 
   // Where vector v of step kt's A tile comes from (every mode but DX:
   // one source row each, the reflection resolved here); false = zeros.
@@ -249,7 +248,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
     }
     return true;
   };
-  // step kt's tiles into stage s by cp.async (DX's A tile: dx_load/store)
+  // step kt's tiles into stage s by cp.async (DX's A tile: dx_issue)
   auto issue = [&](int kt, int s) {
     T* As = stage + s * C::STAGE;
     T* Bs = As + C::A_ELEMS;
@@ -271,10 +270,14 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
       cp_async16(Bs + (v / (BN / E)) * C::LDB + (v % (BN / E)) * E, src, ok);
     }
   };
-  // DX's A tile: per input pixel the sum of its legs' gy rows (f32, one
-  // rounding); a pixel with one leg copies its row unchanged
-  auto dx_load = [&](int kt) {
+  // DX's A tile: per input pixel the sum of its legs' gy rows. A pixel with
+  // one leg (or none) copies its row (or zeros) by cp.async into stage s; a
+  // boundary pixel with several sums them in f32 here, rounds once, and
+  // dx_store writes the sum after this step's products.
+  bool held[MODE == DX ? C::A_PER : 1];
+  auto dx_issue = [&](int kt, int s) {
     if constexpr (MODE == DX) {
+      T* As = stage + s * C::STAGE;
       const int t = kt / kchunks;
       const int c0 = (kt - t * kchunks) * BK;
       const int dy = t / 3, dx = t % 3;
@@ -283,34 +286,41 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
         const int v = tid + i * NT;
         const long long p = m0 + v / (BK / E);
         const int c = c0 + (v % (BK / E)) * E;
-        uint4 val = zero;
-        if (p < g.M && c < g.kc) {
-          const int w = (int)(p & cmask_w), h = (int)((p >> g.lw) & cmask_h);
-          const T* img = a + ((p >> lhw) << lhw) * g.kc + c;
-          int h0 = h - dy + 1, w0 = w - dx + 1;        // the direct leg
-          if (h0 < 0 || h0 >= g.H) h0 = -1;
-          if (w0 < 0 || w0 >= g.W) w0 = -1;
-          // folded back through the pad: row -1 mirrors 1, row H mirrors H-2
-          const int h1 = (dy == 0 && h == 1) ? 0 : (dy == 2 && h == g.H - 2) ? g.H - 1 : -1;
-          const int w1 = (dx == 0 && w == 1) ? 0 : (dx == 2 && w == g.W - 2) ? g.W - 1 : -1;
-          auto row = [&](int hh, int ww) {
-            return __ldg(reinterpret_cast<const uint4*>(
-                img + ((long long)((hh << g.lw) + ww)) * g.kc));
-          };
-          if (h1 < 0 && w1 < 0) {
-            if (h0 >= 0 && w0 >= 0) val = row(h0, w0);
-          } else {
-            float acc[E];
-#pragma unroll
-            for (int e = 0; e < E; ++e) acc[e] = 0.f;
-            if (h0 >= 0 && w0 >= 0) Pack<T>::add(acc, row(h0, w0));
-            if (h0 >= 0 && w1 >= 0) Pack<T>::add(acc, row(h0, w1));
-            if (h1 >= 0 && w0 >= 0) Pack<T>::add(acc, row(h1, w0));
-            if (h1 >= 0 && w1 >= 0) Pack<T>::add(acc, row(h1, w1));
-            val = Pack<T>::make(acc);
-          }
+        T* dst = As + (v / (BK / E)) * C::LDA + (v % (BK / E)) * E;
+        held[i] = false;
+        if (p >= g.M || c >= g.kc) {
+          cp_async16(dst, a, false);
+          continue;
         }
-        ra[i] = val;
+        const int w = (int)(p & cmask_w), h = (int)((p >> g.lw) & cmask_h);
+        const T* img = a + ((p >> lhw) << lhw) * g.kc + c;
+        int h0 = h - dy + 1, w0 = w - dx + 1;        // the direct leg
+        if (h0 < 0 || h0 >= g.H) h0 = -1;
+        if (w0 < 0 || w0 >= g.W) w0 = -1;
+        // folded back through the pad: row -1 mirrors 1, row H mirrors H-2
+        const int h1 = (dy == 0 && h == 1) ? 0 : (dy == 2 && h == g.H - 2) ? g.H - 1 : -1;
+        const int w1 = (dx == 0 && w == 1) ? 0 : (dx == 2 && w == g.W - 2) ? g.W - 1 : -1;
+        auto row = [&](int hh, int ww) {
+          return img + ((long long)((hh << g.lw) + ww)) * g.kc;
+        };
+        if (h1 < 0 && w1 < 0) {
+          const bool ok = h0 >= 0 && w0 >= 0;
+          cp_async16(dst, ok ? row(h0, w0) : a, ok);
+          continue;
+        }
+        float acc[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] = 0.f;
+        auto add = [&](int hh, int ww) {
+          if (hh >= 0 && ww >= 0)
+            Pack<T>::add(acc, __ldg(reinterpret_cast<const uint4*>(row(hh, ww))));
+        };
+        add(h0, w0);
+        add(h0, w1);
+        add(h1, w0);
+        add(h1, w1);
+        ra[i] = Pack<T>::make(acc);
+        held[i] = true;
       }
     }
   };
@@ -320,8 +330,9 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
 #pragma unroll
       for (int i = 0; i < C::A_PER; ++i) {
         const int v = tid + i * NT;
-        *reinterpret_cast<uint4*>(As + (v / (BK / E)) * C::LDA
-                                  + (v % (BK / E)) * E) = ra[i];
+        if (held[i])
+          *reinterpret_cast<uint4*>(As + (v / (BK / E)) * C::LDA
+                                    + (v % (BK / E)) * E) = ra[i];
       }
     }
   };
@@ -397,7 +408,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
   for (int s = 0; s < S - 1; ++s) {
     if (s < KT) {
       issue(s, s);
-      dx_load(s);
+      dx_issue(s, s);
       dx_store(s);
     }
     cp_async_commit();
@@ -408,7 +419,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
     const int nk = kt + S - 1;
     if (nk < KT) {
       issue(nk, nk % S);
-      dx_load(nk);
+      dx_issue(nk, nk % S);
     }
     cp_async_commit();
     compute(kt % S);
@@ -537,7 +548,9 @@ cudaError_t launch_gemm(const void* a, const void* b, void* out, float* part,
 }
 
 constexpr int conv_bm(int dtype) { return dtype == 1 ? 128 : 64; }
-constexpr int DW_BM = 64;
+// dW's tile rows (Cin per tap): 128 where Cin > 64 in bf16, which halves
+// the weight-gradient tiles' re-reads of x and gy from L2
+int dw_bm(int dtype, int cin) { return dtype == 1 && cin > 64 ? 128 : 64; }
 
 template <int MODE>
 cudaError_t conv(int dtype, const void* a, const void* w, void* out, float* part,
@@ -562,7 +575,8 @@ int rconv_conv_bm(int dtype) { return conv_bm(dtype); }
 
 // dW's K splits: enough blocks for ~4 waves on 132 SMs, >= 8 K steps each
 int rconv_dw_splits(int dtype, int N, int H, int W, int cin, int cout) {
-  const long long tiles = 9LL * ((cin + DW_BM - 1) / DW_BM)
+  const int bm = dw_bm(dtype, cin);
+  const long long tiles = 9LL * ((cin + bm - 1) / bm)
       * ((cout + dw_bn(dtype, cout) - 1) / dw_bn(dtype, cout));
   const long long steps = ((long long)N * H * W + 31) / 32;
   long long s = (4 * 132 + tiles - 1) / tiles;
@@ -604,17 +618,23 @@ int rconv_dw_launch(const void* x, const void* gy, void* part, void* dw,
                     int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g = make_geo(N, H, W, cin, cout);
-  const int mtiles = 9 * ((cin + DW_BM - 1) / DW_BM);
+  const int bm = dw_bm(dtype, cin);
+  const int mtiles = 9 * ((cin + bm - 1) / bm);
   const long long steps = (g.M + 31) / 32;
   const long long kspan = ((steps + splits - 1) / splits) * 32;
   float* p = static_cast<float*>(part);
   cudaError_t e;
   if (dtype == 1) {
-    e = dw_bn(dtype, cout) == 128
-        ? launch_gemm<__nv_bfloat16, DW_BM, 128, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st)
-        : launch_gemm<__nv_bfloat16, DW_BM, 64, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
+    if (bm == 128 && dw_bn(dtype, cout) == 128)
+      e = launch_gemm<__nv_bfloat16, 128, 128, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
+    else if (bm == 128)
+      e = launch_gemm<__nv_bfloat16, 128, 64, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
+    else if (dw_bn(dtype, cout) == 128)
+      e = launch_gemm<__nv_bfloat16, 64, 128, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
+    else
+      e = launch_gemm<__nv_bfloat16, 64, 64, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
   } else {
-    e = launch_gemm<float, DW_BM, 64, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
+    e = launch_gemm<float, 64, 64, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
   }
   if (e != cudaSuccess) return (int)e;
   const long long n = 9LL * cin * cout;

@@ -470,12 +470,12 @@ def rconv_kernels_vs_plain() -> dict:
                 reps),
             bwd=cuda_ms(lambda: torch.autograd.grad(
                 yy, (xx, ww), gy, retain_graph=True), reps))
+        library["fwd_stats"] = library["fwd"]   # no one call adds the moments
         del yy, xx, ww
         bounds = rconv_bounds(N, cin, cout, H, W)
         res[tag] = dict(shape=(N, cin, cout, H, W), err=err, abs_err=abs_err,
                         ms=times, plain_ms=plain, library_ms=library,
                         bounds=bounds)
-        library["fwd_stats"] = library["fwd"]   # the conv alone: no moments
         for name in ("fwd", "fwd_stats", "dx", "dw"):
             p = plain.get(name, plain["bwd"])
             lib = library.get(name, library["bwd"])

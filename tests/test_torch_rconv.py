@@ -242,7 +242,7 @@ def test_basic_blocks_route_on_stats_match_jax(monkeypatch):
     loss = (y * _nchw(ct)).sum()
     loss.backward()
     assert (len(fwd), len(dxs), len(dws)) == (4, 3, 4)   # x needs no grad
-    np.testing.assert_allclose(float(loss), float(l_j), rtol=1e-5)
+    np.testing.assert_allclose(float(loss.detach()), float(l_j), rtol=1e-5)
     state = model.state_dict()
     for k, v in state_from_flax({"batch_stats": jax.tree_util.tree_map(
             np.asarray, stats_j)}).items():

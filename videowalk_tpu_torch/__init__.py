@@ -12,10 +12,12 @@ training step (``parallel.make_train_step``):
 
 utils     device resolution, checkpoint (.pth / flax-tree) loading, colors
 core      walk-loss math: affinities, ZeroSoftmax, palindrome products
-models    ResNet-18 trunk (flax-semantics BN, bf16 compute), encoder
-          factory, CRW (patch and whole-frame nodes, walk loss)
+models    ResNet-18 trunk (flax-semantics BN, bf16 compute, reflect convs
+          routed to the reflect-conv kernels with BN moments fused),
+          encoder factory, CRW (patch and whole-frame nodes, walk loss)
 ops       CUDA kernels + their plain PyTorch versions: block-sparse top-k
-          propagation, fused palindrome walk (forward and backward)
+          propagation, fused palindrome walk (forward and backward),
+          3x3 reflect conv (forward, + BN moments, dx, dW) and its route
 parallel  optimizer, train state, train step
 eval      context bank + autoregressive propagation, prediction dumping
 data      DAVIS-style VOS dataset

@@ -11,10 +11,11 @@ like the JAX ``__call__``, or ``(q, maps)`` with ``just_feats``:
 - whole frames ``(B, T, h, w, 3)``: one node per feature cell (the
   evaluator's path).
 
-The walk loss takes the fused kernel (``ops/walk.py``) where the config
-allows (ZeroSoftmax, no flip, no zeroed diagonal, T <= 10, N <= 128,
-C <= 512): on a CUDA tensor the CUDA kernels, on a CPU tensor their plain
-version. Elsewhere it takes ``core/walk.py``. Random numbers (edge dropout,
+The trunk's reflect convs take the reflect-conv kernels where ``rconv``
+routes them (``models/resnet.py``). The walk loss takes the fused kernel
+(``ops/walk.py``) where the config allows (ZeroSoftmax, no flip, no zeroed
+diagonal, T <= 10, N <= 128, C <= 512): on a CUDA tensor the CUDA
+kernels, on a CPU tensor their plain version. Elsewhere it takes ``core/walk.py``. Random numbers (edge dropout,
 featdrop) come from the ``generator`` argument. The superpixel path is
 still queued (ROADMAP.md, Queue 1 item 4). ``state_dict`` names are the
 reference's (``encoder.model.layer1.0.conv1.weight``, ``selfsim_fc.0.weight``).

@@ -87,6 +87,11 @@ RCONV_SHAPES = (("flagship", 3136, 512, 512, 8, 8),     # layer4 interior
                 ("layer1", 3136, 64, 64, 16, 16),
                 ("cin_ne_cout", 3136, 128, 256, 8, 8),  # layer3.0.conv1
                 ("32x32", 196, 512, 512, 32, 32))       # the same pixels
+# #5's moments against the f32 sums of a y, per channel: s1 within MOM_TOL
+# of that channel's sum |y|, s2 within MOM_TOL of its sum y^2. "own": the
+# kernel's own cast y (the same values summed in another order); "ref": the
+# plain version's y (whose bf16 roundings may differ from the kernel's)
+MOM_TOL = dict(own=1e-5, ref=2e-5)
 RCONV = (("fwd", rc.reflect_conv_fwd), ("fwd_stats", rc.reflect_conv_fwd_stats),
          ("dx", rc.reflect_conv_dx), ("dw", rc.reflect_conv_dw))
 # training arms: (rconv, bn_fuse) -> reflect-conv launches per step
@@ -385,19 +390,29 @@ def rconv_bounds(N, cin, cout, H, W, itemsize=2, peak=BF16_PEAK) -> dict:
     return out
 
 
+def moment_err(s1, s2, y) -> float:
+    """The largest per-channel error of ``(s1, s2)`` against the f32 sums
+    of ``y``: |s1 - sum y| / sum |y| and |s2 - sum y^2| / sum y^2."""
+    yf = y.float()
+    m1, m2 = yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))
+    return float(torch.maximum((s1 - m1).abs() / yf.abs().sum((0, 2, 3)),
+                               (s2 - m2).abs() / m2).max())
+
+
 def rconv_kernels_vs_plain() -> dict:
     """The reflect-conv kernels #4, #5, #9, #10 against their plain version
     on the same bf16 inputs at the step's shapes, and their times.
     Tolerances, relative to each output's largest entry: y and dW 1e-2, dx
     2e-2 (each side rounds f32 sums to bf16, ~4e-3; the plain dx rounds the
-    padded gradient before folding the pad back); moments against the
-    kernel's own cast y within 1e-4 of sum|y| (f32 sums in another order).
-    ``plain_ms`` is the plain version as the wrapper would call it
+    padded gradient before folding the pad back); moments per channel, as
+    ``MOM_TOL`` states, against the kernel's own cast y and the plain y.
+    Two planted faults (s1 zeroed; one forward tile of rows left out of
+    both sums) must fail that check. ``plain_ms`` is the plain version as the wrapper would call it
     (forward: ``F.pad`` + ``conv2d``, + its f32 sums for the moments;
     backward: autograd of the same, dx and dW together); ``library_ms`` is
-    one PyTorch call of the same function, ``F.pad`` + cuDNN ``conv2d``
-    forward, and the autograd backward (dx and dW together) on a kept
-    graph."""
+    the PyTorch calls of the same function: ``F.pad`` + cuDNN ``conv2d``
+    forward (followed by the f32 sums of y and y^2 for the moments), and
+    the autograd backward (dx and dW together) on a kept graph."""
     res = {}
     saved = rconv_counts()
     for tag, N, cin, cout, H, W in RCONV_SHAPES:
@@ -416,7 +431,11 @@ def rconv_kernels_vs_plain() -> dict:
         y_ref = rc.reflect_conv_plain(x, w)
         dx_ref, dw_ref = rc.reflect_conv_plain_bwd(x, w, gy)
         ys, s1, s2 = got["fwd_stats"]
-        m1, m2 = rc.moments_plain(ys)
+        tile = ys.permute(0, 2, 3, 1).reshape(-1, cout)[
+            :rc._lib().rconv_conv_bm(1)].float()
+        faults = dict(s1_zeroed=(torch.zeros_like(s1), s2),
+                      tile_left_out=(s1 - tile.sum(0),
+                                     s2 - (tile * tile).sum(0)))
         torch.cuda.synchronize()
 
         def rel(a, b):
@@ -425,30 +444,40 @@ def rconv_kernels_vs_plain() -> dict:
 
         err = dict(fwd=rel(got["fwd"], y_ref), dx=rel(got["dx"], dx_ref),
                    dw=rel(got["dw"], dw_ref),
-                   fwd_stats=float(max((s1 - m1).abs().max(),
-                                       (s2 - m2).abs().max())),
-                   moments_mass=float(ys.float().abs().sum()),
+                   moments_own=moment_err(s1, s2, ys),
+                   moments_ref=moment_err(s1, s2, y_ref),
+                   planted={k: dict(own=moment_err(*f, ys),
+                                    ref=moment_err(*f, y_ref))
+                            for k, f in faults.items()},
                    y_stats_equal=bool(torch.equal(ys, got["fwd"])))
-        err["fwd_stats_rel"] = err["fwd_stats"] / err["moments_mass"]
+        m1, m2 = rc.moments_plain(y_ref)
         abs_err = dict(fwd=float((got["fwd"].float() - y_ref.float()).abs().max()),
-                       fwd_stats=err["fwd_stats"],
+                       fwd_stats=float(max((s1 - m1).abs().max(),
+                                           (s2 - m2).abs().max())),
                        dx=float((got["dx"].float() - dx_ref.float()).abs().max()),
                        dw=float((got["dw"].float() - dw_ref.float()).abs().max()))
         ok = (err["fwd"] <= 1e-2 and err["dw"] <= 1e-2 and err["dx"] <= 2e-2
-              and err["fwd_stats"] <= 1e-4 * err["moments_mass"]
+              and err["moments_own"] <= MOM_TOL["own"]
+              and err["moments_ref"] <= MOM_TOL["ref"]
               and err["y_stats_equal"]
               and all(torch.isfinite(t).all() for t in
                       (got["fwd"], got["dx"], got["dw"], s1, s2)))
         print(f"reflect-conv kernels vs plain at {tag} (N,Cin,Cout,H,W)="
               f"{(N, cin, cout, H, W)} bf16: |d|/max y {err['fwd']:.2e}, dx "
-              f"{err['dx']:.2e}, dW {err['dw']:.2e}; moments |d| "
-              f"{err['fwd_stats']:.3e} of sum|y| {err['moments_mass']:.3e} "
-              f"(tolerance: y, dW 1e-2, dx 2e-2 of the largest entry; "
-              f"moments 1e-4 of sum|y|)", flush=True)
+              f"{err['dx']:.2e}, dW {err['dw']:.2e}; moments per channel "
+              f"{err['moments_own']:.2e} of the kernel's y, "
+              f"{err['moments_ref']:.2e} of the plain y; planted faults "
+              f"{err['planted']} (tolerance: y, dW 1e-2, dx 2e-2 of the "
+              f"largest entry; moments {MOM_TOL} of each channel's sum |y| "
+              f"and sum y^2)", flush=True)
         if not ok:
             fail(f"reflect-conv kernels disagree with their plain version at "
                  f"{tag}: {err}")
-        del got, y_ref, dx_ref, dw_ref
+        if any(v[k] <= MOM_TOL[k] for v in err["planted"].values()
+               for k in MOM_TOL):
+            fail(f"the moment check passes a planted fault at {tag}: "
+                 f"{err['planted']}")
+        del got, y_ref, dx_ref, dw_ref, tile, faults
         xx = x.detach().requires_grad_()
         ww = w.detach().requires_grad_()
         yy = torch.nn.functional.conv2d(
@@ -470,7 +499,9 @@ def rconv_kernels_vs_plain() -> dict:
                 reps),
             bwd=cuda_ms(lambda: torch.autograd.grad(
                 yy, (xx, ww), gy, retain_graph=True), reps))
-        library["fwd_stats"] = library["fwd"]   # no one call adds the moments
+        library["fwd_stats"] = cuda_ms(lambda: rc.moments_plain(
+            torch.nn.functional.conv2d(torch.nn.functional.pad(
+                x, (1, 1, 1, 1), mode="reflect"), w)), reps)
         del yy, xx, ww
         bounds = rconv_bounds(N, cin, cout, H, W)
         res[tag] = dict(shape=(N, cin, cout, H, W), err=err, abs_err=abs_err,

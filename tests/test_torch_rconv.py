@@ -107,21 +107,26 @@ def test_reflect_conv3x3_stats_matches_jax():
 def test_reflect_conv3x3_bf16_forward_matches_jax():
     """bf16 operands, f32 accumulation, bf16 output on both sides:
     tolerance 1e-2 of the largest entry (each side rounds its f32 sums to
-    bf16 once, ~4e-3). The moments are those of each side's own cast y,
-    within 1e-3 of Σ|y|."""
+    bf16 once, ~4e-3). The moments are f32 sums of each side's own cast y,
+    held per channel: s1 within 1e-5 of that channel's Σ|y| and s2 within
+    1e-5 of its Σy² (the same values summed in another order), plus what
+    the two cast y differ by in that channel (nothing at this shape)."""
     x, w = _rand((2, 8, 8, 16), 4), _rand((3, 3, 16, 32), 5, 0.1)
     xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
-    y_j, s1_j, _ = jrk.reflect_conv3x3_stats(xb, wb)
+    y_j, s1_j, s2_j = jrk.reflect_conv3x3_stats(xb, wb)
     assert y_j.dtype == jnp.bfloat16
     xt, wt = _nchw(x).bfloat16(), _oihw(w).bfloat16()
     y = rc.reflect_conv3x3(xt, wt)
-    ys, s1, _ = rc.reflect_conv3x3_stats(xt, wt)
+    ys, s1, s2 = rc.reflect_conv3x3_stats(xt, wt)
     assert y.dtype == ys.dtype == torch.bfloat16
     assert torch.equal(y, ys)
     _close(_nhwc(y), np.asarray(y_j, np.float32), 1e-2, "y")
-    mass = float(np.abs(np.asarray(y_j, np.float32)).sum())
-    np.testing.assert_allclose(s1.numpy(), np.asarray(s1_j), rtol=0,
-                               atol=1e-3 * mass)
+    yp, yj = _nhwc(ys), np.asarray(y_j, np.float32)
+    axes = (0, 1, 2)
+    lim1 = 1e-5 * np.abs(yj).sum(axes) + np.abs(yp - yj).sum(axes)
+    lim2 = 1e-5 * (yj ** 2).sum(axes) + np.abs(yp ** 2 - yj ** 2).sum(axes)
+    assert np.all(np.abs(s1.numpy() - np.asarray(s1_j)) <= lim1)
+    assert np.all(np.abs(s2.numpy() - np.asarray(s2_j)) <= lim2)
 
 
 def _jax_routes(monkeypatch, H, W, C, F, k=3, s=1, p=1, **env):
@@ -140,26 +145,18 @@ _GRID = [(H, W, C, F, k, s, p)
 
 
 def test_routes_match_jax(monkeypatch):
-    """``on``/``off`` over a grid of geometries, and ``auto`` with each of
-    the JAX package's knobs (its backend pinned to 'tpu': the port's gate
-    has no backend term)."""
+    """``on``, ``off`` and ``auto`` over a grid of geometries, the JAX
+    package's shape knobs at their defaults (its backend pinned to 'tpu':
+    the port's gate has no backend term)."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    knobs = [({}, {}),
-             ({"VIDEOWALK_RCONV_MIN_C": "256"}, {"min_c": 256}),
-             ({"VIDEOWALK_RCONV_ALLOW16": "1"}, {"allow16": True}),
-             ({"VIDEOWALK_RCONV_ALLOW32": "0"}, {"allow32": False})]
     n_true = 0
     for H, W, C, F, k, s, p in _GRID:
-        for mode in ("on", "off"):
+        for mode in ("on", "off", "auto"):
             want = _jax_routes(monkeypatch, H, W, C, F, k, s, p,
                                VIDEOWALK_RCONV=mode)
             assert rconv_kernel_routes(H, W, C, F, mode, kernel=k, stride=s,
                                        pad=p) == want
-        for env, kw in knobs:
-            want = _jax_routes(monkeypatch, H, W, C, F, k, s, p, **env)
-            assert rconv_kernel_routes(H, W, C, F, "auto", kernel=k,
-                                       stride=s, pad=p, **kw) == want
-            n_true += want
+            n_true += want and mode == "auto"
     assert n_true > 0
     with pytest.raises(ValueError, match="auto | on | off"):
         rconv_kernel_routes(8, 8, 512, 512, "maybe")

@@ -7,8 +7,12 @@ Tolerances, relative to each output's largest entry: f32 1e-5 (the same
 f32 products summed in another order; TF32 off); bf16 y and dW 1e-2 and dx
 2e-2 (both sides round f32 sums to bf16 once, ~4e-3, and the plain dx
 rounds the padded gradient before folding the pad back, the kernel the
-folded gy sum). Moments relative to Σ|y| (the same cast y summed in another
-order): f32 1e-5, bf16 1e-4.
+folded gy sum). Moments per channel, s1 relative to that channel's Σ|y| and
+s2 to its Σy²: against the kernel's own cast y 1e-5 (the same values summed
+in another order); against the plain y f32 1e-5 and bf16 1e-3 (where the
+two sides round a y entry to bf16 differently, its channel's sums move by
+one bf16 ulp, up to 2^-7 of that entry: ~1e-4 of a 256-row channel's Σ|y|
+for an entry of 3 standard deviations).
 
 Runs on the card's machine with ``--noconftest`` (no jax there)."""
 
@@ -20,8 +24,8 @@ from videowalk_tpu_torch.ops import rconv as rc
 
 torch.set_num_threads(1)
 
-TOL = {torch.float32: dict(y=1e-5, dx=1e-5, dw=1e-5, mom=1e-5),
-       torch.bfloat16: dict(y=1e-2, dx=2e-2, dw=1e-2, mom=1e-4)}
+TOL = {torch.float32: dict(y=1e-5, dx=1e-5, dw=1e-5, mom=1e-5, mom_ref=1e-5),
+       torch.bfloat16: dict(y=1e-2, dx=2e-2, dw=1e-2, mom=1e-5, mom_ref=1e-3)}
 
 
 def _need_card():
@@ -50,6 +54,15 @@ def _close(name, got, want, rel):
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     assert err <= rel * max(scale, 1e-30), (name, err, scale)
+
+
+def _moment_err(s1, s2, y):
+    """Per channel |s1 - Σy| / Σ|y| and |s2 - Σy²| / Σy² (f32 sums of y),
+    the largest over channels."""
+    yf = y.float()
+    m1, m2 = yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))
+    return float(torch.maximum((s1 - m1).abs() / yf.abs().sum((0, 2, 3)),
+                               (s2 - m2).abs() / m2).max())
 
 
 def test_wrappers_refuse_other_devices():
@@ -100,12 +113,9 @@ def test_kernels_match_plain_on_card(N, cin, cout, H, W, dtype):
     _close("y", y, y_ref, tol["y"])
     _close("dx", dx, dx_ref, tol["dx"])
     _close("dw", dw, dw_ref, tol["dw"])
-    # moments of the kernel's own cast y, against Σ|y|
-    m1, m2 = rc.moments_plain(ys)
-    mass = float(ys.float().abs().sum())
-    assert float((s1 - m1).abs().max()) <= tol["mom"] * mass
-    assert float((s2 - m2).abs().max()) <= tol["mom"] * float(
-        (ys.float() ** 2).sum())
+    # moments per channel, of the kernel's own cast y and of the plain y
+    assert _moment_err(s1, s2, ys) <= tol["mom"]
+    assert _moment_err(s1, s2, y_ref) <= tol["mom_ref"]
     # deterministic: no atomics in the moment or dW reductions
     _, s1b, s2b = rc.reflect_conv_fwd_stats(x, w)
     assert torch.equal(s1, s1b) and torch.equal(s2, s2b)

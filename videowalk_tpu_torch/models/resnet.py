@@ -107,7 +107,7 @@ class PadConv2d(nn.Conv2d):
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
                  padding: int, padding_mode: str,
-                 dtype: torch.dtype = torch.float32, rconv: str = "off"):
+                 dtype: torch.dtype, rconv: str):
         if padding_mode not in ("zeros", "reflect"):
             raise ValueError(f"padding_mode {padding_mode!r}: want zeros | reflect")
         check_rconv_mode(rconv)
@@ -169,7 +169,8 @@ class BasicBlock(nn.Module):
         self.downsample = None
         if stride != 1 or cin != filters:
             self.downsample = nn.ModuleList([
-                PadConv2d(cin, filters, 1, stride, 0, padding_mode, dtype),
+                PadConv2d(cin, filters, 1, stride, 0, padding_mode, dtype,
+                          "off"),
                 BatchNorm(filters, dtype)])
 
     def _conv_bn(self, conv: PadConv2d, bn: BatchNorm, x: torch.Tensor,
@@ -212,7 +213,7 @@ class ResNet(nn.Module):
         check_bn_fuse(bn_fuse)
         self.stage_strides = tuple(stage_strides)
         self.remove_layers = tuple(remove_layers)
-        self.conv1 = PadConv2d(3, 64, 7, 2, 3, padding_mode, dtype)
+        self.conv1 = PadConv2d(3, 64, 7, 2, 3, padding_mode, dtype, "off")
         self.bn1 = BatchNorm(64, dtype)
         cin = 64
         self.stages = []

@@ -2,8 +2,9 @@
 (counterpart of ``videowalk_tpu/ops/reflect_conv.py::rconv_kernel_routes``).
 
 The JAX package reads its gates from the environment (``VIDEOWALK_RCONV``,
-``VIDEOWALK_RCONV_MIN_C``, ``_ALLOW16``, ``_ALLOW32``); here they are
-arguments, with the same defaults. Its ``jax.default_backend() == "tpu"``
+``VIDEOWALK_RCONV_MIN_C``, ``_ALLOW16``, ``_ALLOW32``); here the mode is an
+argument and the shape thresholds are the JAX defaults, fixed until an A/B
+on the card needs to move them. Its ``jax.default_backend() == "tpu"``
 term becomes "any device": the tensor's device then picks the CUDA kernel
 or its plain PyTorch version (``ops/rconv.py``). The XLA-only rewrites of
 that module (the strip and ring-dots modes, the CPU im2col lowering) are
@@ -24,25 +25,18 @@ def check_rconv_mode(mode: str) -> None:
 
 
 def rconv_kernel_routes(H: int, W: int, C: int, features: int,
-                        mode: str = "auto", min_c: int = 512,
-                        allow16: bool = False, allow32: bool = True,
-                        kernel: int = 3, stride: int = 1,
+                        mode: str = "auto", kernel: int = 3, stride: int = 1,
                         pad: int = 1) -> bool:
     """True iff a reflect conv of this geometry (input ``H x W x C``,
     ``features`` outputs) takes the reflect-conv kernels.
 
     ``off``: never. ``on``: every shape ``rconv_supported`` takes. ``auto``
-    (the default): the JAX package's measured shape set, interior convs
-    (``C == features``) with ``C >= min_c`` on 8x8 maps, 16x16 maps with
-    ``allow16``, 32x32 maps unless ``allow32`` is off. Those thresholds
-    come from the JAX package; the port keeps them until an A/B on the
-    card moves them."""
+    (the default): the JAX package's measured shape set at its defaults,
+    interior convs (``C == features``) with ``C >= 512`` on 8x8 or 32x32
+    maps."""
     check_rconv_mode(mode)
     if mode == "off" or not rconv_supported(H, W, kernel, stride, pad):
         return False
     if mode == "on":
         return True
-    shape_ok = ((H == 8 and W == 8)
-                or (allow16 and H == 16 and W == 16)
-                or (allow32 and H == 32 and W == 32))
-    return shape_ok and C >= min_c and C == features
+    return H == W and H in (8, 32) and C >= 512 and C == features

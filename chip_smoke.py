@@ -3,6 +3,7 @@
 card.
 
     python3 chip_smoke.py [--targets 40] [--steps 10] [--out results/chip_smoke.json]
+    python3 chip_smoke.py --phases rconv      # one phase alone, no result line
 
 1. Prints the card's name and power limit, builds every CUDA kernel of
    ``videowalk_tpu_torch/ops/csrc`` (one nvcc each, started together).
@@ -24,27 +25,30 @@ card.
    flagship shape (B=8, T=8, N=49, C=128) and at the gate's edge (T=10,
    N=128, C=512), and times both with CUDA events.
 6. Holds the reflect-conv kernels (``ops/csrc/rconv.cu``: forward #4,
-   forward with BN moments #5, dx #9, dW #10) against their plain PyTorch
-   version on bf16 inputs at the step's shapes (the layer4 interior, 3136
-   images of 8x8 with 512 channels; layer1's 16x16x64; 8x8 128->256; a
-   32x32x512 map), and times kernel, plain version and the library call
-   (``F.pad`` + cuDNN ``conv2d`` and its autograd backward) with CUDA
-   events.
+   forward with BN moments #5, dx #9, dW #10, and the BN-input chain's
+   forward #6, dx with da/db #7 and dW #8, which apply ``relu(a*x + b)`` to
+   their operand) against their plain PyTorch version on bf16 inputs at
+   the step's shapes (the layer4 interior, 3136 images of 8x8 with 512
+   channels; layer1's 16x16x64; 8x8 128->256; a 32x32x512 map), and times
+   kernel, plain version and the library call (``F.pad`` + cuDNN
+   ``conv2d`` and its autograd backward; for the chain after an elementwise
+   affine + ReLU) with CUDA events.
 7. Drives the training slice: ``bench.py``'s flagship step (8-frame clips,
    batch 8, a 7x7 grid of 64 px patches, the ``scratch`` ResNet-18 with a
    bf16 trunk in BN-train mode, edge dropout 0.1, T 0.05, Adam lr 3e-4)
-   from a seeded init through ``make_train_step``, in four arms one after
+   from a seeded init through ``make_train_step``, in six arms one after
    another that differ only by the reflect-conv route: ``rconv='off'``
-   (cuDNN), the default ``auto`` + ``bn_fuse='stats'``, ``on`` + ``stats``
-   and ``on`` + ``off``. Each arm takes 3 warm-up steps, then ``--steps``
-   timed ones with every kernel count zeroed just before and read just
-   after: every loss must be finite, each walk kernel launched once a step
-   and each reflect-conv kernel as often as the route says. The default
-   arm takes 3 more steps under ``torch.profiler``: device time by kernel
-   and kind, idle share.
-8. A small f32 step with ``rconv='on'`` (64 px patches) on the card
-   against the same step on the CPU (plain versions), same weights and
-   edge-drop masks: loss and gradients.
+   (cuDNN), ``auto`` + ``bn_fuse='stats'``, the default ``auto`` +
+   ``auto`` (the BN-input chain), ``on`` + ``stats``, ``on`` + ``auto`` and
+   ``on`` + ``off``. Each arm takes 3 warm-up steps, then timed ones
+   (``--steps`` for the default, 5 for the others) with every kernel count
+   zeroed just before and read just after: every loss must be finite, each
+   walk kernel launched once a step and each reflect-conv kernel as often
+   as the route says. The default arm takes 3 more steps under
+   ``torch.profiler``: device time by kernel and kind, idle share.
+8. A small f32 step with ``rconv='on'``, ``bn_fuse='auto'`` (64 px
+   patches) on the card against the same step on the CPU (plain versions),
+   same weights and edge-drop masks: loss and gradients.
 
 Prints one JSON line of kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -92,13 +96,36 @@ RCONV_SHAPES = (("flagship", 3136, 512, 512, 8, 8),     # layer4 interior
 # kernel's own cast y (the same values summed in another order); "ref": the
 # plain version's y (whose bf16 roundings may differ from the kernel's)
 MOM_TOL = dict(own=1e-5, ref=2e-5)
+# #7's da and db against f32 sums of the plain f32 dxn, per channel,
+# relative to that channel's sum |dxn*g*x| and sum |dxn*g|: the kernel
+# rounds each boundary pixel's summed gy legs to bf16 (2^-9 relative on ~40%
+# of an 8x8 map's pixels, signs random, 2e5 pixels a channel), the plain
+# version does not: the largest reading at the four shapes is 3.7e-5
+DAB_TOL = 2e-4
 RCONV = (("fwd", rc.reflect_conv_fwd), ("fwd_stats", rc.reflect_conv_fwd_stats),
-         ("dx", rc.reflect_conv_dx), ("dw", rc.reflect_conv_dw))
-# training arms: (rconv, bn_fuse) -> reflect-conv launches per step
-ARMS = ((("off", "stats"), dict(fwd=0, fwd_stats=0, dx=0, dw=0)),
-        (("auto", "stats"), dict(fwd=0, fwd_stats=3, dx=3, dw=3)),
-        (("on", "stats"), dict(fwd=0, fwd_stats=15, dx=15, dw=15)),
-        (("on", "off"), dict(fwd=15, fwd_stats=0, dx=15, dw=15)))
+         ("dx", rc.reflect_conv_dx), ("dw", rc.reflect_conv_dw),
+         ("fwd_bnin_stats", rc.reflect_conv_fwd_bnin_stats),
+         ("dx_bnin", rc.reflect_conv_dx_bnin),
+         ("dw_bnin", rc.reflect_conv_dw_bnin))
+DEFAULT_ARM = ("auto", "auto")
+
+
+def _launches(fwd=0, fwd_stats=0, dx=0, dw=0, bnin=0) -> dict:
+    return dict(fwd=fwd, fwd_stats=fwd_stats, dx=dx, dw=dw,
+                fwd_bnin_stats=bnin, dx_bnin=bnin, dw_bnin=bnin)
+
+
+# training arms: (rconv, bn_fuse) -> reflect-conv launches per step.
+# 'auto' routes the three 8x8 512->512 convs of layer4; under bn_fuse
+# 'auto' layer4.0.conv2 and layer4.1.conv2 take the chain and
+# layer4.1.conv1 stays on #5. 'on' routes every 3x3 stride-1 conv of the
+# blocks (15: all but layer2.0.conv1); the 8 conv2 take the chain.
+ARMS = ((("off", "stats"), _launches()),
+        (("auto", "stats"), _launches(fwd_stats=3, dx=3, dw=3)),
+        (("auto", "auto"), _launches(fwd_stats=1, dx=1, dw=1, bnin=2)),
+        (("on", "stats"), _launches(fwd_stats=15, dx=15, dw=15)),
+        (("on", "auto"), _launches(fwd_stats=7, dx=7, dw=7, bnin=8)),
+        (("on", "off"), _launches(fwd=15, dx=15, dw=15)))
 
 
 def fail(msg: str) -> None:
@@ -374,14 +401,18 @@ def set_rconv_counts(counts: dict) -> None:
 
 
 def rconv_bounds(N, cin, cout, H, W, itemsize=2, peak=BF16_PEAK) -> dict:
-    """Least times of the four kernels: each input read once and each
+    """Least times of the seven kernels: each input read once and each
     output written once over the HBM rate, against the bf16 (or f32)
-    multiply-adds over the peak; the moments add 2*Cout f32."""
+    multiply-adds over the peak; the moments add 2*Cout f32, the BN-input
+    modes a and b (2*Cin f32), #7 also the raw x and da, db."""
     M = N * H * W
     flops = 2 * M * 9 * cin * cout
     wb, xb, yb = 9 * cin * cout * itemsize, M * cin * itemsize, M * cout * itemsize
     nbytes = dict(fwd=xb + wb + yb, fwd_stats=xb + wb + yb + 8 * cout,
-                  dx=yb + wb + xb, dw=xb + yb + wb)
+                  dx=yb + wb + xb, dw=xb + yb + wb,
+                  fwd_bnin_stats=xb + wb + yb + 8 * cout + 8 * cin,
+                  dx_bnin=yb + wb + 2 * xb + 16 * cin,
+                  dw_bnin=xb + yb + wb + 8 * cin)
     out = {}
     for name, b in nbytes.items():
         b_ms, o_ms = b / HBM_RATE * 1e3, flops / peak * 1e3
@@ -513,10 +544,129 @@ def rconv_kernels_vs_plain() -> dict:
             print(f"  {name:9s} {times[name]:8.3f} ms (plain {p:8.3f}, library "
                   f"{lib:8.3f}, bound {bounds[name]['bound_ms']:.3f} by "
                   f"{bounds[name]['bound_by']})", flush=True)
+        bnin = bnin_kernels_vs_plain(tag, x, w, gy, reps)
+        for k in ("err", "abs_err", "ms", "plain_ms", "library_ms"):
+            res[tag][k].update(bnin[k])
         del x, w, gy
         torch.cuda.empty_cache()
     set_rconv_counts(saved)                 # comparison launches do not count
     return res
+
+
+def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
+    """The BN-input kernels #6, #7, #8 against their plain version on the
+    same bf16 inputs, with ``a`` positive and ``b`` of both signs (about
+    half of ``relu(a*x + b)`` is zero), and their times. y and dW within
+    1e-2, dx within 2e-2 of each output's largest entry; s1/s2 per channel
+    as ``MOM_TOL``; da and db per channel within ``DAB_TOL`` of that
+    channel's sum |dxn*g*x| and sum |dxn*g| (f32 sums of the plain f32
+    dxn). The kernels gate by ``fmaf(x, a, b) > 0``, the plain version by
+    ``x*a + b > 0`` with the product rounded first: an element whose
+    pre-activation lies within one f32 rounding of 0 may be gated
+    differently and then moves one dx entry by a whole dxn entry; the share
+    of such elements is printed. ``plain_ms``: the plain version as the
+    wrappers call it (the f32 affine + ReLU pass, ``F.pad`` + ``conv2d``
+    and the sums; backward: the f32 conv's input gradient with the gate
+    and sums, and autograd's dW of the rebuilt xn). ``library_ms``: the
+    PyTorch calls of the same function, the elementwise affine + ReLU,
+    ``F.pad`` + cuDNN ``conv2d`` and the two sums, and for #7 + #8 their
+    autograd backward (x, a, b, w) on a kept graph."""
+    F = torch.nn.functional
+    cin = x.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(cin)
+    a = torch.randn((cin,), generator=g, device="cuda").abs() + 0.5
+    b = torch.randn((cin,), generator=g, device="cuda") * 0.5
+    y, s1, s2 = rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
+    dx, da, db = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
+    dw = rc.reflect_conv_dw_bnin(x, a, b, gy, w)
+    xn, gate = rc.bnin_plain(x, a, b)
+    y_ref = rc.reflect_conv_plain(xn, w)
+    dx_ref, da_ref, db_ref = rc.reflect_conv_dx_bnin_plain(gy, w, x, a, b)
+    dw_ref = rc.reflect_conv_plain_bwd(xn, w, gy)[1]
+    torch.cuda.synchronize()
+    # per-channel da/db: dxn*g is dx_ref's f32 precursor; rebuild its mass
+    xf = x.float()
+    fused_gate = torch.addcmul(b[None, :, None, None], xf,
+                               a[None, :, None, None]) > 0
+    flips = float((fused_gate != gate).float().mean())
+    av = a[None, :, None, None]
+    dxg = torch.where(gate, dx_ref.float() / av, torch.zeros_like(xf))
+    mass_a = (dxg * xf).abs().sum((0, 2, 3))
+    mass_b = dxg.abs().sum((0, 2, 3))
+    del dxg, xf, fused_gate
+
+    def rel(p, q):
+        return float((p.float() - q.float()).abs().max() / q.float().abs().max())
+
+    err = dict(fwd_bnin_stats=rel(y, y_ref), dx_bnin=rel(dx, dx_ref),
+               dw_bnin=rel(dw, dw_ref),
+               bnin_moments_own=moment_err(s1, s2, y),
+               bnin_moments_ref=moment_err(s1, s2, y_ref),
+               da=float(((da - da_ref).abs() / mass_a.clamp_min(1e-30)).max()),
+               db=float(((db - db_ref).abs() / mass_b.clamp_min(1e-30)).max()),
+               gate_share=float(gate.float().mean()), gate_flips=flips)
+    m1, m2 = rc.moments_plain(y_ref)
+    abs_err = dict(
+        fwd_bnin_stats=float(max((y.float() - y_ref.float()).abs().max(),
+                                 (s1 - m1).abs().max(), (s2 - m2).abs().max())),
+        dx_bnin=float(max((dx.float() - dx_ref.float()).abs().max(),
+                          (da - da_ref).abs().max(), (db - db_ref).abs().max())),
+        dw_bnin=float((dw.float() - dw_ref.float()).abs().max()))
+    ok = (err["fwd_bnin_stats"] <= 1e-2 and err["dw_bnin"] <= 1e-2
+          and err["dx_bnin"] <= 2e-2
+          and err["bnin_moments_own"] <= MOM_TOL["own"]
+          and err["bnin_moments_ref"] <= MOM_TOL["ref"]
+          and err["da"] <= DAB_TOL and err["db"] <= DAB_TOL
+          and 0.2 < err["gate_share"] < 0.8
+          and all(torch.isfinite(t.float()).all() for t in
+                  (y, s1, s2, dx, da, db, dw)))
+    print(f"BN-input kernels vs plain at {tag}: share of xn > 0 "
+          f"{err['gate_share']:.3f}, gates that differ by the fused "
+          f"multiply-add {flips:.2e}; |d|/max y {err['fwd_bnin_stats']:.2e}, "
+          f"dx {err['dx_bnin']:.2e}, dW {err['dw_bnin']:.2e}; moments per "
+          f"channel {err['bnin_moments_own']:.2e} of the kernel's y, "
+          f"{err['bnin_moments_ref']:.2e} of the plain y; da {err['da']:.2e}, "
+          f"db {err['db']:.2e} of each channel's sum |dxn*g*x|, sum |dxn*g| "
+          f"(tolerance: y, dW 1e-2, dx 2e-2; moments {MOM_TOL}; da, db "
+          f"{DAB_TOL})", flush=True)
+    if not ok:
+        fail(f"BN-input kernels disagree with their plain version at {tag}: "
+             f"{err}")
+    del y, dx, dw, xn, gate, y_ref, dx_ref, dw_ref
+
+    def lib_fwd(xx, aa, bb, ww):
+        pre = xx.float() * aa[None, :, None, None] + bb[None, :, None, None]
+        yy = F.conv2d(F.pad(torch.relu(pre).to(xx.dtype), (1, 1, 1, 1),
+                            mode="reflect"), ww)
+        return yy, *rc.moments_plain(yy)
+
+    leaves = [t.detach().requires_grad_() for t in (x, a, b, w)]
+    yy = lib_fwd(*leaves)[0]
+    times = dict(
+        fwd_bnin_stats=cuda_ms(
+            lambda: rc.reflect_conv_fwd_bnin_stats(x, a, b, w), reps),
+        dx_bnin=cuda_ms(lambda: rc.reflect_conv_dx_bnin(gy, w, x, a, b), reps),
+        dw_bnin=cuda_ms(lambda: rc.reflect_conv_dw_bnin(x, a, b, gy, w), reps))
+    plain = dict(
+        fwd_bnin_stats=cuda_ms(lambda: rc.moments_plain(rc.reflect_conv_plain(
+            rc.bnin_plain(x, a, b)[0], w)), reps),
+        dx_bnin=cuda_ms(
+            lambda: rc.reflect_conv_dx_bnin_plain(gy, w, x, a, b), 3, 1),
+        dw_bnin=cuda_ms(lambda: rc.reflect_conv_plain_bwd(
+            rc.bnin_plain(x, a, b)[0], w, gy)[1], reps))
+    library = dict(
+        fwd_bnin_stats=cuda_ms(lambda: lib_fwd(x, a, b, w), reps),
+        bnin_bwd=cuda_ms(lambda: torch.autograd.grad(
+            yy, leaves, gy, retain_graph=True), reps))
+    library["dx_bnin"] = library["dw_bnin"] = library["bnin_bwd"]
+    bounds = rconv_bounds(x.shape[0], cin, w.shape[0], *x.shape[2:])
+    for name in ("fwd_bnin_stats", "dx_bnin", "dw_bnin"):
+        print(f"  {name:14s} {times[name]:8.3f} ms (plain {plain[name]:8.3f}, "
+              f"library {library[name]:8.3f}, bound "
+              f"{bounds[name]['bound_ms']:.3f} by {bounds[name]['bound_by']})",
+              flush=True)
+    return dict(err=err, abs_err=abs_err, ms=times, plain_ms=plain,
+                library_ms=library)
 
 
 def conv_fwd_flops_per_image() -> int:
@@ -663,16 +813,19 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
 
 
 def train_step_phase(n_steps: int) -> dict:
-    """Phase 6: the flagship training step in four arms that differ only by
-    the reflect-conv route, one after another in this process: the
-    cuDNN path (``rconv='off'``), the default (``auto`` + ``stats``,
-    profiled), every supported conv with moments (``on`` + ``stats``) and
-    without (``on`` + ``off``)."""
+    """Phase 6: the flagship training step in six arms that differ only by
+    the reflect-conv route, one after another in this process: the cuDNN
+    path (``rconv='off'``), the moment fold alone (``auto`` + ``stats``),
+    the default (``auto`` + ``auto``: the BN-input chain; profiled), every
+    supported conv with moments (``on`` + ``stats``), with the chain
+    (``on`` + ``auto``) and with neither (``on`` + ``off``). The default
+    takes ``n_steps`` timed steps, the others at most 5."""
     arms = {}
     for (rconv, bn_fuse), expect in ARMS:
-        default = (rconv, bn_fuse) == ("auto", "stats")
-        arms[f"{rconv}+{bn_fuse}"] = train_arm(rconv, bn_fuse, expect,
-                                               n_steps, profile=default)
+        default = (rconv, bn_fuse) == DEFAULT_ARM
+        arms[f"{rconv}+{bn_fuse}"] = train_arm(
+            rconv, bn_fuse, expect, n_steps if default else min(n_steps, 5),
+            profile=default)
     print("A/B of the full step (same process, same seeds):", flush=True)
     for name, a in arms.items():
         print(f"  {name:12s} {a['step_ms']:8.2f} ms/step  "
@@ -683,7 +836,8 @@ def train_step_phase(n_steps: int) -> dict:
 
 def small_step_card_vs_cpu() -> dict:
     """Phase 7: one f32 forward/backward with every supported reflect conv
-    routed (``rconv='on'``, ``bn_fuse='stats'``), card (kernels) vs CPU
+    routed and every block on the BN-input chain (``rconv='on'``,
+    ``bn_fuse='auto'``), card (kernels) vs CPU
     (plain versions), same weights, same 64 px clips, same edge-drop masks.
     Tolerances: loss rtol 1e-4 and q atol 1e-4 (f32 convolutions by
     different algorithms); gradients 2e-2 relative in L2 over all
@@ -692,7 +846,7 @@ def small_step_card_vs_cpu() -> dict:
     f64)."""
     B, T, N = 2, 4, 4
     cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP, rconv="on",
-                    bn_fuse="stats")
+                    bn_fuse="auto")
     rng = np.random.RandomState(6)
     x = torch.from_numpy(rng.randn(B, T, N, PATCH, PATCH, 3).astype(np.float32))
     masks = [torch.from_numpy(rng.rand(B, T - 1, N, N) < EDGEDROP)
@@ -718,12 +872,13 @@ def small_step_card_vs_cpu() -> dict:
     res = dict(loss_cuda=lc, loss_cpu=lh, loss_rel=abs(lc - lh) / abs(lh),
                q_max_abs_err=float((qc - qh).abs().max()),
                grad_rel_l2=(num / den) ** 0.5, kernel_launches=launched)
-    print(f"small f32 step (B,T,N)=({B},{T},{N}) {PATCH}px, rconv='on', card "
+    print(f"small f32 step (B,T,N)=({B},{T},{N}) {PATCH}px, rconv='on', "
+          f"bn_fuse='auto', card "
           f"vs CPU: loss {lc:.6f} vs {lh:.6f} (rel {res['loss_rel']:.2e}), q "
           f"max|d| {res['q_max_abs_err']:.2e}, grads rel L2 "
           f"{res['grad_rel_l2']:.2e} (tolerance: loss rtol 1e-4, q 1e-4, "
           f"grads 2e-2); kernel launches on the card {launched}", flush=True)
-    if launched != dict(walk_fwd=1, walk_bwd=1, **ARMS[2][1]):
+    if launched != dict(walk_fwd=1, walk_bwd=1, **dict(ARMS)[("on", "auto")]):
         fail("the card's small step did not go through the walk and the "
              "reflect-conv kernels")
     if not (res["loss_rel"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
@@ -732,13 +887,28 @@ def small_step_card_vs_cpu() -> dict:
     return res
 
 
+PHASES = dict(prop=lambda a: kernel_vs_plain(),
+              eval=lambda a: end_to_end(a.targets),
+              small_eval=lambda a: small_card_vs_cpu(),
+              walk=lambda a: walk_kernels_vs_plain(),
+              rconv=lambda a: rconv_kernels_vs_plain(),
+              train=lambda a: train_step_phase(a.steps),
+              small_train=lambda a: small_step_card_vs_cpu())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--targets", type=int, default=40)
     ap.add_argument("--steps", type=int, default=10,
                     help="timed training steps (after 3 warm-up steps)")
     ap.add_argument("--out", default="", help="also write the results here")
+    ap.add_argument("--phases", default="", help="comma-separated subset of "
+                    f"{','.join(PHASES)} to run alone (for timing a kernel "
+                    "while working on it): prints their lines and no result")
     args = ap.parse_args()
+    only = [p for p in args.phases.split(",") if p]
+    if any(p not in PHASES for p in only):
+        ap.error(f"--phases takes {', '.join(PHASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -761,6 +931,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
+    if only:
+        for name in only:
+            PHASES[name](args)
+        print(f"partial run ({', '.join(only)}): no result line", flush=True)
+        return 0
     kp = kernel_vs_plain()
     e2e = end_to_end(args.targets)
     small = small_card_vs_cpu()
@@ -776,7 +951,7 @@ def main() -> int:
         launches=e2e["launches"], max_abs_err=kp["max_abs_err"], ms=kp["ms"],
         plain_ms=kp["plain_ms"], bound_ms=kp["bound_ms"],
         bound_by=kp["bound_by"], library_ms=None)]
-    default = train["auto+stats"]
+    default = train["+".join(DEFAULT_ARM)]
     flag = walk["flagship"]
     for d, line, err in (("fwd", 70, flag["err"]["losses"]),
                          ("bwd", 118, flag["err"]["dq"])):
@@ -788,10 +963,13 @@ def main() -> int:
             ms=flag[f"{d}_ms"], plain_ms=flag[f"plain_{d}_ms"],
             bound_ms=flag["bounds"][d]["bound_ms"],
             bound_by=flag["bounds"][d]["bound_by"], library_ms=None))
-    # #4 runs on the route-on, BN-unfused path; #5, #9, #10 on the default
+    # #4 runs on the route-on, BN-unfused path; the other six on the default
     rflag = rconv["flagship"]
-    for name, line, arm in (("fwd", 224, "on+off"), ("fwd_stats", 291, "auto+stats"),
-                            ("dx", 607, "auto+stats"), ("dw", 660, "auto+stats")):
+    for name, line, arm in (("fwd", 224, "on+off"), ("fwd_stats", 291, "auto+auto"),
+                            ("fwd_bnin_stats", 401, "auto+auto"),
+                            ("dx_bnin", 474, "auto+auto"),
+                            ("dw_bnin", 553, "auto+auto"),
+                            ("dx", 607, "auto+auto"), ("dw", 660, "auto+auto")):
         kernels.append(dict(
             name=f"reflect_conv_{name}", route="cuda",
             source="videowalk_tpu_torch/ops/csrc/rconv.cu",

@@ -1,9 +1,11 @@
 """The reflect-conv slice against the JAX package on the CPU: the port's
-``reflect_conv3x3`` / ``reflect_conv3x3_stats`` (``ops/rconv.py``, plain
-versions on the CPU) against the JAX ``ops/rconv_kernel.py`` ops (Pallas
-in interpret mode), the route gate against ``rconv_kernel_routes``, and the
-route-on, ``bn_fuse="stats"`` BasicBlocks and trunk against the JAX model
-under ``VIDEOWALK_RCONV=on VIDEOWALK_BN_FUSE=stats``.
+``reflect_conv3x3`` / ``reflect_conv3x3_stats`` /
+``reflect_conv3x3_bnin_stats`` (``ops/rconv.py``, plain versions on the
+CPU) against the JAX ``ops/rconv_kernel.py`` ops (Pallas in interpret
+mode), the route gate against ``rconv_kernel_routes``, and the route-on
+BasicBlocks and trunk with ``bn_fuse="stats"`` and ``"auto"`` (the BN-input
+chain) against the JAX model under ``VIDEOWALK_RCONV=on`` and the same
+``VIDEOWALK_BN_FUSE``.
 
 Layouts: JAX is NHWC/HWIO, the port NCHW/OIHW; inputs are made with numpy
 from a seed and transposed on the way in and out. Each tolerance is stated
@@ -324,11 +326,360 @@ def test_state_from_flax_loads_a_route_on_model(monkeypatch):
 def test_config_validation():
     from videowalk_tpu_torch.models import CRW, CRWConfig
 
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        CRW(CRWConfig(bn_fuse="auto"))
     with pytest.raises(ValueError, match="bn_fuse"):
         CRW(CRWConfig(bn_fuse="maybe"))
     with pytest.raises(ValueError, match="rconv"):
         CRW(CRWConfig(rconv="maybe"))
     cfg = CRWConfig()
-    assert (cfg.rconv, cfg.bn_fuse) == ("auto", "stats")
+    assert (cfg.rconv, cfg.bn_fuse) == ("auto", "auto")
+    trunk = CRW(cfg).encoder.model
+    assert {b.bn_fuse for b in trunk.layer4} == {"auto"}
+
+
+# ------------------------------------------------- the BN-input chain
+
+
+def _bnin_inputs(N, H, W, cin, cout, seed):
+    """x, a > 0, b of both signs (a real share of relu(a*x+b) is zero), w,
+    and cotangents for y, s1, s2."""
+    return dict(x=_rand((N, H, W, cin), seed),
+                a=np.abs(_rand((cin,), seed + 1)) + 0.5,
+                b=_rand((cin,), seed + 2, 0.3),
+                w=_rand((3, 3, cin, cout), seed + 3, 0.1),
+                gy=_rand((N, H, W, cout), seed + 4),
+                c1=_rand((cout,), seed + 5), c2=_rand((cout,), seed + 6))
+
+
+def _bnin_torch(d, dtype=torch.float32):
+    """The port's op and its gradients through a loss on y, s1 and s2."""
+    x = _nchw(d["x"]).to(dtype).requires_grad_()
+    a = torch.from_numpy(d["a"]).requires_grad_()
+    b = torch.from_numpy(d["b"]).requires_grad_()
+    w = _oihw(d["w"]).to(dtype).requires_grad_()
+    y, s1, s2 = rc.reflect_conv3x3_bnin_stats(x, a, b, w)
+    ((y.float() * _nchw(d["gy"])).sum() + (s1 * torch.from_numpy(d["c1"])).sum()
+     + (s2 * torch.from_numpy(d["c2"])).sum()).backward()
+    return (y, s1, s2), (x.grad, a.grad, b.grad, w.grad)
+
+
+@pytest.mark.parametrize("N,H,W,cin,cout", [
+    (5, 8, 8, 8, 16), (2, 16, 16, 8, 8), (1, 32, 8, 16, 8)])
+def test_reflect_conv3x3_bnin_stats_matches_jax(N, H, W, cin, cout):
+    """y, s1, s2 and the gradients for x, a, b and w through a loss on all
+    three outputs, against the JAX op (Pallas in interpret mode; N=5 is not
+    a multiple of its image block). f32, rtol 1e-4 + atol 1e-4 as the JAX
+    package's own oracle test: the same f32 products summed in another
+    order. No pre-activation of these seeds lies within a rounding of 0,
+    so the ReLU gates agree."""
+    d = _bnin_inputs(N, H, W, cin, cout, 30)
+
+    def loss_j(x, a, b, w):
+        y, s1, s2 = jrk.reflect_conv3x3_bnin_stats(x, a, b, w)
+        return (jnp.sum(y * d["gy"]) + jnp.sum(s1 * d["c1"])
+                + jnp.sum(s2 * d["c2"])), (y, s1, s2)
+
+    (_, (y_j, s1_j, s2_j)), g_j = jax.value_and_grad(
+        loss_j, argnums=(0, 1, 2, 3), has_aux=True)(
+            *(jnp.asarray(d[k]) for k in "xabw"))
+    (y, s1, s2), (dx, da, db, dw) = _bnin_torch(d)
+    assert s1.dtype == s2.dtype == da.dtype == db.dtype == torch.float32
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_nhwc(y), y_j, **tol)
+    np.testing.assert_allclose(s1.detach().numpy(), s1_j, **tol)
+    np.testing.assert_allclose(s2.detach().numpy(), s2_j, **tol)
+    np.testing.assert_allclose(_nhwc(dx), g_j[0], err_msg="dx", **tol)
+    np.testing.assert_allclose(da.numpy(), g_j[1], err_msg="da", **tol)
+    np.testing.assert_allclose(db.numpy(), g_j[2], err_msg="db", **tol)
+    np.testing.assert_allclose(dw.numpy().transpose(2, 3, 1, 0), g_j[3],
+                               err_msg="dw", rtol=1e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("N,H,W,cin,cout", [
+    (4, 8, 8, 8, 16), (2, 16, 8, 16, 8)])
+def test_bnin_plain_backward_matches_autograd(N, H, W, cin, cout):
+    """The hand VJP's pieces as the wrappers compute them on the CPU
+    (``dx = dxn*g*a``, ``da``, ``db``, dW of the rebuilt ``xn``) at a given
+    ``gy`` against autograd of ``conv(relu(a*x + b))``. f32, 1e-5 of each
+    output's largest entry (f32 sums in another order)."""
+    d = _bnin_inputs(N, H, W, cin, cout, 70)
+    x, w, gy = _nchw(d["x"]), _oihw(d["w"]), _nchw(d["gy"])
+    a, b = torch.from_numpy(d["a"]), torch.from_numpy(d["b"])
+    leaves = [t.clone().requires_grad_() for t in (x, a, b, w)]
+    xx, aa, bb, ww = leaves
+    y = rc.reflect_conv_plain(
+        torch.relu(xx * aa[None, :, None, None] + bb[None, :, None, None]), ww)
+    want = torch.autograd.grad(y, leaves, gy)
+    dx, da, db = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
+    dw = rc.reflect_conv_dw_bnin(x, a, b, gy, w)
+    for name, got, ref in zip(("dx", "da", "db", "dw"), (dx, da, db, dw),
+                              (want[0], want[1], want[2], want[3])):
+        _close(got.numpy(), ref.numpy(), 1e-5, name)
+
+
+def test_reflect_conv3x3_bnin_stats_bf16_matches_jax():
+    """bf16 x and w, f32 a and b, on both sides: xn is rounded to bf16
+    before the product and y after it, so y is held to 1e-2 of its largest
+    entry (one bf16 rounding of an f32 sum each side, ~4e-3, and an xn
+    entry rounded the other way where ``x*a + b`` was fused on one side).
+    Moments are f32 sums of each side's own cast y, per channel: s1 within
+    1e-5 of that channel's sum |y| and s2 within 1e-5 of its sum y^2, plus
+    what the two cast y differ by in that channel."""
+    d = _bnin_inputs(2, 8, 8, 16, 32, 40)
+    y_j, s1_j, s2_j = jrk.reflect_conv3x3_bnin_stats(
+        jnp.asarray(d["x"], jnp.bfloat16), jnp.asarray(d["a"]),
+        jnp.asarray(d["b"]), jnp.asarray(d["w"], jnp.bfloat16))
+    assert y_j.dtype == jnp.bfloat16
+    (y, s1, s2), (dx, da, db, dw) = _bnin_torch(d, torch.bfloat16)
+    assert y.dtype == dx.dtype == dw.dtype == torch.bfloat16
+    assert s1.dtype == s2.dtype == da.dtype == db.dtype == torch.float32
+    yp, yj = _nhwc(y), np.asarray(y_j, np.float32)
+    _close(yp, yj, 1e-2, "y")
+    axes = (0, 1, 2)
+    lim1 = 1e-5 * np.abs(yj).sum(axes) + np.abs(yp - yj).sum(axes)
+    lim2 = 1e-5 * (yj ** 2).sum(axes) + np.abs(yp ** 2 - yj ** 2).sum(axes)
+    assert np.all(np.abs(s1.detach().numpy() - np.asarray(s1_j)) <= lim1)
+    assert np.all(np.abs(s2.detach().numpy() - np.asarray(s2_j)) <= lim2)
+    assert all(torch.isfinite(t.float()).all() for t in (dx, da, db, dw))
+
+
+def _jax_blocks(monkeypatch, bn_fuse, specs, x, ct):
+    """Stacked JAX BasicBlocks ``specs = [(filters, stride, projection)]``
+    under ``VIDEOWALK_RCONV=on VIDEOWALK_BN_FUSE=bn_fuse`` in train mode:
+    the variables, the loss ``sum(y * ct)``, the updated statistics and the
+    parameter gradients."""
+    import flax.linen as fnn
+
+    from videowalk_tpu.models.resnet import BasicBlock as JaxBlock
+
+    class Blocks(fnn.Module):
+        @fnn.compact
+        def __call__(self, x, train: bool):
+            for i, (filters, stride, proj) in enumerate(specs):
+                x = JaxBlock(filters=filters, stride=stride,
+                             padding_mode="reflect", use_projection=proj,
+                             name=f"b{i}")(x, train)
+            return x
+
+    monkeypatch.setenv("VIDEOWALK_RCONV", "on")
+    monkeypatch.setenv("VIDEOWALK_BN_FUSE", bn_fuse)
+    net = Blocks()
+    variables = jax.tree_util.tree_map(np.asarray, dict(
+        net.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)))
+
+    def loss_j(params):
+        y, upd = net.apply({"params": params,
+                            "batch_stats": variables["batch_stats"]},
+                           jnp.asarray(x), train=True, mutable=["batch_stats"])
+        return jnp.sum(y * ct), upd["batch_stats"]
+
+    (l_j, stats_j), grads_j = jax.value_and_grad(loss_j, has_aux=True)(
+        variables["params"])
+    return variables, float(l_j), stats_j, grads_j
+
+
+def _torch_blocks(specs, cin, variables, **kw):
+    from videowalk_tpu_torch.models.resnet import BasicBlock
+
+    model = torch.nn.Module()
+    for i, (filters, stride, _) in enumerate(specs):
+        setattr(model, f"b{i}", BasicBlock(cin, filters, stride, "reflect",
+                                           **kw))
+        cin = filters
+    model.load_state_dict(state_from_flax(variables), strict=True)
+    return model
+
+
+def _run_blocks(model, x, ct, train=True):
+    y = _nchw(x)
+    for block in model.children():
+        y = block(y, train=train)
+    loss = (y * _nchw(ct)).sum()
+    loss.backward()
+    return y, loss
+
+
+_WRAPPERS = ("reflect_conv_fwd", "reflect_conv_fwd_stats",
+             "reflect_conv_fwd_bnin_stats", "reflect_conv_dx",
+             "reflect_conv_dx_bnin", "reflect_conv_dw", "reflect_conv_dw_bnin")
+
+
+def _spy_all(monkeypatch):
+    return {name: _spy(monkeypatch, name) for name in _WRAPPERS}
+
+
+def _counts(spies):
+    return {k: len(v) for k, v in spies.items() if v}
+
+
+def _assert_blocks_match(model, loss, l_j, stats_j, grads_j):
+    """loss rtol 1e-5, statistics rtol 1e-4 + atol 1e-5, gradients 1e-3 of
+    each tensor's largest entry (f32 moments summed in another order, then
+    scaled by 1/std through the train-mode BNs): the tolerances of
+    ``test_basic_blocks_route_on_stats_match_jax``."""
+    np.testing.assert_allclose(float(loss.detach()), l_j, rtol=1e-5)
+    state = model.state_dict()
+    for k, v in state_from_flax({"batch_stats": jax.tree_util.tree_map(
+            np.asarray, stats_j)}).items():
+        if not k.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(state[k].numpy(), v.numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+    grads = state_from_flax({"params": jax.tree_util.tree_map(np.asarray,
+                                                              grads_j)})
+    params = dict(model.named_parameters())
+    assert set(grads) == set(params)
+    for k, g in grads.items():
+        _close(params[k].grad.numpy(), g.numpy(), 1e-3, k)
+
+
+def test_basic_blocks_route_on_auto_match_jax(monkeypatch):
+    """Two stacked reflect BasicBlocks (16 channels, 8x8) in train mode,
+    the port with ``rconv="on", bn_fuse="auto"`` against the JAX blocks
+    under ``VIDEOWALK_RCONV=on VIDEOWALK_BN_FUSE=auto``: both take the
+    chain conv1 (#5) -> ``BNAffine`` -> conv2 of ``relu(a*y1 + b)`` (#6) ->
+    ``FusedStatsBN``; backward #7 and #8 at each conv2, #9/#10 at conv1.
+    Loss, running statistics and every parameter gradient."""
+    specs = [(16, 1, False), (16, 1, False)]
+    x, ct = _rand((4, 8, 8, 16), 21, 0.5), _rand((4, 8, 8, 16), 22)
+    variables, l_j, stats_j, grads_j = _jax_blocks(monkeypatch, "auto",
+                                                   specs, x, ct)
+    model = _torch_blocks(specs, 16, variables, rconv="on", bn_fuse="auto")
+    spies = _spy_all(monkeypatch)
+    _, loss = _run_blocks(model, x, ct)
+    assert _counts(spies) == dict(
+        reflect_conv_fwd_stats=2, reflect_conv_fwd_bnin_stats=2,
+        reflect_conv_dx_bnin=2, reflect_conv_dw_bnin=2,
+        reflect_conv_dx=1, reflect_conv_dw=2)            # x needs no grad
+    _assert_blocks_match(model, loss, l_j, stats_j, grads_j)
+
+
+def test_basic_block_chain_with_unrouted_conv1_matches_jax(monkeypatch):
+    """A stride-2 projection block (8 -> 16 channels, 16x16 -> 8x8) under
+    ``on`` + ``auto``: conv1 is stride 2 and does not route, so ``bn1``'s
+    affine reduces its own moments (``BNAffine`` with ``moments=None``),
+    and conv2 still takes the chain."""
+    specs = [(16, 2, True)]
+    x, ct = _rand((4, 16, 16, 8), 23, 0.5), _rand((4, 8, 8, 16), 24)
+    variables, l_j, stats_j, grads_j = _jax_blocks(monkeypatch, "auto",
+                                                   specs, x, ct)
+    model = _torch_blocks(specs, 8, variables, rconv="on", bn_fuse="auto")
+    spies = _spy_all(monkeypatch)
+    _, loss = _run_blocks(model, x, ct)
+    assert _counts(spies) == dict(reflect_conv_fwd_bnin_stats=1,
+                                  reflect_conv_dx_bnin=1,
+                                  reflect_conv_dw_bnin=1)
+    _assert_blocks_match(model, loss, l_j, stats_j, grads_j)
+
+
+@pytest.mark.parametrize("rconv", ["on", "off"])
+def test_bn_fuse_modes_agree_inside_the_port(monkeypatch, rconv):
+    """``auto``, ``stats`` and ``off`` on the same weights and input
+    compute the same function (with ``rconv="off"`` nothing routes and the
+    three are one path): loss rtol 1e-5, statistics rtol 1e-4 + atol 1e-5,
+    gradients 1e-3 of each tensor's largest entry, as against JAX."""
+    specs = [(16, 2, True), (16, 1, False)]
+    x, ct = _rand((4, 16, 16, 8), 25, 0.5), _rand((4, 8, 8, 16), 26)
+    variables = _jax_blocks(monkeypatch, "off", specs, x, ct)[0]
+    out = {}
+    for mode in ("auto", "stats", "off"):
+        model = _torch_blocks(specs, 8, variables, rconv=rconv, bn_fuse=mode)
+        _, loss = _run_blocks(model, x, ct)
+        out[mode] = (float(loss.detach()), model.state_dict(),
+                     {k: p.grad for k, p in model.named_parameters()})
+    for mode in ("auto", "stats"):
+        np.testing.assert_allclose(out[mode][0], out["off"][0], rtol=1e-5)
+        for k, v in out["off"][1].items():
+            np.testing.assert_allclose(out[mode][1][k].numpy(), v.numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=k)
+        for k, g in out["off"][2].items():
+            _close(out[mode][2][k].numpy(), g.numpy(), 1e-3, f"{mode} {k}")
+
+
+def test_eval_mode_block_takes_no_chain(monkeypatch):
+    """Eval mode under ``on`` + ``auto``: both convs go through the plain
+    forward (#4), BN normalizes with the running statistics (untouched),
+    and the output equals the ``bn_fuse="off"`` block's exactly."""
+    specs = [(16, 1, False)]
+    x, ct = _rand((2, 8, 8, 16), 27, 0.5), _rand((2, 8, 8, 16), 28)
+    variables = _jax_blocks(monkeypatch, "off", specs, x, ct)[0]
+    model = _torch_blocks(specs, 16, variables, rconv="on", bn_fuse="auto")
+    ref = _torch_blocks(specs, 16, variables, rconv="on", bn_fuse="off")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    spies = _spy_all(monkeypatch)
+    y, _ = _run_blocks(model, x, ct, train=False)
+    assert _counts(spies) == dict(reflect_conv_fwd=2, reflect_conv_dx=1,
+                                  reflect_conv_dw=2)
+    assert torch.equal(y, _run_blocks(ref, x, ct, train=False)[0])
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+def test_resnet_route_on_auto_forward_and_stats_match_jax(monkeypatch):
+    """The reflect ResNet-18 trunk (layer3/4 removed, 32 px: layer1 at 8x8
+    chains in both blocks; layer2 at 4x4 does not route) in train mode,
+    port ``rconv="on", bn_fuse="auto"`` against JAX under
+    ``VIDEOWALK_RCONV=on VIDEOWALK_BN_FUSE=auto``: output rtol 1e-3 + atol
+    5e-5, statistics rtol 1e-4 + atol 1e-5 (as the ``stats`` trunk test)."""
+    from videowalk_tpu.models.resnet import resnet18 as jax_resnet18
+
+    from videowalk_tpu_torch.models.resnet import resnet18
+
+    monkeypatch.setenv("VIDEOWALK_RCONV", "on")
+    monkeypatch.setenv("VIDEOWALK_BN_FUSE", "auto")
+    net = jax_resnet18(padding_mode="reflect",
+                       remove_layers=("layer3", "layer4"))
+    x = _rand((2, 32, 32, 3), 21)
+    variables = jax.tree_util.tree_map(np.asarray, dict(
+        net.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)))
+    y_j, upd = net.apply(variables, jnp.asarray(x), train=True,
+                         mutable=["batch_stats"])
+
+    model = resnet18("reflect", ("layer3", "layer4"), rconv="on")
+    assert model.layer1[0].bn_fuse == "auto"             # the default
+    model.load_state_dict(state_from_flax(variables), strict=True)
+    spies = _spy_all(monkeypatch)
+    with torch.no_grad():
+        y = model(_nchw(x), train=True)
+    assert _counts(spies) == dict(reflect_conv_fwd_stats=2,
+                                  reflect_conv_fwd_bnin_stats=2)
+    np.testing.assert_allclose(_nhwc(y), np.asarray(y_j), rtol=1e-3,
+                               atol=5e-5)
+    state = model.state_dict()
+    for k, v in state_from_flax({"batch_stats": jax.tree_util.tree_map(
+            np.asarray, upd["batch_stats"])}).items():
+        if not k.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(state[k].numpy(), v.numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+
+
+def test_state_from_flax_loads_a_bn_fuse_auto_model(monkeypatch):
+    """A JAX CRW built and run in train mode under ``VIDEOWALK_RCONV=on
+    VIDEOWALK_BN_FUSE=auto`` (the chain has no parameter of its own)
+    carries its weights into the port's ``bn_fuse="auto"`` CRW with
+    ``strict=True``, and the train-mode features agree (atol 1e-4 as in
+    tests/test_torch_encoder.py, through train-mode BNs: rtol 1e-3)."""
+    from videowalk_tpu.models import CRW as JaxCRW, CRWConfig as JaxConfig
+
+    from videowalk_tpu_torch.models import CRW, CRWConfig
+
+    monkeypatch.setenv("VIDEOWALK_RCONV", "on")
+    monkeypatch.setenv("VIDEOWALK_BN_FUSE", "auto")
+    x = np.random.RandomState(0).rand(2, 1, 32, 32, 3).astype(np.float32)
+    layers = ("layer3", "layer4")
+    jm = JaxCRW(JaxConfig(model_type="scratch", remove_layers=layers))
+    variables = jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                        just_feats=True, train=False)
+    (q_j, maps_j), _ = jm.apply(variables, jnp.asarray(x), just_feats=True,
+                                train=True, mutable=["batch_stats"])
+    model = CRW(CRWConfig(model_type="scratch", remove_layers=layers,
+                          rconv="on", bn_fuse="auto"))
+    model.load_state_dict(state_from_flax(jax.tree_util.tree_map(
+        np.asarray, dict(variables))), strict=True)
+    spies = _spy_all(monkeypatch)
+    with torch.no_grad():
+        q, maps = model(torch.from_numpy(x), just_feats=True, train=True)
+    assert _counts(spies) == dict(reflect_conv_fwd_stats=2,
+                                  reflect_conv_fwd_bnin_stats=2)
+    np.testing.assert_allclose(maps.numpy(), np.asarray(maps_j), rtol=1e-3,
+                               atol=1e-4)
+    np.testing.assert_allclose(q.numpy(), np.asarray(q_j), rtol=1e-3,
+                               atol=1e-4)

@@ -1,7 +1,8 @@
 """The reflect-conv kernels (``videowalk_tpu_torch/ops/rconv.py`` →
 ``ops/csrc/rconv.cu``): on the card (``-m cuda``, skipped without one) each
-of forward (#4), forward with moments (#5), dx (#9) and dW (#10) against
-the plain PyTorch version on the same inputs, and the wrapper's refusals.
+of forward (#4), forward with moments (#5), dx (#9), dW (#10) and the
+BN-input chain's forward (#6), dx with da/db (#7) and dW (#8) against the
+plain PyTorch version on the same inputs, and the wrapper's refusals.
 
 Tolerances, relative to each output's largest entry: f32 1e-5 (the same
 f32 products summed in another order; TF32 off); bf16 y and dW 1e-2 and dx
@@ -13,6 +14,20 @@ in another order); against the plain y f32 1e-5 and bf16 1e-3 (where the
 two sides round a y entry to bf16 differently, its channel's sums move by
 one bf16 ulp, up to 2^-7 of that entry: ~1e-4 of a 256-row channel's Σ|y|
 for an entry of 3 standard deviations).
+
+The BN-input kernels gate by ``fmaf(x, a, b) > 0`` and the plain version by
+``x*a + b > 0`` with the product rounded first, so an element whose
+pre-activation lies within one f32 rounding of 0 may be kept on one side
+and dropped on the other: it then contributes ~1e-7 of a typical entry to
+y and dW, and a whole ``dxn`` entry to one dx element. The limits below
+are the plain kernels' (bf16: the rebuilt xn is rounded to bf16 on both
+sides from pre-activations that may differ in the last f32 bit, one bf16
+ulp of one operand entry); da and db are held per channel to 1e-5 (f32:
+the same products summed in another order; largest reading at these shapes
+7.4e-7) and 5e-3 (bf16, where the plain dxn sums unrounded boundary legs
+and the kernel rounds each leg sum to bf16, over 192-1280 pixels a
+channel; largest reading 9.0e-4) of that channel's Σ|dxn·g·x| and
+Σ|dxn·g|.
 
 Runs on the card's machine with ``--noconftest`` (no jax there)."""
 
@@ -68,17 +83,16 @@ def _moment_err(s1, s2, y):
 def test_wrappers_refuse_other_devices():
     x = torch.zeros((2, 8, 8, 8), device="meta")
     w = torch.zeros((8, 8, 3, 3), device="meta")
+    a = torch.zeros((8,), device="meta")
     for call in (lambda: rc.reflect_conv_fwd(x, w),
                  lambda: rc.reflect_conv_fwd_stats(x, w),
                  lambda: rc.reflect_conv_dx(x, w, x),
-                 lambda: rc.reflect_conv_dw(x, x, w)):
+                 lambda: rc.reflect_conv_dw(x, x, w),
+                 lambda: rc.reflect_conv_fwd_bnin_stats(x, a, a, w),
+                 lambda: rc.reflect_conv_dx_bnin(x, w, x, a, a),
+                 lambda: rc.reflect_conv_dw_bnin(x, a, a, x, w)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
-
-
-def test_bnin_chain_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        rc.reflect_conv3x3_bnin_stats(None, None, None, None)
 
 
 @pytest.mark.cuda
@@ -189,3 +203,176 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match=r"\(Cout, 64, 3, 3\)"):
         rc.reflect_conv_fwd(x, w[:, :32])
 
+
+
+# ------------------------------------------------- the BN-input chain
+
+BNIN = (rc.reflect_conv_fwd_bnin_stats, rc.reflect_conv_dx_bnin,
+        rc.reflect_conv_dw_bnin)
+AB_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+def _affine(cin, seed, device="cuda"):
+    """a > 0 and b of both signs: about half of relu(a*x + b) is zero."""
+    rng = np.random.RandomState(seed)
+    a = torch.from_numpy((np.abs(rng.randn(cin)) + 0.5).astype(np.float32))
+    b = torch.from_numpy((rng.randn(cin) * 0.5).astype(np.float32))
+    return a.to(device), b.to(device)
+
+
+def _dab_err(da, db, gy, w, x, a, b):
+    """The largest per-channel error of da against Σ dxn·g·x and of db
+    against Σ dxn·g (f32 sums of the plain f32 dxn), relative to that
+    channel's Σ|dxn·g·x| and Σ|dxn·g|."""
+    g = rc.bnin_plain(x, a, b)[1]
+    with torch.enable_grad():
+        xx = torch.zeros_like(x, dtype=torch.float32).requires_grad_()
+        dxn, = torch.autograd.grad(rc.reflect_conv_plain(xx, w.float()), xx,
+                                   gy.float())
+    dxg = dxn * g
+    tx = dxg * x.float()
+    # a channel gated off everywhere has mass 0 and must give exactly 0
+    ea = (da - tx.sum((0, 2, 3))).abs() / tx.abs().sum((0, 2, 3)).clamp_min(1e-30)
+    eb = (db - dxg.sum((0, 2, 3))).abs() / dxg.abs().sum((0, 2, 3)).clamp_min(1e-30)
+    return float(torch.maximum(ea, eb).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,cin,cout,H,W", [
+    (5, 64, 64, 16, 16),         # layer1, N not a multiple of a tile
+    (4, 512, 512, 8, 8),         # layer4 interior
+    (5, 128, 256, 8, 8),         # Cin != Cout
+    (3, 256, 128, 8, 8),         # Cout < Cin
+    (2, 64, 64, 32, 32),         # 32x32 maps
+    (3, 24, 40, 16, 8),          # channel tails, H != W
+])
+def test_bnin_kernels_match_plain_on_card(N, cin, cout, H, W, dtype):
+    _need_card()
+    tol = TOL[dtype]
+    x, w, gy = _inputs(N, cin, cout, H, W, dtype, seed=cin + cout + H)
+    a, b = _affine(cin, seed=cin + H)
+    xn, gate = rc.bnin_plain(x, a, b)
+    assert 0.2 < float(gate.float().mean()) < 0.8        # a real share gated
+    y_ref = rc.reflect_conv_plain(xn, w)
+    dx_ref = rc.reflect_conv_dx_bnin_plain(gy, w, x, a, b)[0]
+    dw_ref = rc.reflect_conv_plain_bwd(xn, w, gy)[1]
+    before = [f.launches for f in BNIN]
+    y, s1, s2 = rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
+    dx, da, db = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
+    dw = rc.reflect_conv_dw_bnin(x, a, b, gy, w)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(BNIN, before)] == [1, 1, 1]
+    assert y.dtype == dx.dtype == dw.dtype == dtype
+    assert s1.dtype == s2.dtype == da.dtype == db.dtype == torch.float32
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    _close("y", y, y_ref, tol["y"])
+    _close("dx", dx, dx_ref, tol["dx"])
+    _close("dw", dw, dw_ref, tol["dw"])
+    assert _moment_err(s1, s2, y) <= tol["mom"]
+    assert _moment_err(s1, s2, y_ref) <= tol["mom_ref"]
+    assert _dab_err(da, db, gy, w, x, a, b) <= AB_TOL[dtype]
+    # deterministic: no atomics in the moment, da/db or dW reductions
+    _, s1b, s2b = rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
+    _, dab, dbb = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
+    assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
+    assert torch.equal(da, dab) and torch.equal(db, dbb)
+    assert torch.equal(dw, rc.reflect_conv_dw_bnin(x, a, b, gy, w))
+
+
+@pytest.mark.cuda
+def test_bnin_dx_corner_legs_and_gate_on_card():
+    """Gradients one-hot at the output's corners and edge midpoints: #7
+    folds every leg through the pad as the plain version does and gates by
+    the raw x at the *input* pixel (f32, exact up to summation order)."""
+    _need_card()
+    x, w, _ = _inputs(2, 8, 8, 8, 8, torch.float32, seed=3)
+    a, b = _affine(8, seed=4)
+    gy = torch.zeros((2, 8, 8, 8), device="cuda")
+    for h, ww in ((0, 0), (0, 7), (7, 0), (7, 7), (0, 3), (4, 0), (7, 5),
+                  (2, 7)):
+        gy[:, :, h, ww] = torch.arange(1, 9, device="cuda", dtype=torch.float32)
+    gy = gy.contiguous(memory_format=torch.channels_last)
+    dx, da, db = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
+    dx_ref, da_ref, db_ref = rc.reflect_conv_dx_bnin_plain(gy, w, x, a, b)
+    _close("dx", dx, dx_ref, 1e-5)
+    _close("da", da, da_ref, 1e-5)
+    _close("db", db, db_ref, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bnin_channel_gated_off_on_card(dtype):
+    """A ``b`` so negative that channel 3 is gated off everywhere, and one
+    so positive that channel 5 is never gated: dx, da, db of channel 3 are
+    exactly 0 and its dW rows are 0; channel 5's dx is the plain dx times
+    a."""
+    _need_card()
+    x, w, gy = _inputs(3, 16, 32, 8, 8, dtype, seed=11)
+    a, b = _affine(16, seed=12)
+    b[3], b[5] = -1e4, 1e4
+    dx, da, db = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
+    dw = rc.reflect_conv_dw_bnin(x, a, b, gy, w)
+    assert not dx[:, 3].any() and da[3] == 0 and db[3] == 0
+    assert not dw[:, 3].any()
+    plain = rc.reflect_conv_dx(gy, w, x)
+    ref5 = rc.reflect_conv_dx_bnin_plain(gy, w, x, a, b)[0][:, 5]
+    _close("dx[5]", dx[:, 5], ref5, TOL[dtype]["dx"])
+    assert plain[:, 5].abs().max() > 0
+    y, s1, s2 = rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_bnin_op_matches_plain_on_card(dtype):
+    """``reflect_conv3x3_bnin_stats`` through autograd with a loss that
+    touches y, s1 and s2, against autograd of the plain composition, on an
+    NCHW input (the op converts it): gradients for x, a, b and w."""
+    _need_card()
+    x, w, gy = _inputs(5, 64, 128, 8, 8, dtype, seed=9)
+    x = x.contiguous()
+    a, b = _affine(64, seed=13)
+    rng = np.random.RandomState(10)
+    c1 = torch.from_numpy(rng.randn(128).astype(np.float32)).cuda() * 1e-3
+    c2 = torch.from_numpy(rng.randn(128).astype(np.float32)).cuda() * 1e-4
+
+    def plain(x, a, b, w):
+        pre = x.float() * a[None, :, None, None] + b[None, :, None, None]
+        y = rc.reflect_conv_plain(torch.relu(pre).to(x.dtype), w)
+        return (y, *rc.moments_plain(y))
+
+    grads = []
+    for fn in (rc.reflect_conv3x3_bnin_stats, plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, a, b, w)]
+        y, s1, s2 = fn(*leaves)
+        ((y.float() * gy.float()).sum() + (s1 * c1).sum()
+         + (s2 * c2).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    tol = TOL[dtype]
+    for name, got, want, rel in zip(
+            ("dx", "da", "db", "dw"), grads[0], grads[1],
+            (2 * tol["dx"], 2 * tol["dx"], 2 * tol["dx"], 2 * tol["dw"])):
+        assert got.dtype == want.dtype
+        _close(name, got, want, rel)
+
+
+@pytest.mark.cuda
+def test_bnin_wrappers_refuse_what_the_kernels_do_not_take():
+    _need_card()
+    x, w, gy = _inputs(2, 64, 64, 8, 8, torch.bfloat16, seed=1)
+    a, b = _affine(64, seed=2)
+    with pytest.raises(ValueError, match="channels_last"):
+        rc.reflect_conv_fwd_bnin_stats(x.contiguous(), a, b, w)
+    with pytest.raises(ValueError, match="float32"):
+        rc.reflect_conv_fwd_bnin_stats(x, a.bfloat16(), b, w)
+    with pytest.raises(ValueError, match=r"\(64,\) float32"):
+        rc.reflect_conv_dx_bnin(gy, w, x, a[:32], b)
+    with pytest.raises(ValueError, match="float32"):
+        rc.reflect_conv_dw_bnin(x, a, b.cpu(), gy, w)
+    with pytest.raises(ValueError, match="shape"):
+        rc.reflect_conv_dx_bnin(gy, w, x[:1], a, b)
+    x12, w12, _ = _inputs(2, 64, 64, 12, 12, torch.bfloat16, seed=1)
+    with pytest.raises(ValueError, match="12x12"):
+        rc.reflect_conv_fwd_bnin_stats(x12, a, b, w12)

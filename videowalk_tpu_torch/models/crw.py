@@ -57,9 +57,10 @@ class CRWConfig:
     # shape set (the 8x8 interiors with C >= 512), 'on' every supported
     # shape, 'off' none (ops/reflect_conv.py::rconv_kernel_routes)
     rconv: str = "auto"
-    # BN fused into routed convs: 'stats' takes the moments from the conv's
-    # epilogue, 'off' reduces them apart; 'auto' (the BN-input chain) raises
-    bn_fuse: str = "stats"
+    # BN fused into routed convs (train mode): 'stats' takes the moments
+    # from the conv's epilogue; 'auto' also folds bn1's affine and ReLU into
+    # a routed conv2's operand (the BN-input chain); 'off' does neither
+    bn_fuse: str = "auto"
 
 
 class Head(nn.Sequential):

@@ -57,7 +57,7 @@ def map_scale(trunk: ResNet) -> int:
 def make_encoder(model_type: str = "scratch",
                  remove_layers: Sequence[str] = (),
                  dtype: torch.dtype = torch.float32, rconv: str = "auto",
-                 bn_fuse: str = "stats") -> EncoderSpec:
+                 bn_fuse: str = "auto") -> EncoderSpec:
     """``scratch``: ResNet-18, reflect padding, stride-1 layer3/4;
     ``scratch_zeropad``: the same with zeros padding. ``dtype`` is the
     trunk's compute type (parameters stay f32); ``rconv`` and ``bn_fuse``

@@ -24,12 +24,21 @@ reference ``state_dict`` names (``layer1.0.conv1.weight``,
 Reflect convs that pass ``ops/reflect_conv.py::rconv_kernel_routes`` under
 the ``rconv`` mode (``auto``: the layer4 interiors at 8x8; ``on``: every 3x3
 stride-1 conv on 8-32 power-of-two maps) go through ``ops/rconv.py``: the
-CUDA kernels on the card, their plain versions on the CPU. With
-``bn_fuse="stats"`` (the JAX package's ``VIDEOWALK_BN_FUSE=stats``), a
-routed conv in train mode emits the following BN's moments from its
-epilogue and the BN takes them (``BatchNorm(..., moments=)``, the JAX
-``FusedStatsBN``); ``"off"`` keeps the unfused BN. The BN-input chain
-(``bn_fuse="auto"``, ``BNAffine``) is not ported yet.
+CUDA kernels on the card, their plain versions on the CPU. ``bn_fuse``
+is the JAX package's ``VIDEOWALK_BN_FUSE``:
+
+- ``"stats"``: a routed conv in train mode emits the following BN's
+  moments from its epilogue and the BN takes them (``BatchNorm(...,
+  moments=)``, the JAX ``FusedStatsBN``);
+- ``"auto"`` (the default): that, and the BN-input chain: in a train-mode
+  ``BasicBlock`` whose ``conv2`` routes, ``bn1`` is reduced to its
+  per-channel affine (``BatchNorm.fold_affine``, the JAX ``BNAffine``) and
+  ``conv2`` applies ``relu(a·y1 + b)`` to conv1's raw output inside its
+  kernel (``reflect_conv3x3_bnin_stats``), so bn1's normalized output is
+  never written;
+- ``"off"``: the unfused BN everywhere.
+
+Eval mode takes neither fold.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from videowalk_tpu_torch.ops.rconv import (reflect_conv3x3,
+                                           reflect_conv3x3_bnin_stats,
                                            reflect_conv3x3_stats)
 from videowalk_tpu_torch.ops.reflect_conv import (check_rconv_mode,
                                                   rconv_kernel_routes)
@@ -66,20 +76,20 @@ class BatchNorm(nn.BatchNorm2d):
     ``FusedStatsBN``): mean = s1/count and var = max(0, s2/count − mean²)
     with count = N·H·W, and no reduction over ``x``.
 
+    ``fold_affine(x, moments)`` is train-mode BN reduced to ``(a, b)``
+    (the JAX package's ``BNAffine``): the same moments and
+    running-statistics update, and the normalize left to the consumer as
+    ``a·x + b``.
+
     Eval mode normalizes with the running statistics in f32."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                moments: tuple[torch.Tensor, torch.Tensor] | None = None
-                ) -> torch.Tensor:
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if not train:
-            y = F.batch_norm(xf, self.running_mean, self.running_var,
-                             self.weight, self.bias, False, 0.0, self.eps)
-            return y.to(self.dtype)
+    def _batch_stats(self, x: torch.Tensor, xf: torch.Tensor, moments):
+        """Train mode: the batch ``(mean, var)`` in f32, from ``moments`` or
+        a reduce over ``xf``, and the running statistics updated."""
         if moments is None:
             mean = xf.mean(dim=(0, 2, 3))
             ex2 = (xf * xf).mean(dim=(0, 2, 3))
@@ -93,6 +103,27 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(1 - self.momentum).add_(
                 var.detach(), alpha=self.momentum)
             self.num_batches_tracked.add_(1)
+        return mean, var
+
+    def fold_affine(self, x: torch.Tensor,
+               moments: tuple[torch.Tensor, torch.Tensor] | None = None):
+        """Train-mode BN of ``x`` as its per-channel f32 affine ``(a, b)``:
+        ``a = rsqrt(var + eps)·weight``, ``b = bias − mean·a``. Gradients
+        reach weight, bias and (through the moments) ``x``."""
+        xf = None if moments is not None else x.float()
+        mean, var = self._batch_stats(x, xf, moments)
+        a = torch.rsqrt(var + self.eps) * self.weight
+        return a, self.bias - mean * a
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                moments: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if not train:
+            y = F.batch_norm(xf, self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(self.dtype)
+        mean, var = self._batch_stats(x, xf, moments)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
@@ -129,6 +160,13 @@ class PadConv2d(nn.Conv2d):
         return reflect_conv3x3_stats(x.to(self.dtype),
                                      self.weight.to(self.dtype))
 
+    def forward_bnin_stats(self, x: torch.Tensor, a: torch.Tensor,
+                           b: torch.Tensor):
+        """A routed conv of ``relu(a·x + b)`` plus the following BN's
+        moments ``(y, s1, s2)``."""
+        return reflect_conv3x3_bnin_stats(x.to(self.dtype), a, b,
+                                          self.weight.to(self.dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         if self.routes(x):
@@ -140,13 +178,8 @@ class PadConv2d(nn.Conv2d):
 
 
 def check_bn_fuse(bn_fuse: str) -> None:
-    if bn_fuse == "auto":
-        raise NotImplementedError(
-            "bn_fuse='auto' (the BN-input chain: BNAffine and kernels #6-#8) "
-            "is not ported yet: ROADMAP.md, Queue 2, slice 4; use 'stats' or "
-            "'off'")
-    if bn_fuse not in ("stats", "off"):
-        raise ValueError(f"bn_fuse={bn_fuse!r}: want stats | off")
+    if bn_fuse not in ("auto", "stats", "off"):
+        raise ValueError(f"bn_fuse={bn_fuse!r}: want auto | stats | off")
 
 
 class BasicBlock(nn.Module):
@@ -156,7 +189,7 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, filters: int, stride: int, padding_mode: str,
                  dtype: torch.dtype = torch.float32, rconv: str = "auto",
-                 bn_fuse: str = "stats"):
+                 bn_fuse: str = "auto"):
         super().__init__()
         check_bn_fuse(bn_fuse)
         self.bn_fuse = bn_fuse
@@ -173,19 +206,29 @@ class BasicBlock(nn.Module):
                           "off"),
                 BatchNorm(filters, dtype)])
 
-    def _conv_bn(self, conv: PadConv2d, bn: BatchNorm, x: torch.Tensor,
-                 train: bool) -> torch.Tensor:
-        """Conv + BN, the BN's moments from the conv's epilogue where the
-        conv routes to the kernels and BN is in train mode (the JAX
-        ``_conv_bn``)."""
-        if train and self.bn_fuse == "stats" and conv.routes(x):
+    def _conv_moments(self, conv: PadConv2d, x: torch.Tensor, train: bool):
+        """The conv's raw output and the following BN's moments: from the
+        conv's epilogue where the conv routes to the kernels, BN is in
+        train mode and ``bn_fuse`` is not off, else ``None`` (the BN then
+        reduces its own; the JAX ``_conv_moments`` / ``_conv_bn``)."""
+        if train and self.bn_fuse != "off" and conv.routes(x):
             y, s1, s2 = conv.forward_stats(x)
-            return bn(y, train, moments=(s1, s2))
-        return bn(conv(x), train)
+            return y, (s1, s2)
+        return conv(x), None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = F.relu(self._conv_bn(self.conv1, self.bn1, x, train))
-        y = self._conv_bn(self.conv2, self.bn2, y, train)
+        y1, m1 = self._conv_moments(self.conv1, x, train)
+        if train and self.bn_fuse == "auto" and self.conv2.routes(y1):
+            # the BN-input chain: conv1's raw output goes straight into
+            # conv2's kernel, which applies bn1's affine and the ReLU to its
+            # operand and emits bn2's moments
+            a, b = self.bn1.fold_affine(y1, m1)
+            y, s1, s2 = self.conv2.forward_bnin_stats(y1, a, b)
+            y = self.bn2(y, train, moments=(s1, s2))
+        else:
+            y = F.relu(self.bn1(y1, train, moments=m1))
+            y, m2 = self._conv_moments(self.conv2, y, train)
+            y = self.bn2(y, train, moments=m2)
         residual = x
         if self.downsample is not None:
             conv, bn = self.downsample
@@ -207,7 +250,7 @@ class ResNet(nn.Module):
                  padding_mode: str = "zeros",
                  remove_layers: Sequence[str] = (),
                  dtype: torch.dtype = torch.float32, rconv: str = "auto",
-                 bn_fuse: str = "stats"):
+                 bn_fuse: str = "auto"):
         super().__init__()
         check_rconv_mode(rconv)
         check_bn_fuse(bn_fuse)
@@ -243,7 +286,7 @@ class ResNet(nn.Module):
 
 def resnet18(padding_mode: str = "zeros", remove_layers: Sequence[str] = (),
              dtype: torch.dtype = torch.float32, rconv: str = "auto",
-             bn_fuse: str = "stats") -> ResNet:
+             bn_fuse: str = "auto") -> ResNet:
     """ResNet-18 trunk (reference ``code/resnet.py`` ctor + ``modify``)."""
     return ResNet((2, 2, 2, 2), (1, 2, 1, 1), padding_mode, remove_layers,
                   dtype, rconv, bn_fuse)

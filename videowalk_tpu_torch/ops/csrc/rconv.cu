@@ -1,5 +1,7 @@
 // 3x3 stride-1 reflect-padded convolution: forward (with or without the
-// following BatchNorm's batch moments), input gradient and weight gradient.
+// following BatchNorm's batch moments), input gradient and weight gradient,
+// each also with the preceding BatchNorm's affine and ReLU folded into the
+// operand (the BN-input chain).
 //
 // Replaces the Pallas TPU kernels of videowalk_tpu/ops/rconv_kernel.py:
 //   #4  _fwd_call    :240 -> _fwd_kernel     :224   (rconv_gemm<.., FWD>)
@@ -8,6 +10,12 @@
 //   #9  _dx_call     :633 -> _dx_kernel      :607   (rconv_gemm<.., DX>)
 //   #10 _dw_call     :682 -> _dw_kernel      :660   (rconv_gemm<.., DW>
 //                                                     + reduce_rows)
+//   #6  _fwd_call_bnin_st :440 -> _fwd_kernel_bnin_st :401
+//                                   (rconv_gemm<.., FWD_BNIN_STATS> + reduce_rows)
+//   #7  _dx_call_bnin :514 -> _dx_kernel_bnin :474
+//                                   (rconv_gemm<.., DX_BNIN> + reduce_rows)
+//   #8  _dw_call_bnin :573 -> _dw_kernel_bnin :553
+//                                   (rconv_gemm<.., DW_BNIN> + reduce_rows)
 // built from what they compute, not from the TPU's flat-roll/select chain
 // (which exists for the sublane layout). y = conv_valid(reflect_pad(x, 1), w)
 // with torch 'reflect' semantics: pad row -1 mirrors row 1, row H mirrors
@@ -16,7 +24,7 @@
 // (a channels_last (N, C, H, W) tensor); weights come packed by the wrapper
 // as (9, K, Nout) with tap t = 3*dy + dx.
 //
-// All four are one implicit GEMM engine (rconv_gemm): a block computes a
+// All seven are one implicit GEMM engine (rconv_gemm): a block computes a
 // BM x BN output tile, looping over K in BK-deep steps through a ring of 4
 // shared-memory stages (3 steps in flight while one is multiplied, one
 // barrier a step). Each step's A tile is gathered through the reflection:
@@ -50,6 +58,27 @@
 // which reduce_rows sums in a fixed order, so the moments repeat from run to
 // run as the TPU's sequential grid made them.
 //
+// The BN-input modes take the previous conv's raw output x and the
+// per-channel f32 affine (a, b) of its train-mode BatchNorm, packed (2, Cin),
+// and never write xn = cast(relu(a*x + b)) to device memory:
+//   FWD_BNIN_STATS, DW_BNIN  the gathered x tile lands in its stage by
+//            cp.async as before; after cp.async.wait_group each thread
+//            rewrites the vectors it copied itself (visible to it without a
+//            barrier) as xn, f32 math rounded once to the operand type, and
+//            the step's one barrier then publishes them: no extra barrier or
+//            pass. A thread's vectors share their channels, so one load of
+//            a and b a step serves them. Zero-filled vectors (rows past M, channel tails) are left
+//            zero, not relu(b), so they reach neither the moments nor dW.
+//            (a, b) sit in shared memory behind the stage ring.
+//   DX_BNIN  the main loop is DX's; the epilogue reads x at the output
+//            pixels, gates the f32 tile dxn by g = (a*x + b > 0), writes
+//            dx = cast(dxn*g*a), and sums da = sum_p dxn*g*x and
+//            db = sum_p dxn*g per channel from the f32 dxn: each thread over
+//            its rows, then 16 or 32 row groups through shared memory in a
+//            fixed order into per-block partials for reduce_rows.
+// The ReLU gate is fmaf(x, a, b) > 0 in all three, so a pixel kept in the
+// forward is kept in the backward.
+//
 // Bound at the flagship's routed shape (layer4 interior, N = 3136 images,
 // 8x8, Cin = Cout = 512, bf16): each pass (forward, dx or dW) is
 // 2*3136*64*9*512*512 = 0.947 TFLOP, 0.96 ms at 989 TFLOP/s dense bf16; its
@@ -75,7 +104,8 @@ using namespace nvcuda;
 namespace {
 
 constexpr int NT = 256;     // threads per block (8 warps)
-enum Mode { FWD = 0, FWD_STATS = 1, DX = 2, DW = 3 };
+enum Mode { FWD = 0, FWD_STATS = 1, DX = 2, DW = 3,
+            FWD_BNIN_STATS = 4, DX_BNIN = 5, DW_BNIN = 6 };
 
 // 16-byte vectors of the operand type, summed and rounded in f32
 template <typename T> struct Pack;
@@ -87,6 +117,12 @@ template <> struct Pack<float> {
     a[1] += __uint_as_float(v.y);
     a[2] += __uint_as_float(v.z);
     a[3] += __uint_as_float(v.w);
+  }
+  __device__ static void get(float* a, const uint4& v) {
+    a[0] = __uint_as_float(v.x);
+    a[1] = __uint_as_float(v.y);
+    a[2] = __uint_as_float(v.z);
+    a[3] = __uint_as_float(v.w);
   }
   __device__ static float round(float v) { return v; }
   __device__ static uint4 make(const float* a) {
@@ -106,6 +142,15 @@ template <> struct Pack<__nv_bfloat16> {
       a[2 * i + 1] += f.y;
     }
   }
+  __device__ static void get(float* a, const uint4& v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(h[i]);
+      a[2 * i] = f.x;
+      a[2 * i + 1] = f.y;
+    }
+  }
   __device__ static float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
@@ -117,6 +162,32 @@ template <> struct Pack<__nv_bfloat16> {
     return v;
   }
 };
+
+// E consecutive f32 from a 16-byte aligned address
+template <int E>
+__device__ __forceinline__ void load_f32(float* d, const float* src) {
+#pragma unroll
+  for (int i = 0; i < E / 4; ++i) {
+    const float4 f = reinterpret_cast<const float4*>(src)[i];
+    d[4 * i] = f.x;
+    d[4 * i + 1] = f.y;
+    d[4 * i + 2] = f.z;
+    d[4 * i + 3] = f.w;
+  }
+}
+
+// xn = cast(relu(a*x + b)) on one vector: f32 math, rounded once. The gate
+// of the backward is the same fmaf(x, a, b) > 0.
+template <typename T>
+__device__ __forceinline__ uint4 bnin_vec(const uint4& v, const float* av,
+                                          const float* bv) {
+  constexpr int E = Pack<T>::E;
+  float x[E];
+  Pack<T>::get(x, v);
+#pragma unroll
+  for (int e = 0; e < E; ++e) x[e] = fmaxf(fmaf(x[e], av[e], bv[e]), 0.f);
+  return Pack<T>::make(x);
+}
 
 struct Geo {
   int H, W, lh, lw;   // H = 1 << lh, W = 1 << lw
@@ -139,7 +210,7 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::);
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N));
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
 template <typename T, int BM_, int BN_, bool KMAJOR>
@@ -165,14 +236,21 @@ struct Cfg {
 
 // a: the gathered operand (forward and dW: x; dx: gy), b: the packed
 // weights (9, kc, nc) for the convolutions, gy (M, nc) for dW.
-// out: (M, nc) for the convolutions. part: FWD_STATS (mtiles, 2, nc)
-// moments; DW (splits, 9*kc, nc) f32 partials.
+// out: (M, nc) for the convolutions. part: the stats modes' (mtiles, 2, nc)
+// moments, DX_BNIN's (mtiles, 2, nc) [da; db]; dW's (splits, 9*kc, nc) f32
+// partials. ab: the BN-input modes' (2, Cin) f32 [a; b]; xin: DX_BNIN's x
+// (M, nc) at the output pixels.
 template <typename T, int BM, int BN, int MODE>
 __global__ void __launch_bounds__(NT, 2) rconv_gemm(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
-    float* __restrict__ part, Geo g, int ntiles, int mtiles,
+    float* __restrict__ part, const T* __restrict__ xin,
+    const float* __restrict__ ab, Geo g, int ntiles, int mtiles,
     long long kspan) {
-  constexpr bool KMAJOR = MODE == DW;
+  constexpr bool IS_DW = MODE == DW || MODE == DW_BNIN;
+  constexpr bool IS_DX = MODE == DX || MODE == DX_BNIN;
+  constexpr bool STATS = MODE == FWD_STATS || MODE == FWD_BNIN_STATS;
+  constexpr bool BNIN_A = MODE == FWD_BNIN_STATS || MODE == DW_BNIN;
+  constexpr bool KMAJOR = IS_DW;
   using C = Cfg<T, BM, BN, KMAJOR>;
   constexpr int E = C::E, BK = C::BK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -186,7 +264,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
   bid /= ntiles;
   int mt, t_dw = 0, split = 0;
   long long m0, k_begin = 0, k_end = 0;
-  if constexpr (MODE == DW) {
+  if constexpr (IS_DW) {
     mt = (int)(bid % mtiles);
     split = (int)(bid / mtiles);
     const int cit = mtiles / 9;                   // Cin tiles per tap
@@ -200,16 +278,23 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
   }
   const int n0 = nt * BN;
   const int kchunks = (g.kc + BK - 1) / BK;
-  const int KT = MODE == DW
+  const int KT = IS_DW
       ? (int)((k_end - k_begin + BK - 1) / BK) : 9 * kchunks;
 
   constexpr int S = C::STAGES;
-  uint4 ra[MODE == DX ? C::A_PER : 1];
+  uint4 ra[IS_DX ? C::A_PER : 1];
+
+  // the BN-input affine [a; b] of the gathered operand's channels
+  float* sab = reinterpret_cast<float*>(smem + C::SMEM);
+  if constexpr (BNIN_A) {
+    for (int i = tid; i < 2 * g.kc; i += NT) sab[i] = ab[i];
+    __syncthreads();
+  }
 
   // Where vector v of step kt's A tile comes from (every mode but DX:
   // one source row each, the reflection resolved here); false = zeros.
   auto a_src = [&](int kt, int v, const T*& src) -> bool {
-    if constexpr (MODE == DW) {
+    if constexpr (IS_DW) {
       const long long p = k_begin + (long long)kt * BK + v / (BM / E);
       const long long c = m0 + (v % (BM / E)) * E;
       if (p >= k_end || c >= g.kc) return false;
@@ -232,11 +317,38 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
       return true;
     }
   };
+  // BN-input modes: the vectors this thread copied into stage s for step
+  // kt (a_src's pixels and channels), rewritten in place as
+  // xn = cast(relu(a*x + b)) once its own cp.async group has landed;
+  // zero-filled vectors stay zero. A thread's vectors (v = tid + i*NT) lie
+  // in one column of the tile, so they share one load of a and b.
+  auto bnin = [&](int kt, int s) {
+    if constexpr (BNIN_A) {
+      constexpr int RV = KMAJOR ? BM / E : BK / E;
+      static_assert(NT % RV == 0, "a thread's vectors share their channels");
+      const int col = (tid % RV) * E;
+      const int c = IS_DW ? (int)m0 + col : (kt % kchunks) * BK + col;
+      if (c >= g.kc) return;
+      const long long p0 = (IS_DW ? k_begin + (long long)kt * BK : m0) + tid / RV;
+      const long long p_end = IS_DW ? k_end : g.M;
+      float av[E], bv[E];
+      load_f32<E>(av, sab + c);
+      load_f32<E>(bv, sab + g.kc + c);
+      T* As = stage + s * C::STAGE + (tid / RV) * C::LDA + col;
+#pragma unroll
+      for (int i = 0; i < C::A_PER; ++i) {
+        if (p0 + i * (NT / RV) < p_end) {
+          uint4* q = reinterpret_cast<uint4*>(As + i * (NT / RV) * C::LDA);
+          *q = bnin_vec<T>(*q, av, bv);
+        }
+      }
+    }
+  };
   // vector v of step kt's B tile: the weights (conv) or gy rows (dW)
   auto b_src = [&](int kt, int v, const T*& src) -> bool {
     const int n = n0 + (v % (BN / E)) * E;
     const int r = v / (BN / E);
-    if constexpr (MODE == DW) {
+    if constexpr (IS_DW) {
       const long long p = k_begin + (long long)kt * BK + r;
       if (p >= k_end || n >= g.nc) return false;
       src = b + p * g.nc + n;
@@ -252,7 +364,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
   auto issue = [&](int kt, int s) {
     T* As = stage + s * C::STAGE;
     T* Bs = As + C::A_ELEMS;
-    if constexpr (MODE != DX) {
+    if constexpr (!IS_DX) {
 #pragma unroll
       for (int i = 0; i < C::A_PER; ++i) {
         const int v = tid + i * NT;
@@ -274,9 +386,9 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
   // one leg (or none) copies its row (or zeros) by cp.async into stage s; a
   // boundary pixel with several sums them in f32 here, rounds once, and
   // dx_store writes the sum after this step's products.
-  bool held[MODE == DX ? C::A_PER : 1];
+  bool held[IS_DX ? C::A_PER : 1];
   auto dx_issue = [&](int kt, int s) {
-    if constexpr (MODE == DX) {
+    if constexpr (IS_DX) {
       T* As = stage + s * C::STAGE;
       const int t = kt / kchunks;
       const int c0 = (kt - t * kchunks) * BK;
@@ -325,7 +437,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
     }
   };
   auto dx_store = [&](int s) {
-    if constexpr (MODE == DX) {
+    if constexpr (IS_DX) {
       T* As = stage + s * C::STAGE;
 #pragma unroll
       for (int i = 0; i < C::A_PER; ++i) {
@@ -415,6 +527,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
   }
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<S - 2>();
+    bnin(kt, kt % S);
     __syncthreads();          // step kt has landed; step kt-1's stage is free
     const int nk = kt + S - 1;
     if (nk < KT) {
@@ -446,7 +559,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
   }
   __syncthreads();
 
-  if constexpr (MODE == DW) {
+  if constexpr (IS_DW) {
     for (int v = tid; v < BM * BN / 4; v += NT) {
       const int r = v / (BN / 4), c4 = v % (BN / 4);
       const long long ci = m0 + r;
@@ -455,6 +568,51 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
         *reinterpret_cast<float4*>(
             part + (((long long)split * 9 + t_dw) * g.kc + ci) * g.nc + n) =
             *reinterpret_cast<const float4*>(Cs + r * C::LDC + c4 * 4);
+    }
+  } else if constexpr (MODE == DX_BNIN) {
+    // dx = cast(dxn*g*a), da = sum dxn*g*x, db = sum dxn*g from the f32 tile
+    // dxn: a thread keeps one vector of columns and walks its rows
+    constexpr int CV = BN / E, RG = NT / CV;
+    static_assert(2 * BN <= NT && RG * 2 * BN * 4 <= C::SMEM, "da/db staging");
+    const int cv = tid % CV, rg = tid / CV;
+    const int n = n0 + cv * E;
+    float da[E], db[E], av[E], bv[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) da[e] = db[e] = av[e] = bv[e] = 0.f;
+    if (n < g.nc) {
+      load_f32<E>(av, ab + n);
+      load_f32<E>(bv, ab + g.nc + n);
+      for (int r = rg; r < BM; r += RG) {
+        const long long p = m0 + r;
+        if (p >= g.M) break;
+        float xv[E], vals[E];
+        Pack<T>::get(xv, __ldg(reinterpret_cast<const uint4*>(xin + p * g.nc + n)));
+        const float* cp = Cs + r * C::LDC + cv * E;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float gd = fmaf(xv[e], av[e], bv[e]) > 0.f ? cp[e] : 0.f;
+          vals[e] = gd * av[e];
+          da[e] = fmaf(gd, xv[e], da[e]);
+          db[e] += gd;
+        }
+        *reinterpret_cast<uint4*>(out + p * g.nc + n) = Pack<T>::make(vals);
+      }
+    }
+    __syncthreads();          // the tile is read; its memory holds the sums
+    float* red = reinterpret_cast<float*>(smem);     // (RG, 2, BN)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      red[(rg * 2) * BN + cv * E + e] = da[e];
+      red[(rg * 2 + 1) * BN + cv * E + e] = db[e];
+    }
+    __syncthreads();
+    if (tid < 2 * BN) {
+      const int j = tid / BN, col = tid % BN;
+      if (n0 + col < g.nc) {
+        float tot = 0.f;
+        for (int k = 0; k < RG; ++k) tot += red[(k * 2 + j) * BN + col];
+        part[((long long)mt * 2 + j) * g.nc + n0 + col] = tot;
+      }
     }
   } else {
     for (int v = tid; v < BM * BN / E; v += NT) {
@@ -467,16 +625,16 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
 #pragma unroll
         for (int e = 0; e < E; ++e) vals[e] = Pack<T>::round(cp[e]);
         *reinterpret_cast<uint4*>(out + p * g.nc + n) = Pack<T>::make(vals);
-        if constexpr (MODE == FWD_STATS) {
+        if constexpr (STATS) {
 #pragma unroll
           for (int e = 0; e < E; ++e) cp[e] = vals[e];   // the cast y
         }
-      } else if constexpr (MODE == FWD_STATS) {
+      } else if constexpr (STATS) {
 #pragma unroll
         for (int e = 0; e < E; ++e) cp[e] = 0.f;
       }
     }
-    if constexpr (MODE == FWD_STATS) {
+    if constexpr (STATS) {
       __syncthreads();
       if (tid < BN && n0 + tid < g.nc) {
         float s1 = 0.f, s2 = 0.f;
@@ -530,41 +688,92 @@ Geo make_geo(int N, int H, int W, int kc, int nc) {
   return g;
 }
 
+// the BN-input operands of a launch: x at the output pixels (DX_BNIN) and
+// the packed affine (2, Cin) f32; null for the plain modes
+struct Bnin {
+  const void* xin = nullptr;
+  const float* ab = nullptr;
+};
+
 template <typename T, int BM, int BN, int MODE>
 cudaError_t launch_gemm(const void* a, const void* b, void* out, float* part,
-                        const Geo& g, int mtiles, int splits, long long kspan,
-                        cudaStream_t st) {
-  using C = Cfg<T, BM, BN, MODE == DW>;
+                        const Bnin& bn, const Geo& g, int mtiles, int splits,
+                        long long kspan, cudaStream_t st) {
+  using C = Cfg<T, BM, BN, MODE == DW || MODE == DW_BNIN>;
   auto kern = rconv_gemm<T, BM, BN, MODE>;
+  // the affine of the gathered operand's channels sits behind the stages
+  const int smem = C::SMEM + (MODE == FWD_BNIN_STATS || MODE == DW_BNIN
+                                  ? 2 * g.kc * (int)sizeof(float) : 0);
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const int ntiles = (g.nc + BN - 1) / BN;
   const long long blocks = (long long)ntiles * mtiles * splits;
-  kern<<<(unsigned)blocks, NT, C::SMEM, st>>>(
+  kern<<<(unsigned)blocks, NT, smem, st>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out),
-      part, g, ntiles, mtiles, kspan);
+      part, static_cast<const T*>(bn.xin), bn.ab, g, ntiles, mtiles, kspan);
   return cudaGetLastError();
 }
 
 constexpr int conv_bm(int dtype) { return dtype == 1 ? 128 : 64; }
+int conv_mtiles(int dtype, const Geo& g) {
+  return (int)((g.M + conv_bm(dtype) - 1) / conv_bm(dtype));
+}
 // dW's tile rows (Cin per tap): 128 where Cin > 64 in bf16, which halves
 // the weight-gradient tiles' re-reads of x and gy from L2
 int dw_bm(int dtype, int cin) { return dtype == 1 && cin > 64 ? 128 : 64; }
+int dw_bn(int dtype, int cout) { return dtype == 1 && cout > 64 ? 128 : 64; }
 
 template <int MODE>
 cudaError_t conv(int dtype, const void* a, const void* w, void* out, float* part,
-                 const Geo& g, cudaStream_t st) {
-  const int mtiles = (int)((g.M + conv_bm(dtype) - 1) / conv_bm(dtype));
+                 const Bnin& bn, const Geo& g, cudaStream_t st) {
+  const int mtiles = conv_mtiles(dtype, g);
   if (dtype == 1) {
     if (g.nc <= 64)
-      return launch_gemm<__nv_bfloat16, 128, 64, MODE>(a, w, out, part, g, mtiles, 1, 0, st);
-    return launch_gemm<__nv_bfloat16, 128, 128, MODE>(a, w, out, part, g, mtiles, 1, 0, st);
+      return launch_gemm<__nv_bfloat16, 128, 64, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
+    return launch_gemm<__nv_bfloat16, 128, 128, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
   }
-  return launch_gemm<float, 64, 64, MODE>(a, w, out, part, g, mtiles, 1, 0, st);
+  return launch_gemm<float, 64, 64, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
 }
 
-int dw_bn(int dtype, int cout) { return dtype == 1 && cout > 64 ? 128 : 64; }
+// out (2, nc) = the per-block (mtiles, 2, nc) partials summed in order
+cudaError_t reduce_pairs(const float* part, void* out, int mtiles, int nc,
+                         cudaStream_t st) {
+  const long long n = 2LL * nc;
+  reduce_rows<32><<<(unsigned)((n + 31) / 32), dim3(32, 32), 0, st>>>(
+      part, static_cast<float*>(out), mtiles, n);
+  return cudaGetLastError();
+}
+
+// dW (MODE DW) or dW of xn rebuilt from the raw x (DW_BNIN): the K-split
+// partials, then their sum in a fixed order
+template <int MODE>
+cudaError_t dw(int dtype, const void* x, const void* gy, float* p, void* dwo,
+               const Bnin& bn, const Geo& g, int cin, int cout, int splits,
+               cudaStream_t st) {
+  const int bm = dw_bm(dtype, cin);
+  const int mtiles = 9 * ((cin + bm - 1) / bm);
+  const long long steps = (g.M + 31) / 32;
+  const long long kspan = ((steps + splits - 1) / splits) * 32;
+  cudaError_t e;
+  if (dtype == 1) {
+    if (bm == 128 && dw_bn(dtype, cout) == 128)
+      e = launch_gemm<__nv_bfloat16, 128, 128, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
+    else if (bm == 128)
+      e = launch_gemm<__nv_bfloat16, 128, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
+    else if (dw_bn(dtype, cout) == 128)
+      e = launch_gemm<__nv_bfloat16, 64, 128, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
+    else
+      e = launch_gemm<__nv_bfloat16, 64, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
+  } else {
+    e = launch_gemm<float, 64, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
+  }
+  if (e != cudaSuccess) return e;
+  const long long n = 9LL * cin * cout;
+  reduce_rows<8><<<(unsigned)((n + 31) / 32), dim3(32, 8), 0, st>>>(
+      p, static_cast<float*>(dwo), splits, n);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -593,54 +802,74 @@ int rconv_fwd_launch(const void* x, const void* w9, void* y, void* part,
                      int cout, int stats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g = make_geo(N, H, W, cin, cout);
-  if (!stats) return (int)conv<FWD>(dtype, x, w9, y, nullptr, g, st);
-  cudaError_t e = conv<FWD_STATS>(dtype, x, w9, y, static_cast<float*>(part), g, st);
+  if (!stats) return (int)conv<FWD>(dtype, x, w9, y, nullptr, Bnin(), g, st);
+  float* p = static_cast<float*>(part);
+  cudaError_t e = conv<FWD_STATS>(dtype, x, w9, y, p, Bnin(), g, st);
   if (e != cudaSuccess) return (int)e;
-  const int mtiles = (int)((g.M + conv_bm(dtype) - 1) / conv_bm(dtype));
-  const long long n = 2LL * cout;
-  reduce_rows<32><<<(unsigned)((n + 31) / 32), dim3(32, 32), 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(s12), mtiles, n);
-  return (int)cudaGetLastError();
+  return (int)reduce_pairs(p, s12, conv_mtiles(dtype, g), cout, st);
+}
+
+// the same of xn = cast(relu(a*x + b)), ab (2,Cin) f32 = [a; b], with the
+// moments; xn is never written
+int rconv_fwd_bnin_launch(const void* x, const void* ab, const void* w9,
+                          void* y, void* part, void* s12, int dtype, int N,
+                          int H, int W, int cin, int cout, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geo g = make_geo(N, H, W, cin, cout);
+  Bnin bn;
+  bn.ab = static_cast<const float*>(ab);
+  float* p = static_cast<float*>(part);
+  cudaError_t e = conv<FWD_BNIN_STATS>(dtype, x, w9, y, p, bn, g, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce_pairs(p, s12, conv_mtiles(dtype, g), cout, st);
 }
 
 // dx (N,H,W,Cin) from gy (N,H,W,Cout) and the transposed taps w9t (9,Cout,Cin)
 int rconv_dx_launch(const void* gy, const void* w9t, void* dx, int dtype,
                     int N, int H, int W, int cin, int cout, void* stream) {
   const Geo g = make_geo(N, H, W, cout, cin);
-  return (int)conv<DX>(dtype, gy, w9t, dx, nullptr, g,
+  return (int)conv<DX>(dtype, gy, w9t, dx, nullptr, Bnin(), g,
                        static_cast<cudaStream_t>(stream));
+}
+
+// dx = cast(dxn*g*a) with dxn the plain dx of gy, g = (a*x + b > 0) at the
+// raw x (N,H,W,Cin); dab (2,Cin) = [sum dxn*g*x; sum dxn*g] from the f32
+// dxn; part (mtiles,2,Cin) scratch
+int rconv_dx_bnin_launch(const void* gy, const void* w9t, const void* x,
+                         const void* ab, void* dx, void* part, void* dab,
+                         int dtype, int N, int H, int W, int cin, int cout,
+                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geo g = make_geo(N, H, W, cout, cin);
+  Bnin bn;
+  bn.xin = x;
+  bn.ab = static_cast<const float*>(ab);
+  float* p = static_cast<float*>(part);
+  cudaError_t e = conv<DX_BNIN>(dtype, gy, w9t, dx, p, bn, g, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce_pairs(p, dab, conv_mtiles(dtype, g), cin, st);
 }
 
 // dw (9,Cin,Cout) f32 from x (N,H,W,Cin) and gy (N,H,W,Cout); part is
 // (splits, 9, Cin, Cout) f32 scratch, splits from rconv_dw_splits
-int rconv_dw_launch(const void* x, const void* gy, void* part, void* dw,
+int rconv_dw_launch(const void* x, const void* gy, void* part, void* dw_out,
                     int dtype, int N, int H, int W, int cin, int cout,
                     int splits, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g = make_geo(N, H, W, cin, cout);
-  const int bm = dw_bm(dtype, cin);
-  const int mtiles = 9 * ((cin + bm - 1) / bm);
-  const long long steps = (g.M + 31) / 32;
-  const long long kspan = ((steps + splits - 1) / splits) * 32;
-  float* p = static_cast<float*>(part);
-  cudaError_t e;
-  if (dtype == 1) {
-    if (bm == 128 && dw_bn(dtype, cout) == 128)
-      e = launch_gemm<__nv_bfloat16, 128, 128, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
-    else if (bm == 128)
-      e = launch_gemm<__nv_bfloat16, 128, 64, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
-    else if (dw_bn(dtype, cout) == 128)
-      e = launch_gemm<__nv_bfloat16, 64, 128, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
-    else
-      e = launch_gemm<__nv_bfloat16, 64, 64, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
-  } else {
-    e = launch_gemm<float, 64, 64, DW>(x, gy, nullptr, p, g, mtiles, splits, kspan, st);
-  }
-  if (e != cudaSuccess) return (int)e;
-  const long long n = 9LL * cin * cout;
-  reduce_rows<8><<<(unsigned)((n + 31) / 32), dim3(32, 8), 0, st>>>(
-      p, static_cast<float*>(dw), splits, n);
-  return (int)cudaGetLastError();
+  return (int)dw<DW>(dtype, x, gy, static_cast<float*>(part), dw_out, Bnin(),
+                     g, cin, cout, splits, static_cast<cudaStream_t>(stream));
+}
+
+// the same with xn = cast(relu(a*x + b)) rebuilt from the raw x in the loader
+int rconv_dw_bnin_launch(const void* x, const void* ab, const void* gy,
+                         void* part, void* dw_out, int dtype, int N, int H,
+                         int W, int cin, int cout, int splits, void* stream) {
+  const Geo g = make_geo(N, H, W, cin, cout);
+  Bnin bn;
+  bn.ab = static_cast<const float*>(ab);
+  return (int)dw<DW_BNIN>(dtype, x, gy, static_cast<float*>(part), dw_out, bn,
+                          g, cin, cout, splits,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 """3x3 stride-1 reflect-padded convolution, with the following BatchNorm's
-batch moments fused into the forward.
+batch moments fused into the forward and, in the BN-input chain, the
+preceding BatchNorm's affine and ReLU fused into the operand.
 
 Replaces the Pallas TPU kernels of ``videowalk_tpu/ops/rconv_kernel.py``:
-``_fwd_call`` (#4), ``_fwd_call_st`` (#5), ``_dx_call`` (#9) and
+``_fwd_call`` (#4), ``_fwd_call_st`` (#5), ``_fwd_call_bnin_st`` (#6),
+``_dx_call_bnin`` (#7), ``_dw_call_bnin`` (#8), ``_dx_call`` (#9) and
 ``_dw_call`` (#10), with the JAX package's hand VJP:
 
 - ``reflect_conv3x3(x, w)``: ``y = conv_valid(reflect_pad(x, 1), w)``;
@@ -12,6 +14,16 @@ Replaces the Pallas TPU kernels of ``videowalk_tpu/ops/rconv_kernel.py``:
   ``s2 = Σ y²`` over N·H·W (#5). Its backward folds the moment cotangents
   into the conv's, ``gy_eff = (gy.f32 + gs1 + 2·y.f32·gs2).to(gy.dtype)``
   on the saved cast ``y``, and reuses dx and dW.
+- ``reflect_conv3x3_bnin_stats(x, a, b, w) -> (y, s1, s2)``: the conv and
+  moments of ``xn = relu(a·x + b).to(x.dtype)`` (f32 math, per-channel f32
+  ``a``, ``b``: the previous BatchNorm's train-mode affine) from the raw
+  ``x``; ``xn`` is never written (#6). Backward: the same ``gy_eff``, then
+  ``dxn`` = the plain dx of ``gy_eff``, the gate ``g = (a·x + b > 0)``,
+  ``dx = (dxn·g·a).to(x.dtype)``, ``da = Σ dxn·g·x`` and ``db = Σ dxn·g``
+  per channel from the f32 ``dxn`` (#7), and dW with ``xn`` rebuilt from
+  the raw ``x`` (#8). The kernels gate by ``fmaf(x, a, b) > 0``; the plain
+  version rounds ``x·a`` before adding ``b``, so an element within one f32
+  rounding of 0 may be gated differently.
 - dW comes back in the weight's compute dtype (``dw.astype(w9.dtype)``):
   on a bf16 trunk it is rounded to bf16 before the cast to the f32
   parameter.
@@ -23,7 +35,9 @@ storage, so ``x`` is a ``channels_last`` tensor of logical shape
 (forward) and ``(9, Cout, Cin)`` (dx).
 
 Each wrapper (``reflect_conv_fwd``, ``reflect_conv_fwd_stats``,
-``reflect_conv_dx``, ``reflect_conv_dw``) takes the plain PyTorch version
+``reflect_conv_dx``, ``reflect_conv_dw``, ``reflect_conv_fwd_bnin_stats``,
+``reflect_conv_dx_bnin``, ``reflect_conv_dw_bnin``) takes the plain PyTorch
+version
 (``F.pad(mode="reflect")`` + ``conv2d`` in the input's dtype, its f32 sums,
 and autograd of the same) for a tensor on the CPU, and launches the
 hand-written Hopper kernel ``csrc/rconv.cu`` for a CUDA tensor, or raises.
@@ -76,6 +90,33 @@ def reflect_conv_plain_bwd(x: torch.Tensor, w: torch.Tensor,
         return torch.autograd.grad(reflect_conv_plain(xx, ww), (xx, ww), gy)
 
 
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v.float()[None, :, None, None]
+
+
+def bnin_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """``(xn, g)``: ``xn = relu(a·x + b)`` in f32 cast to x's dtype, and the
+    ReLU gate ``g = (a·x + b > 0)``."""
+    pre = x.float() * _per_channel(a) + _per_channel(b)
+    return torch.relu(pre).to(x.dtype), pre > 0
+
+
+def reflect_conv_dx_bnin_plain(gy: torch.Tensor, w: torch.Tensor,
+                               x: torch.Tensor, a: torch.Tensor,
+                               b: torch.Tensor):
+    """The JAX VJP's formula: ``dxn`` = the conv's input gradient at ``gy``
+    in f32 (the conv is linear in its input), gated, then ``dx =
+    (dxn·g·a).to(x.dtype)``, ``da = Σ dxn·g·x``, ``db = Σ dxn·g``."""
+    g = bnin_plain(x, a, b)[1]
+    with torch.enable_grad():
+        xx = torch.zeros_like(x, dtype=torch.float32).requires_grad_()
+        dxn, = torch.autograd.grad(reflect_conv_plain(xx, w.float()), xx,
+                                   gy.float())
+    dxg = dxn * g
+    return ((dxg * _per_channel(a)).to(x.dtype),
+            (dxg * x.float()).sum((0, 2, 3)), dxg.sum((0, 2, 3)))
+
+
 # ----------------------------------------------------------------- kernels
 
 
@@ -98,6 +139,12 @@ def _lib():
         lib.rconv_dx_launch.restype = i
         lib.rconv_dw_launch.argtypes = [p] * 4 + [i] * 7 + [p]
         lib.rconv_dw_launch.restype = i
+        lib.rconv_fwd_bnin_launch.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.rconv_fwd_bnin_launch.restype = i
+        lib.rconv_dx_bnin_launch.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.rconv_dx_bnin_launch.restype = i
+        lib.rconv_dw_bnin_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.rconv_dw_bnin_launch.restype = i
     return lib
 
 
@@ -142,6 +189,19 @@ def _check_weight(name: str, w: torch.Tensor, x: torch.Tensor,
                          f"needs a multiple of {vec} for {x.dtype}")
 
 
+def _pack_ab(name: str, a: torch.Tensor, b: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """The affine as the kernels read it: ``(2, Cin)`` f32 ``[a; b]``."""
+    cin = x.shape[1]
+    for tname, t in (("a", a), ("b", b)):
+        if (t.device != x.device or t.dtype != torch.float32
+                or tuple(t.shape) != (cin,)):
+            raise ValueError(f"{name}: {tname} must be a ({cin},) float32 "
+                             f"tensor on {x.device}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return torch.stack((a.detach(), b.detach()))
+
+
 def _nhwc_empty(N, C, H, W, like):
     return torch.empty((N, C, H, W), dtype=like.dtype, device=like.device,
                        memory_format=torch.channels_last)
@@ -151,11 +211,15 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fwd(name: str, x: torch.Tensor, w: torch.Tensor, stats: bool):
+def _fwd(name: str, x: torch.Tensor, w: torch.Tensor, stats: bool,
+         ab=None):
+    """Forward #4, with ``stats`` #5, with ``ab = (a, b)`` too #6."""
     _check_act(name, "x", x, x.dtype, x.device)
     N, cin, H, W = x.shape
     _check_weight(name, w, x, cin)
     cout = w.shape[0]
+    if ab is not None:
+        ab = _pack_ab(name, *ab, x)
     lib = _lib()
     dt = _DTYPES[x.dtype]
     w9 = w.permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
@@ -168,9 +232,16 @@ def _fwd(name: str, x: torch.Tensor, w: torch.Tensor, stats: bool):
     else:
         part = s12 = torch.empty((0,), **f32)
     with torch.cuda.device(x.device):
-        err = lib.rconv_fwd_launch(
-            x.data_ptr(), w9.data_ptr(), y.data_ptr(), part.data_ptr(),
-            s12.data_ptr(), dt, N, H, W, cin, cout, int(stats), _stream(x))
+        if ab is None:
+            err = lib.rconv_fwd_launch(
+                x.data_ptr(), w9.data_ptr(), y.data_ptr(), part.data_ptr(),
+                s12.data_ptr(), dt, N, H, W, cin, cout, int(stats),
+                _stream(x))
+        else:
+            err = lib.rconv_fwd_bnin_launch(
+                x.data_ptr(), ab.data_ptr(), w9.data_ptr(), y.data_ptr(),
+                part.data_ptr(), s12.data_ptr(), dt, N, H, W, cin, cout,
+                _stream(x))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return (y, s12[0], s12[1]) if stats else y
@@ -203,14 +274,25 @@ def reflect_conv_fwd_stats(x: torch.Tensor, w: torch.Tensor):
 reflect_conv_fwd_stats.launches = 0
 
 
-def reflect_conv_dx(gy: torch.Tensor, w: torch.Tensor,
-                    x: torch.Tensor) -> torch.Tensor:
-    """Input gradient (#9) of the conv at ``gy (N, Cout, H, W)``; ``x``
-    only for its shape on the CPU path (the plain version differentiates
-    the conv at it)."""
-    if gy.device.type == "cpu":
-        return reflect_conv_plain_bwd(x, w, gy)[0]
-    name = "reflect_conv_dx"
+def reflect_conv_fwd_bnin_stats(x: torch.Tensor, a: torch.Tensor,
+                                b: torch.Tensor, w: torch.Tensor):
+    """Forward of the BN-input chain (#6): ``(y, s1, s2)`` of the conv of
+    ``xn = relu(a·x + b).to(x.dtype)`` from the raw ``x (N, Cin, H, W)``
+    and the f32 ``a``, ``b (Cin,)``; the kernel never writes ``xn``."""
+    if x.device.type == "cpu":
+        y = reflect_conv_plain(bnin_plain(x, a, b)[0], w)
+        return (y, *moments_plain(y))
+    out = _fwd("reflect_conv_fwd_bnin_stats", x, w, stats=True, ab=(a, b))
+    reflect_conv_fwd_bnin_stats.launches += 1
+    return out
+
+
+reflect_conv_fwd_bnin_stats.launches = 0
+
+
+def _dx(name: str, gy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+        ab=None):
+    """Input gradient #9; with ``ab = (a, b)`` #7: ``(dx, da, db)``."""
     _check_act(name, "gy", gy, w.dtype, w.device)
     N, cout, H, W = gy.shape
     cin = w.shape[1]
@@ -218,20 +300,89 @@ def reflect_conv_dx(gy: torch.Tensor, w: torch.Tensor,
     _check_weight(name, w, gy, cin)
     if w.shape[0] != cout:
         raise ValueError(f"{name}: gy has {cout} channels, w {w.shape[0]}")
+    if ab is not None:
+        ab = _pack_ab(name, *ab, x)
     lib = _lib()
+    dt = _DTYPES[gy.dtype]
     w9t = w.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
     dx = _nhwc_empty(N, cin, H, W, gy)
     with torch.cuda.device(gy.device):
-        err = lib.rconv_dx_launch(gy.data_ptr(), w9t.data_ptr(),
-                                  dx.data_ptr(), _DTYPES[gy.dtype], N, H, W,
-                                  cin, cout, _stream(gy))
+        if ab is None:
+            err = lib.rconv_dx_launch(gy.data_ptr(), w9t.data_ptr(),
+                                      dx.data_ptr(), dt, N, H, W, cin, cout,
+                                      _stream(gy))
+        else:
+            f32 = dict(dtype=torch.float32, device=gy.device)
+            mtiles = -(-N * H * W // int(lib.rconv_conv_bm(dt)))
+            part = torch.empty((mtiles, 2, cin), **f32)
+            dab = torch.empty((2, cin), **f32)
+            err = lib.rconv_dx_bnin_launch(
+                gy.data_ptr(), w9t.data_ptr(), x.data_ptr(), ab.data_ptr(),
+                dx.data_ptr(), part.data_ptr(), dab.data_ptr(), dt, N, H, W,
+                cin, cout, _stream(gy))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return dx if ab is None else (dx, dab[0], dab[1])
+
+
+def reflect_conv_dx(gy: torch.Tensor, w: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Input gradient (#9) of the conv at ``gy (N, Cout, H, W)``; ``x``
+    only for its shape on the CPU path (the plain version differentiates
+    the conv at it)."""
+    if gy.device.type == "cpu":
+        return reflect_conv_plain_bwd(x, w, gy)[0]
+    dx = _dx("reflect_conv_dx", gy, w, x)
     reflect_conv_dx.launches += 1
     return dx
 
 
 reflect_conv_dx.launches = 0
+
+
+def reflect_conv_dx_bnin(gy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                         a: torch.Tensor, b: torch.Tensor):
+    """Input gradient of the BN-input chain (#7) at ``gy (N, Cout, H, W)``
+    and the raw ``x``: ``(dx, da, db)`` with ``dx`` in x's dtype and the
+    f32 per-channel ``da = Σ dxn·g·x``, ``db = Σ dxn·g``."""
+    if gy.device.type == "cpu":
+        return reflect_conv_dx_bnin_plain(gy, w, x, a, b)
+    out = _dx("reflect_conv_dx_bnin", gy, w, x, ab=(a, b))
+    reflect_conv_dx_bnin.launches += 1
+    return out
+
+
+reflect_conv_dx_bnin.launches = 0
+
+
+def _dw(name: str, x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
+        ab=None) -> torch.Tensor:
+    """Weight gradient #10; with ``ab = (a, b)`` #8 (of ``xn``)."""
+    _check_act(name, "x", x, x.dtype, x.device)
+    N, cin, H, W = x.shape
+    _check_weight(name, w, x, cin)
+    cout = w.shape[0]
+    _check_act(name, "gy", gy, x.dtype, x.device, (N, cout, H, W))
+    if ab is not None:
+        ab = _pack_ab(name, *ab, x)
+    lib = _lib()
+    dt = _DTYPES[x.dtype]
+    splits = int(lib.rconv_dw_splits(dt, N, H, W, cin, cout))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty((splits, 9, cin, cout), **f32)
+    dw9 = torch.empty((9, cin, cout), **f32)
+    with torch.cuda.device(x.device):
+        if ab is None:
+            err = lib.rconv_dw_launch(x.data_ptr(), gy.data_ptr(),
+                                      part.data_ptr(), dw9.data_ptr(), dt, N,
+                                      H, W, cin, cout, splits, _stream(x))
+        else:
+            err = lib.rconv_dw_bnin_launch(
+                x.data_ptr(), ab.data_ptr(), gy.data_ptr(), part.data_ptr(),
+                dw9.data_ptr(), dt, N, H, W, cin, cout, splits, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return dw9.to(w.dtype).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
 
 
 def reflect_conv_dw(x: torch.Tensor, gy: torch.Tensor,
@@ -240,29 +391,26 @@ def reflect_conv_dw(x: torch.Tensor, gy: torch.Tensor,
     dtype, summed in f32; ``w`` only for its shape and dtype."""
     if x.device.type == "cpu":
         return reflect_conv_plain_bwd(x, w, gy)[1]
-    name = "reflect_conv_dw"
-    _check_act(name, "x", x, x.dtype, x.device)
-    N, cin, H, W = x.shape
-    _check_weight(name, w, x, cin)
-    cout = w.shape[0]
-    _check_act(name, "gy", gy, x.dtype, x.device, (N, cout, H, W))
-    lib = _lib()
-    dt = _DTYPES[x.dtype]
-    splits = int(lib.rconv_dw_splits(dt, N, H, W, cin, cout))
-    f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty((splits, 9, cin, cout), **f32)
-    dw9 = torch.empty((9, cin, cout), **f32)
-    with torch.cuda.device(x.device):
-        err = lib.rconv_dw_launch(x.data_ptr(), gy.data_ptr(),
-                                  part.data_ptr(), dw9.data_ptr(), dt, N, H,
-                                  W, cin, cout, splits, _stream(x))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    dw = _dw("reflect_conv_dw", x, gy, w)
     reflect_conv_dw.launches += 1
-    return dw9.to(w.dtype).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    return dw
 
 
 reflect_conv_dw.launches = 0
+
+
+def reflect_conv_dw_bnin(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                         gy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of the BN-input chain (#8): dW of the conv of
+    ``xn = relu(a·x + b).to(x.dtype)`` at ``gy``, from the raw ``x``."""
+    if x.device.type == "cpu":
+        return reflect_conv_plain_bwd(bnin_plain(x, a, b)[0], w, gy)[1]
+    dw = _dw("reflect_conv_dw_bnin", x, gy, w, ab=(a, b))
+    reflect_conv_dw_bnin.launches += 1
+    return dw
+
+
+reflect_conv_dw_bnin.launches = 0
 
 
 # ------------------------------------------------------------ autograd ops
@@ -275,6 +423,13 @@ def _as_kernel_layout(t: torch.Tensor) -> torch.Tensor:
     if t.device.type == "cuda":
         return t.contiguous(memory_format=torch.channels_last)
     return t
+
+
+def _fold_moment_cotangents(gy, gs1, gs2, y):
+    """The moments' cotangents folded into the conv's, on the saved cast
+    ``y``: ``(gy.f32 + gs1 + 2·y.f32·gs2).to(y.dtype)``."""
+    return (gy.float() + gs1[None, :, None, None]
+            + 2.0 * y.float() * gs2[None, :, None, None]).to(y.dtype)
 
 
 class _ReflectConv(torch.autograd.Function):
@@ -295,8 +450,7 @@ class _ReflectConv(torch.autograd.Function):
     def backward(ctx, gy, gs1=None, gs2=None):
         if ctx.stats:
             x, w, y = ctx.saved_tensors
-            gy = (gy.float() + gs1[None, :, None, None]
-                  + 2.0 * y.float() * gs2[None, :, None, None]).to(y.dtype)
+            gy = _fold_moment_cotangents(gy, gs1, gs2, y)
         else:
             x, w = ctx.saved_tensors
         gy = _as_kernel_layout(gy)
@@ -322,9 +476,32 @@ def reflect_conv3x3_stats(x: torch.Tensor, w: torch.Tensor):
     return _ReflectConv.apply(x, w, True)
 
 
-def reflect_conv3x3_bnin_stats(x, a, b, w):
-    """The conv of ``relu(a·x + b)`` with fused moments (the JAX package's
-    #6–#8, ``BNAffine`` and the BasicBlock chain): not ported yet."""
-    raise NotImplementedError(
-        "reflect_conv3x3_bnin_stats (kernels #6-#8, the BN-input chain) is "
-        "not ported yet: ROADMAP.md, Queue 2, slice 4")
+class _ReflectConvBnin(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, b, w):
+        x = _as_kernel_layout(x)
+        y, s1, s2 = reflect_conv_fwd_bnin_stats(x, a, b, w)
+        ctx.save_for_backward(x, a, b, w, y)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        x, a, b, w, y = ctx.saved_tensors
+        gy = _as_kernel_layout(_fold_moment_cotangents(gy, gs1, gs2, y))
+        dx = da = db = dw = None
+        if any(ctx.needs_input_grad[:3]):
+            dx, da, db = reflect_conv_dx_bnin(gy, w, x, a, b)
+            da, db = da.to(a.dtype), db.to(b.dtype)
+        if ctx.needs_input_grad[3]:
+            dw = reflect_conv_dw_bnin(x, a, b, gy, w)
+        return dx, da, db, dw
+
+
+def reflect_conv3x3_bnin_stats(x: torch.Tensor, a: torch.Tensor,
+                               b: torch.Tensor, w: torch.Tensor):
+    """:func:`reflect_conv3x3_stats` of ``relu(a·x + b)``: ``x`` is the
+    previous conv's raw output, ``a``, ``b (Cin,)`` f32 its train-mode
+    BatchNorm's affine (``models/resnet.py::BatchNorm.fold_affine``); the
+    normalized activation is never written. ``(y, s1, s2)`` with the
+    moments for the following BatchNorm; gradients flow to x, a, b and w."""
+    return _ReflectConvBnin.apply(x, a, b, w)

@@ -3,7 +3,7 @@
 card.
 
     python3 chip_smoke.py [--targets 40] [--steps 10] [--out results/chip_smoke.json]
-    python3 chip_smoke.py --phases rconv      # one phase alone, no result line
+    python3 chip_smoke.py --phases rconv      # phases alone, no result line
 
 1. Prints the card's name and power limit, builds every CUDA kernel of
    ``videowalk_tpu_torch/ops/csrc`` (one nvcc each, started together).
@@ -22,14 +22,18 @@ card.
 
 5. Holds the fused walk kernels (forward and backward, ``ops/csrc/walk.cu``)
    against their plain PyTorch version with rate-0.1 edge-drop masks at the
-   flagship shape (B=8, T=8, N=49, C=128) and at the gate's edge (T=10,
-   N=128, C=512), and times both with CUDA events.
+   flagship shape (B=8, T=8, N=49, C=128), at the gate's edge (T=10,
+   N=128, C=512) and at the superpixel step's shape (B=6, T=4, N=48) with
+   8-14 absent node slots (all-zero rows) a frame, and times both with CUDA
+   events.
 6. Holds the reflect-conv kernels (``ops/csrc/rconv.cu``: forward #4,
    forward with BN moments #5, dx #9, dW #10, and the BN-input chain's
    forward #6, dx with da/db #7 and dW #8, which apply ``relu(a*x + b)`` to
    their operand) against their plain PyTorch version on bf16 inputs at
    the step's shapes (the layer4 interior, 3136 images of 8x8 with 512
-   channels; layer1's 16x16x64; 8x8 128->256; a 32x32x512 map), and times
+   channels; layer1's 16x16x64; 8x8 128->256; a 32x32x512 map; the
+   superpixel step's 24 maps of 32x32x512 and its patch arm's 1176 of
+   8x8x512), and times
    kernel, plain version and the library call (``F.pad`` + cuDNN
    ``conv2d`` and its autograd backward; for the chain after an elementwise
    affine + ReLU) with CUDA events.
@@ -49,6 +53,25 @@ card.
 8. A small f32 step with ``rconv='on'``, ``bn_fuse='auto'`` (64 px
    patches) on the card against the same step on the CPU (plain versions),
    same weights and edge-drop masks: loss and gradients.
+
+9. Holds the fused SLIC kernels (``ops/csrc/slic.cu``, #12) against the
+   plain ``slic`` at the superpixel step of record (6 clips of 4 whole 256
+   px frames, 36 segments, compactness 50, 10 rounds): equal labels after
+   one assignment from the same centers (>= 99.9%, white-noise and
+   structured frames) and after the full run on structured frames (>= 99%),
+   a run with per-frame active counts, two runs bitwise equal; times both.
+10. Holds the L1 dilation kernel (``ops/csrc/dilation.cu``, #11) to
+   **equality** with its plain version on the 1152 bf16 one-hot masks of
+   SLIC labels at k=55 (and k=5, and a ragged stack), checks that a planted
+   fault fails, and times kernel, plain version and the library call (one
+   ``conv2d`` with the diamond kernel, ``> 0``).
+11. Drives the superpixel training step of record through
+   ``make_train_step`` with ``slic_fused`` inside the timed step: ``sp``,
+   ``sp_dil`` (L1 dilation k=55; profiled, stages timed), ``sp_dil`` with
+   ``rconv='off'`` and the patch step at the same batch 6 / clip 4; each
+   asserts finite losses and its kernels' launches per step.
+12. A small f32 superpixel step (64 px frames, dilation) on the card
+   against the CPU with the same labels: loss, q, gradients, launches.
 
 Prints one JSON line of kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -70,11 +93,16 @@ import torch
 
 from videowalk_tpu_torch.cli.test import build_model, encode_video, test
 from videowalk_tpu_torch.eval.propagation import context_index_bank
+from videowalk_tpu_torch.core.masks import make_dilation_kernel
 from videowalk_tpu_torch.models import CRW, CRWConfig
+from videowalk_tpu_torch.models.crw import superpixel_pool_weights
 from videowalk_tpu_torch.ops import _build
 from videowalk_tpu_torch.ops import prop_sparse as ps
 from videowalk_tpu_torch.ops import rconv as rc
 from videowalk_tpu_torch.ops import walk as wk
+from videowalk_tpu_torch.ops.dilation import dilate_l1, dilate_l1_plain
+from videowalk_tpu_torch.ops.slic import slic_fused
+from videowalk_tpu_torch.ops.slic_device import slic
 from videowalk_tpu_torch.parallel import (create_train_state, make_optimizer,
                                           make_train_step)
 
@@ -90,7 +118,11 @@ CLIP_LEN, N_PATCHES, PATCH, BATCH, WALK_TEMP, EDGEDROP = 8, 49, 64, 8, 0.05, 0.1
 RCONV_SHAPES = (("flagship", 3136, 512, 512, 8, 8),     # layer4 interior
                 ("layer1", 3136, 64, 64, 16, 16),
                 ("cin_ne_cout", 3136, 128, 256, 8, 8),  # layer3.0.conv1
-                ("32x32", 196, 512, 512, 32, 32))       # the same pixels
+                ("32x32", 196, 512, 512, 32, 32),       # the same pixels
+                # the superpixel step of record: layer4's interiors on the
+                # 24 whole frames' 32x32 maps, and its patch arm's 6x4x49 patches
+                ("sp", 24, 512, 512, 32, 32),
+                ("patch6x4", 1176, 512, 512, 8, 8))
 # #5's moments against the f32 sums of a y, per channel: s1 within MOM_TOL
 # of that channel's sum |y|, s2 within MOM_TOL of its sum y^2. "own": the
 # kernel's own cast y (the same values summed in another order); "ref": the
@@ -108,6 +140,16 @@ RCONV = (("fwd", rc.reflect_conv_fwd), ("fwd_stats", rc.reflect_conv_fwd_stats),
          ("dx_bnin", rc.reflect_conv_dx_bnin),
          ("dw_bnin", rc.reflect_conv_dw_bnin))
 DEFAULT_ARM = ("auto", "auto")
+# the superpixel step of record (the reference's train.sh): batch 6, clips of
+# 4 whole 256 px frames, SLIC with 36 segments and compactness 50 inside the
+# step, 48 node slots, L1 dilation k=55
+SP_BATCH, SP_CLIP, SP_IMG, NUM_SP, COMPACTNESS, MAX_SP, DIL_K = \
+    6, 4, 256, 36, 50.0, 48, 55
+SLIC_ITERS = 10
+# f32 operations of one (pixel, active center) pair of a SLIC assignment: 5
+# subtractions, 5 multiplications, 4 additions; a center update adds 5 sums
+# and a count a pixel
+SLIC_PAIR_FLOPS, SLIC_UPDATE_FLOPS = 14, 6
 
 
 def _launches(fwd=0, fwd_stats=0, dx=0, dw=0, bnin=0) -> dict:
@@ -307,10 +349,18 @@ def small_card_vs_cpu() -> dict:
     return dict(encoder_max_abs_err=enc_err, pred_max_abs_err=err)
 
 
-def _walk_inputs(B, T, N, C, rate, seed):
+def _walk_inputs(B, T, N, C, rate, seed, absent=None):
+    """Unit node rows, edge-drop masks and an upstream gradient; ``absent``
+    ``(lo, hi)`` zeroes ``lo..hi-1`` node slots of every frame, a different
+    set per frame (the superpixel path's absent slots)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, T, N, C), generator=g, device="cuda")
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    if absent is not None:
+        order = torch.rand((B, T, N), generator=g, device="cuda").argsort(-1)
+        n_absent = torch.randint(absent[0], absent[1], (B, T, 1), generator=g,
+                                 device="cuda")
+        q = q * (order >= n_absent)[..., None]
     m12, m21 = ((torch.rand((B, T - 1, N, N), generator=g, device="cuda")
                  < rate).to(torch.uint8) for _ in range(2))
     dl = torch.randn((B, T - 2), generator=g, device="cuda")
@@ -338,13 +388,18 @@ def walk_bounds(B, T, N, C) -> dict:
 
 def walk_kernels_vs_plain() -> dict:
     """Phase 5: the walk kernels and their plain version on the same inputs,
-    at the flagship shape and at the gate's edge. Tolerances: losses rtol
+    at the flagship shape, at the gate's edge and at the superpixel step's
+    shape with 8-14 absent node slots (all-zero q rows) in every frame.
+    Tolerances: losses rtol
     1e-5, accuracies 1e-6, residuals rtol 1e-5 + atol 1e-6, dq 2e-5 of its
     largest entry (f32 products summed in another order)."""
     res = {}
-    for tag, shape in (("flagship", (BATCH, CLIP_LEN, N_PATCHES, 128)),
-                       ("edge", (BATCH, 10, 128, 512))):
-        q, m12, m21, dl = _walk_inputs(*shape, rate=EDGEDROP, seed=4)
+    for tag, shape, absent in (
+            ("flagship", (BATCH, CLIP_LEN, N_PATCHES, 128), None),
+            ("edge", (BATCH, 10, 128, 512), None),
+            ("superpixel", (SP_BATCH, SP_CLIP, MAX_SP, 128), (8, 15))):
+        q, m12, m21, dl = _walk_inputs(*shape, rate=EDGEDROP, seed=4,
+                                       absent=absent)
         before = (wk.walk_fwd.launches, wk.walk_bwd.launches)
         got = wk.walk_fwd(q, m12, m21, WALK_TEMP)
         got_dq = wk.walk_bwd(q, *got[2:], dl, WALK_TEMP)
@@ -361,7 +416,7 @@ def walk_kernels_vs_plain() -> dict:
             dq_scale=float(want_dq.abs().max()))
         res_ok = all(torch.allclose(g, w, rtol=1e-5, atol=1e-6)
                      for g, w in zip(got[2:], want[2:]))
-        if not (torch.isfinite(got[0]).all() and torch.isfinite(got_dq).all()
+        if not (all(torch.isfinite(t).all() for t in (*got, got_dq))
                 and err["loss_rel"] <= 1e-5 and err["accs"] <= 1e-6
                 and res_ok and err["dq"] <= 2e-5 * err["dq_scale"]):
             fail(f"walk kernels disagree with their plain version at {tag} "
@@ -377,7 +432,10 @@ def walk_kernels_vs_plain() -> dict:
         wk.walk_fwd.launches, wk.walk_bwd.launches = before  # not the path's
         bounds = walk_bounds(*shape)
         res[tag] = dict(shape=shape, err=err, bounds=bounds, **times)
-        print(f"walk kernels vs plain at {tag} (B,T,N,C)={shape}, edge-drop "
+        zero_rows = int((q.abs().amax(-1) == 0).sum())
+        res[tag]["absent_slots"] = zero_rows
+        print(f"walk kernels vs plain at {tag} (B,T,N,C)={shape}, "
+              f"{zero_rows} absent node slots, edge-drop "
               f"rate {EDGEDROP}: max|d| losses {err['losses']:.3e} (rel "
               f"{err['loss_rel']:.2e}), accs {err['accs']:.1e}, residuals "
               f"{err['residuals']:.3e}, dq {err['dq']:.3e} of {err['dq_scale']:.3e} "
@@ -690,10 +748,10 @@ def seeded_crw(cfg: CRWConfig, seed: int) -> CRW:
         return CRW(cfg)
 
 
-def profile_steps(state, step, batch, gen, n: int = 3) -> dict:
-    """``n`` more steps under ``torch.profiler``: device time by kernel and
-    by kind, and the device's idle share of the host clock's window (one
-    stream, so kernel times add up)."""
+def profile_steps(run, n: int = 3) -> dict:
+    """``n`` more steps (``run()`` takes one) under ``torch.profiler``:
+    device time by kernel and by kind, and the device's idle share of the
+    host clock's window (one stream, so kernel times add up)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -701,7 +759,7 @@ def profile_steps(state, step, batch, gen, n: int = 3) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step(state, batch, gen)
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
@@ -721,6 +779,8 @@ def profile_steps(state, step, batch, gen, n: int = 3) -> dict:
     for name, t in kernels.items():
         low = name.lower()
         kind = ("walk kernels" if low.startswith("walk_") else
+                "slic kernels" if "slic_" in low else
+                "dilation kernel" if "dilate_l1" in low else
                 "reflect-conv kernels" if ("rconv_gemm" in low
                                            or "reduce_rows" in low) else
                 "convolutions" if any(w in low for w in (
@@ -806,7 +866,7 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
           f"{losses[-1]:.4f}; launches per step {res['launches_per_step']}",
           flush=True)
     if profile:   # 3 more steps, after the path's counts were read
-        res["profile"] = profile_steps(state, step, batch, gen)
+        res["profile"] = profile_steps(lambda: step(state, batch, gen))
     del state, batch
     torch.cuda.empty_cache()
     return res
@@ -887,13 +947,423 @@ def small_step_card_vs_cpu() -> dict:
     return res
 
 
+def structured_frames(B: int, T: int, h: int, w: int, seed: int) -> torch.Tensor:
+    """``(B, T, h, w, 3)`` floats in [0, 1] on the card: four colored
+    quadrants whose colors drift from frame to frame, two moving squares and
+    5% uniform noise (frames with regions, unlike white noise)."""
+    rng = np.random.RandomState(seed)
+    out = np.zeros((B, T, h, w, 3), np.float32)
+    base = np.array([[.9, .1, .1], [.1, .8, .2], [.15, .2, .9], [.9, .85, .1]],
+                    np.float32)
+    s = max(h // 5, 4)
+    for b in range(B):
+        for t in range(T):
+            cols = np.clip(base + 0.1 * rng.rand(4, 3) + 0.03 * t, 0, 1)
+            img = out[b, t]
+            img[:h // 2, :w // 2], img[:h // 2, w // 2:] = cols[0], cols[1]
+            img[h // 2:, :w // 2], img[h // 2:, w // 2:] = cols[2], cols[3]
+            for y0, x0, vy, vx, col in ((h // 5, w // 8, 2, 5, (.5, .5, .5)),
+                                        (h // 2, w // 2, -3, -4, (.1, .6, .7))):
+                y = int(np.clip(y0 + vy * (t + b), 0, h - s))
+                x = int(np.clip(x0 + vx * (t + b), 0, w - s))
+                img[y:y + s, x:x + s] = col
+    out += rng.rand(*out.shape).astype(np.float32) * 0.05
+    return torch.from_numpy(np.clip(out, 0, 1)).cuda()
+
+
+def noise_frames(seed: int) -> torch.Tensor:
+    """White-noise frames of the step of record (the JAX package's
+    superpixel benchmark segments ``rand`` frames too)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand((SP_BATCH, SP_CLIP, SP_IMG, SP_IMG, 3), generator=g,
+                      device="cuda")
+
+
+def _agree(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a == b).float().mean())
+
+
+def slic_kernel_vs_plain() -> dict:
+    """The fused SLIC kernels (#12) against the plain ``slic`` at the step
+    of record, (6, 4, 256, 256, 3) frames, 36 segments, compactness 50, 10
+    rounds. The kernel sums ``(f - c)^2`` directly, the plain version
+    expands it (terms of ~1e5 that cancel to a few units), so near-ties may
+    fall differently and k-means carries a differing pixel through its
+    rounds. Checks: (a) one assignment from the same centers (the plain
+    version's after 9 rounds), >= 99.9% equal labels, on white-noise and on
+    structured frames; (b) the full 10 rounds on structured frames >= 99%;
+    a run with ``n_active`` drawn in [30, 42) of 48 slots (no label reaches
+    its frame's count; >= 99% on structured frames); two kernel runs bitwise
+    equal. ``max_abs_err``: the centers after one round from the grid,
+    kernel against plain, on the white-noise frames.
+
+    ``bound_ms``: the rounds' (pixel, active center) pairs x 14 f32
+    operations plus 6 a pixel for each center update, over the f32 peak,
+    against the images read and the labels written once over the HBM rate."""
+    before = slic_fused.launches
+    kw = dict(n_segments=NUM_SP, compactness=COMPACTNESS)
+    frames = dict(noise=noise_frames(seed=11),
+                  structured=structured_frames(SP_BATCH, SP_CLIP, SP_IMG,
+                                               SP_IMG, seed=12))
+    res = dict(one_assignment={}, full_run={})
+    for name, x in frames.items():
+        _, centers = slic(x, n_iter=SLIC_ITERS - 1, return_centers=True, **kw)
+        want = slic(x, n_iter=1, init_centers=centers, **kw)
+        got = slic_fused(x, n_iter=1, init_centers=centers, **kw)
+        res["one_assignment"][name] = _agree(got, want)
+        full_want, full_got = slic(x, **kw), slic_fused(x, **kw)
+        if not torch.equal(full_want, want):
+            fail("slic: 10 rounds differ from 9 rounds + one assignment")
+        res["full_run"][name] = _agree(full_got, full_want)
+        if (full_got.dtype != torch.int32 or full_got.shape != x.shape[:-1]
+                or int(full_got.min()) < 0 or int(full_got.max()) >= NUM_SP):
+            fail(f"slic_fused: bad labels on the {name} frames")
+    x = frames["structured"]
+    n_active = torch.from_numpy(np.random.RandomState(13).randint(
+        30, 42, (SP_BATCH, SP_CLIP))).cuda()
+    got = slic_fused(x, MAX_SP, COMPACTNESS, n_active=n_active)
+    want = slic(x, MAX_SP, COMPACTNESS, n_active=n_active)
+    res["n_active"] = dict(
+        agree=_agree(got, want),
+        below_count=bool((got.flatten(2).amax(-1) < n_active).all()),
+        segments_used=[int(v) for v in
+                       (got.flatten(2).amax(-1) + 1).flatten()[:6]])
+    xn = frames["noise"]
+    a, ca = slic_fused(xn, return_centers=True, **kw)
+    b, cb = slic_fused(xn, return_centers=True, **kw)
+    res["bitwise_repeat"] = bool(torch.equal(a, b) and torch.equal(ca, cb))
+    _, c_want = slic(xn, n_iter=1, return_centers=True, **kw)
+    _, c_got = slic_fused(xn, n_iter=1, return_centers=True, **kw)
+    res["max_abs_err"] = float((c_got - c_want).abs().max())
+    torch.cuda.synchronize()
+    print(f"slic_fused vs plain slic at {tuple(xn.shape)}, {NUM_SP} segments, "
+          f"{SLIC_ITERS} rounds: equal labels after one assignment from the "
+          f"same centers {res['one_assignment']} (tolerance >= 0.999), after "
+          f"the full run {res['full_run']} (>= 0.99 on the structured "
+          f"frames); n_active in [30, 42) of {MAX_SP}: {res['n_active']}; two "
+          f"runs bitwise equal: {res['bitwise_repeat']}; centers after one "
+          f"round max|d| {res['max_abs_err']:.3e}", flush=True)
+    if not (min(res["one_assignment"].values()) >= 0.999
+            and res["full_run"]["structured"] >= 0.99
+            and res["n_active"]["agree"] >= 0.99
+            and res["n_active"]["below_count"] and res["bitwise_repeat"]
+            and res["max_abs_err"] <= 1e-2):
+        fail(f"slic_fused disagrees with the plain slic: {res}")
+    res["ms"] = cuda_ms(lambda: slic_fused(xn, **kw), 20)
+    res["plain_ms"] = cuda_ms(lambda: slic(xn, **kw), 3, 1)
+    res["structured_ms"] = cuda_ms(lambda: slic_fused(x, **kw), 20)
+    slic_fused.launches = before            # comparison launches do not count
+    n_pix = SP_BATCH * SP_CLIP * SP_IMG * SP_IMG
+    flops = (SLIC_ITERS * n_pix * NUM_SP * SLIC_PAIR_FLOPS
+             + (SLIC_ITERS - 1) * n_pix * SLIC_UPDATE_FLOPS)
+    nbytes = n_pix * (3 * 4 + 4)
+    o_ms, b_ms = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    res.update(gflop=flops / 1e9, bytes=nbytes, bound_ms=max(o_ms, b_ms),
+               bound_by="operations" if o_ms >= b_ms else "bytes",
+               device_launches=1 + SLIC_ITERS + SLIC_ITERS - 1)
+    print(f"  slic_fused {res['ms']:.3f} ms a call on white noise "
+          f"({res['structured_ms']:.3f} on the structured frames; "
+          f"{res['device_launches']} device launches), plain slic "
+          f"{res['plain_ms']:.3f} ms; bound {res['bound_ms']:.4f} ms by "
+          f"{res['bound_by']} ({res['gflop']:.2f} GFLOP f32, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    return res
+
+
+def superpixel_onehots(x: torch.Tensor) -> torch.Tensor:
+    """``(B*T*MAX_SP, h, w)`` bf16 one-hot masks of the SLIC labels of
+    ``x``, as ``superpixel_pool_weights`` hands them to the dilation."""
+    before = slic_fused.launches
+    labels = slic_fused(x, NUM_SP, COMPACTNESS)
+    slic_fused.launches = before
+    slots = torch.arange(MAX_SP, device="cuda")
+    onehot = (labels[:, :, None] == slots[:, None, None]).to(torch.bfloat16)
+    return onehot.reshape(-1, *labels.shape[-2:])
+
+
+def dilation_kernel_vs_plain() -> dict:
+    """The L1 dilation kernel (#11) against its plain version (the
+    shifted-max decomposition) on the one-hot masks of real SLIC labels at
+    the step of record, (1152, 256, 256) bf16, k=55; also k=5 there and a
+    ragged (3, 40, 52) f32 stack at k=23. The result is exact 0/1:
+    **equality**. A planted fault (one 64x64 tile of one mask put back to
+    its undilated input) must fail the same check. ``library_ms``: the
+    reference's formulation, one ``F.conv2d`` with the binary diamond
+    kernel, then ``> 0``. ``bound_ms``: one read and one write of the stack
+    over the HBM rate."""
+    before = dilate_l1.launches
+    x = superpixel_onehots(structured_frames(SP_BATCH, SP_CLIP, SP_IMG, SP_IMG,
+                                             seed=12))
+    res = dict(shape=tuple(x.shape), differing={})
+    got = None
+    for k in (DIL_K, 5):
+        out = dilate_l1(x, k)
+        want = dilate_l1_plain(x, k)
+        torch.cuda.synchronize()
+        res["differing"][f"k={k}"] = int((out != want).sum())
+        if out.dtype != x.dtype or not torch.equal(out, want):
+            fail(f"dilate_l1 differs from its plain version at "
+                 f"{tuple(x.shape)}, k={k}: {res['differing']}")
+        if k == DIL_K:
+            got = out
+            res["max_abs_err"] = float((out.float() - want.float()).abs().max())
+        del want
+    small = (torch.rand((3, 40, 52), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+             < 0.01).float()
+    res["differing"]["ragged k=23"] = int(
+        (dilate_l1(small, 23) != dilate_l1_plain(small, 23)).sum())
+    if res["differing"]["ragged k=23"]:
+        fail("dilate_l1 differs from its plain version at (3, 40, 52), k=23")
+    # planted fault: the first 64x64 tile that the dilation changed
+    changed = (got != x).reshape(x.shape[0], SP_IMG // 64, 64, SP_IMG // 64,
+                                 64).any(4).any(2)
+    n, ty, tx = (int(v) for v in changed.nonzero()[0])
+    faulty = got.clone()
+    faulty[n, ty * 64:(ty + 1) * 64, tx * 64:(tx + 1) * 64] = \
+        x[n, ty * 64:(ty + 1) * 64, tx * 64:(tx + 1) * 64]
+    want = dilate_l1_plain(x, DIL_K)
+    res["planted_fault_differing"] = int((faulty != want).sum())
+    if torch.equal(faulty, want):
+        fail("the dilation check passes a planted fault")
+    res["set_share"] = dict(input=float(x.float().mean()),
+                            dilated=float(got.float().mean()))
+    del faulty, want
+    kernel = make_dilation_kernel(DIL_K, "L1").to(x)[None, None]
+    lib = torch.nn.functional.conv2d(x[:48, None], kernel,
+                                     padding=DIL_K // 2) > 0
+    if not torch.equal(lib[:, 0], got[:48] > 0):
+        fail("the conv2d formulation of the dilation disagrees")
+    del lib
+    res["ms"] = cuda_ms(lambda: dilate_l1(x, DIL_K), 20)
+    res["plain_ms"] = cuda_ms(lambda: dilate_l1_plain(x, DIL_K), 3, 1)
+    res["library_ms"] = cuda_ms(lambda: torch.nn.functional.conv2d(
+        x[:, None], kernel, padding=DIL_K // 2) > 0, 2, 1)
+    res["k5_ms"] = cuda_ms(lambda: dilate_l1(x, 5), 20)
+    dilate_l1.launches = before             # comparison launches do not count
+    nbytes = 2 * x.numel() * x.element_size()
+    res.update(bytes=nbytes, bound_ms=nbytes / HBM_RATE * 1e3,
+               bound_by="bytes")
+    print(f"dilate_l1 vs plain at {res['shape']} bf16 one-hots of SLIC "
+          f"labels: differing pixels {res['differing']} (tolerance: "
+          f"equality); planted fault (one tile undilated) differs in "
+          f"{res['planted_fault_differing']} pixels; set share "
+          f"{res['set_share']}", flush=True)
+    print(f"  dilate_l1 k={DIL_K} {res['ms']:.3f} ms (k=5 {res['k5_ms']:.3f}), "
+          f"plain {res['plain_ms']:.3f} ms, library (conv2d > 0) "
+          f"{res['library_ms']:.3f} ms; bound {res['bound_ms']:.4f} ms by "
+          f"bytes ({nbytes / 1e6:.0f} MB)", flush=True)
+    return res
+
+
+def sp_counts() -> dict:
+    return dict(dilate_l1=dilate_l1.launches, slic_fused=slic_fused.launches,
+                walk_fwd=wk.walk_fwd.launches, walk_bwd=wk.walk_bwd.launches,
+                **rconv_counts())
+
+
+def set_sp_counts(counts: dict) -> None:
+    dilate_l1.launches = counts["dilate_l1"]
+    slic_fused.launches = counts["slic_fused"]
+    wk.walk_fwd.launches = counts["walk_fwd"]
+    wk.walk_bwd.launches = counts["walk_bwd"]
+    set_rconv_counts(counts)
+
+
+# superpixel arms: name -> (nodes, dilate, rconv); every arm is batch 6,
+# clips of 4 frames, bf16 trunk, edge dropout 0.1, T 0.05, Adam 3e-4
+SP_ARMS = (("sp", ("superpixel", False, "auto")),
+           ("sp_dil", ("superpixel", True, "auto")),
+           ("sp_dil_rconv_off", ("superpixel", True, "off")),
+           ("patch", ("patch", False, "auto")))
+
+
+def sp_train_arm(name: str, nodes: str, dilate: bool, rconv: str,
+                 n_steps: int, n_warmup: int = 3, profile: bool = False) -> dict:
+    """One arm of the superpixel comparison: seeded init, ``n_warmup``
+    steps, then ``n_steps`` timed ones with every kernel count zeroed just
+    before and read just after. A superpixel step segments its frames with
+    ``slic_fused`` inside the timed step, as the deployed
+    ``--sp-backend device`` path does. Per step: ``slic_fused`` 1,
+    ``dilate_l1`` 1 with dilation, each walk kernel 1, and the reflect-conv
+    kernels of the default route (#5, #9, #10 once, #6, #7, #8 twice: the
+    three layer4 interiors, here on 32x32 maps; on 8x8 in the patch arm)."""
+    dev = torch.device("cuda")
+    sp = nodes == "superpixel"
+    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
+                    edgedrop_rate=EDGEDROP, dtype=torch.bfloat16, rconv=rconv,
+                    max_sp_num=MAX_SP, dilate_superpixels=dilate,
+                    dilation_kernel_shape="L1", dilation_kernel_size=DIL_K)
+    state = create_train_state(seeded_crw(cfg, seed=0),
+                               make_optimizer(lr=3e-4), device=dev)
+    step = make_train_step()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if sp:
+        batch = torch.randn((SP_BATCH, SP_CLIP, SP_IMG, SP_IMG, 3),
+                            generator=gen, device=dev)
+        unnorm = noise_frames(seed=2)       # the [0, 1] view SLIC segments
+
+        def run():
+            mask = slic_fused(unnorm, NUM_SP, COMPACTNESS)
+            return step(state, batch, gen, sp_mask=mask)
+    else:
+        batch = torch.randn((SP_BATCH, SP_CLIP, N_PATCHES, PATCH, PATCH, 3),
+                            generator=gen, device=dev)
+
+        def run():
+            return step(state, batch, gen)
+    for _ in range(n_warmup):
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    expect = dict(dilate_l1=int(sp and dilate), slic_fused=int(sp),
+                  walk_fwd=1, walk_bwd=1,
+                  **(dict(ARMS)[DEFAULT_ARM] if rconv == "auto"
+                     else _launches()))
+    set_sp_counts(dict.fromkeys(expect, 0))     # counts: this path only
+    t0 = time.perf_counter()
+    metrics = [run() for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_steps
+    launches = sp_counts()
+    losses = [float(m["loss"]) for m in metrics]
+    want = {k: v * n_steps for k, v in expect.items()}
+    if launches != want:
+        fail(f"{name}: kernel launches {launches} in {n_steps} steps, want "
+             f"{want}")
+    if not all(np.isfinite(losses)):
+        fail(f"{name}: non-finite training loss: {losses}")
+    res = dict(arm=name, steps=n_steps, step_ms=dt * 1e3,
+               clips_per_s=SP_BATCH / dt,
+               max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               losses=losses, launches=launches,
+               launches_per_step={k: v / n_steps for k, v in launches.items()},
+               acc_last={k: float(v) for k, v in metrics[-1].items()
+                         if k.startswith("acc")})
+    what = (f"whole {SP_IMG} px frames, SLIC {NUM_SP} in the step"
+            + (f", L1 dilation k={DIL_K}" if dilate else "") if sp
+            else f"{N_PATCHES}x{PATCH}px patches")
+    per_step = {k: v for k, v in res["launches_per_step"].items() if v}
+    print(f"training step '{name}' (batch {SP_BATCH}, {SP_CLIP} frames, "
+          f"{what}, rconv={rconv!r}, bf16 trunk): {res['step_ms']:.2f} "
+          f"ms/step over {n_steps} steps, {res['clips_per_s']:.2f} clips/s; "
+          f"peak memory {res['max_memory_gib']:.2f} GiB; losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; launches per step {per_step}",
+          flush=True)
+    if profile:   # after the path's counts were read
+        res["profile"] = profile_steps(run)
+        mask = slic_fused(unnorm, NUM_SP, COMPACTNESS)
+        pool = dict(dilate=dilate, dilation_kernel_size=DIL_K)
+        res["stages_ms"] = dict(
+            slic=cuda_ms(lambda: slic_fused(unnorm, NUM_SP, COMPACTNESS), 10),
+            pool_weights=cuda_ms(lambda: superpixel_pool_weights(
+                mask, MAX_SP, (32, 32), **pool), 10),
+            pool_weights_undilated=cuda_ms(lambda: superpixel_pool_weights(
+                mask, MAX_SP, (32, 32)), 10))
+        res["idle_share_unprofiled"] = \
+            1 - res["profile"]["device_ms_per_step"] / res["step_ms"]
+        print(f"  stages by CUDA events: {res['stages_ms']}; device busy "
+              f"{res['profile']['device_ms_per_step']:.2f} ms of the "
+              f"unprofiled {res['step_ms']:.2f} ms/step: idle share "
+              f"{res['idle_share_unprofiled']:.3f} (the profiler's own host "
+              f"cost inflates the share above)", flush=True)
+    del state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def sp_train_phase(n_steps: int) -> dict:
+    """The superpixel training step of record and its comparisons, one
+    after another in this process: ``sp`` (no dilation), ``sp_dil`` (L1
+    k=55: the headline; ``n_steps`` timed steps, profiled), ``sp_dil`` with
+    the reflect convs on cuDNN, and the patch step at the same batch and
+    clip length (the reference's reduced-primitive comparison). The others
+    take at most 5 timed steps."""
+    saved = sp_counts()
+    arms = {}
+    for name, (nodes, dilate, rconv) in SP_ARMS:
+        head = name == "sp_dil"
+        arms[name] = sp_train_arm(name, nodes, dilate, rconv,
+                                  n_steps if head else min(n_steps, 5),
+                                  profile=head)
+    set_sp_counts(saved)
+    print("superpixel step vs patch step (same process, same seeds):",
+          flush=True)
+    for name, a in arms.items():
+        print(f"  {name:17s} {a['step_ms']:8.2f} ms/step  "
+              f"{a['clips_per_s']:6.2f} clips/s  {a['max_memory_gib']:6.2f} "
+              f"GiB", flush=True)
+    return arms
+
+
+def small_sp_step_card_vs_cpu() -> dict:
+    """One small f32 superpixel forward/backward (64x64 frames, 12 node
+    slots, L1 dilation k=7, the default routes) on the card (kernels)
+    against the CPU (plain versions): same weights, frames, edge-drop masks
+    and the **same** labels (the card's ``slic_fused``, 9 segments, so
+    every frame has absent slots). Tolerances as the small patch step's:
+    loss rtol 1e-4, q atol 1e-4, gradients 2e-2 relative in L2."""
+    B, T, h, sp_slots = 2, 4, 64, 12
+    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
+                    max_sp_num=sp_slots, dilate_superpixels=True,
+                    dilation_kernel_size=7)
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(B, T, h, h, 3).astype(np.float32))
+    unnorm = torch.from_numpy(rng.rand(B, T, h, h, 3).astype(np.float32))
+    masks = [torch.from_numpy(rng.rand(B, T - 1, sp_slots, sp_slots) < EDGEDROP)
+             for _ in range(2)]
+    before = sp_counts()
+    labels = slic_fused(unnorm.cuda(), 9, 30.0)
+    out = {}
+    for name in ("cuda", "cpu"):
+        dev = torch.device(name)
+        model = seeded_crw(cfg, seed=3).to(dev)
+        q, loss, _ = model(x.to(dev), sp_mask=labels.to(dev), train=True,
+                           walk_masks=[m.to(dev) for m in masks])
+        loss.backward()
+        out[name] = (q.detach().cpu(), float(loss.detach()),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()})
+    launched = {k: v - before[k] for k, v in sp_counts().items()}
+    set_sp_counts(before)                       # not the path's
+    (qc, lc, gc), (qh, lh, gh) = out["cuda"], out["cpu"]
+    num = sum(float(((gc[k] - gh[k]) ** 2).sum()) for k in gh)
+    den = sum(float((gh[k] ** 2).sum()) for k in gh)
+    absent = int((qh.abs().amax(1) == 0).sum())
+    res = dict(loss_cuda=lc, loss_cpu=lh, loss_rel=abs(lc - lh) / abs(lh),
+               q_max_abs_err=float((qc - qh).abs().max()),
+               grad_rel_l2=(num / den) ** 0.5, absent_slots=absent,
+               kernel_launches=launched)
+    print(f"small f32 superpixel step (B,T)=({B},{T}) {h}px, {sp_slots} slots "
+          f"({absent} of {B * T * sp_slots} absent), L1 dilation k=7, card vs "
+          f"CPU: loss {lc:.6f} vs {lh:.6f} (rel {res['loss_rel']:.2e}), q "
+          f"max|d| {res['q_max_abs_err']:.2e}, grads rel L2 "
+          f"{res['grad_rel_l2']:.2e} (tolerance: loss rtol 1e-4, q 1e-4, "
+          f"grads 2e-2); kernel launches on the card "
+          f"{dict((k, v) for k, v in launched.items() if v)}", flush=True)
+    if launched != dict(dilate_l1=1, slic_fused=1, walk_fwd=1, walk_bwd=1,
+                        **dict(ARMS)[DEFAULT_ARM]):
+        fail("the card's small superpixel step did not go through the SLIC, "
+             "dilation, walk and reflect-conv kernels")
+    if absent == 0:
+        fail("the small superpixel step has no absent slot")
+    if not (res["loss_rel"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
+            and res["grad_rel_l2"] <= 2e-2
+            and all(torch.isfinite(g).all() for g in gc.values())):
+        fail("card and CPU superpixel steps disagree")
+    return res
+
+
 PHASES = dict(prop=lambda a: kernel_vs_plain(),
               eval=lambda a: end_to_end(a.targets),
               small_eval=lambda a: small_card_vs_cpu(),
               walk=lambda a: walk_kernels_vs_plain(),
               rconv=lambda a: rconv_kernels_vs_plain(),
               train=lambda a: train_step_phase(a.steps),
-              small_train=lambda a: small_step_card_vs_cpu())
+              small_train=lambda a: small_step_card_vs_cpu(),
+              slic=lambda a: slic_kernel_vs_plain(),
+              dilation=lambda a: dilation_kernel_vs_plain(),
+              sp_train=lambda a: sp_train_phase(a.steps),
+              small_sp_train=lambda a: small_sp_step_card_vs_cpu())
 
 
 def main() -> int:
@@ -943,6 +1413,10 @@ def main() -> int:
     rconv = rconv_kernels_vs_plain()
     train = train_step_phase(args.steps)
     small_train = small_step_card_vs_cpu()
+    slic_res = slic_kernel_vs_plain()
+    dil = dilation_kernel_vs_plain()
+    sp_train = sp_train_phase(args.steps)
+    small_sp_train = small_sp_step_card_vs_cpu()
 
     kernels = [dict(
         name="prop_sparse_topk", route="cuda",
@@ -980,12 +1454,30 @@ def main() -> int:
             bound_ms=rflag["bounds"][name]["bound_ms"],
             bound_by=rflag["bounds"][name]["bound_by"],
             library_ms=rflag["library_ms"].get(name, rflag["library_ms"]["bwd"])))
+    headline = sp_train["sp_dil"]
+    kernels.append(dict(
+        name="dilate_l1", route="cuda",
+        source="videowalk_tpu_torch/ops/csrc/dilation.cu",
+        replaces="videowalk_tpu/ops/dilation_kernel.py:71",
+        launches=headline["launches"]["dilate_l1"], max_abs_err=dil["max_abs_err"],
+        ms=dil["ms"], plain_ms=dil["plain_ms"], bound_ms=dil["bound_ms"],
+        bound_by=dil["bound_by"], library_ms=dil["library_ms"]))
+    kernels.append(dict(
+        name="slic_fused", route="cuda",
+        source="videowalk_tpu_torch/ops/csrc/slic.cu",
+        replaces="videowalk_tpu/ops/slic_kernel.py:80",
+        launches=headline["launches"]["slic_fused"],
+        max_abs_err=slic_res["max_abs_err"], ms=slic_res["ms"],
+        plain_ms=slic_res["plain_ms"], bound_ms=slic_res["bound_ms"],
+        bound_by=slic_res["bound_by"], library_ms=None))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(dict(card=smi, build_s=build_s, kernel=kp,
                            end_to_end=e2e, small=small, walk=walk,
                            rconv=rconv, train=train, small_train=small_train,
+                           slic=slic_res, dilation=dil, sp_train=sp_train,
+                           small_sp_train=small_sp_train,
                            kernels=kernels, ptxas=logs), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -124,6 +124,37 @@ def test_rconv_raises_without_its_library(monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dilate_l1", "slic_fused"])
+def test_superpixel_wrappers_raise_without_their_library(name, monkeypatch,
+                                                         tmp_path):
+    """``dilate_l1`` and ``slic_fused`` on a CUDA tensor: the kernel or an
+    error, never the plain version; and the model's superpixel path hands
+    the error on."""
+    from videowalk_tpu_torch.models.crw import superpixel_pool_weights
+    from videowalk_tpu_torch.ops.dilation import dilate_l1
+    from videowalk_tpu_torch.ops.slic import slic_fused
+
+    _need_card()
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_libs", {})
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        if name == "dilate_l1":
+            dilate_l1(torch.ones((2, 8, 8), device="cuda"), 5)
+        else:
+            slic_fused(torch.ones((2, 8, 8, 3), device="cuda"), 4)
+    if name == "dilate_l1":
+        ids = torch.zeros((1, 2, 16, 16), dtype=torch.int64, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc"):
+            superpixel_pool_weights(ids, 4, (2, 2), dilate=True,
+                                    dilation_kernel_size=5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("H,W,C,radius,topk,n_long", [
     (9, 12, 8, 3.0, 5, 1), (16, 11, 12, 4.0, 7, 2), (13, 10, 256, 5.0, 10, 1),
     (9, 20, 512, 4.0, 10, 1),      # C=512: the 16-key chunk variant

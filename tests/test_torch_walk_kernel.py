@@ -41,6 +41,18 @@ def _inputs(B, T, N, C, rate, seed):
     return q, m12, m21, dl
 
 
+def _drop_slots(q, lo, hi, seed):
+    """Zero ``lo..hi-1`` random node slots of every (b, t) frame of q
+    (B, T, N, C), a different set per frame: the superpixel path's absent
+    slots."""
+    rng = np.random.RandomState(seed)
+    B, T, N, _ = q.shape
+    for b in range(B):
+        for t in range(T):
+            q[b, t, rng.permutation(N)[:rng.randint(lo, hi)]] = 0.0
+    return q
+
+
 def _assert_grads(got, want):
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=2e-5 * np.abs(want).max())
@@ -102,6 +114,24 @@ def test_fused_loss_matches_core_loss_and_autograd(shape, rate):
         np.testing.assert_allclose(out["fused"][1][k], v, rtol=1e-5,
                                    atol=1e-6)
     _assert_grads(out["fused"][2], out["core"][2])
+
+
+def test_fused_loss_with_absent_slots_matches_core_loss():
+    """Rows and columns of exact zeros in q, a different set per frame: the
+    fused plain version against the core loss and autograd; the gradient of
+    an absent slot's row is finite."""
+    q, m12, m21, _ = _inputs(2, 4, 12, 16, 0.1, seed=6)
+    q = np.ascontiguousarray(_drop_slots(q, 1, 4, seed=7).transpose(0, 3, 1, 2))
+    masks = (torch.from_numpy(m12).bool(), torch.from_numpy(m21).bool())
+    out = {}
+    for name, fn in (("core", tw.crw_walk_loss), ("fused", wk.fused_walk_loss)):
+        qt = torch.from_numpy(q).requires_grad_()
+        loss, _ = fn(qt, TEMP, masks=masks)
+        loss.backward()
+        out[name] = (float(loss.detach()), qt.grad.numpy())
+    assert np.isfinite(out["fused"][1]).all()
+    np.testing.assert_allclose(out["fused"][0], out["core"][0], rtol=1e-5)
+    _assert_grads(out["fused"][1], out["core"][1])
 
 
 def test_masks_from_generator_are_reproducible():
@@ -190,6 +220,36 @@ def test_kernels_match_plain_on_card(B, T, N, C, rate):
     got_dq = wk.walk_bwd(q, *got[2:], dl, TEMP)
     torch.cuda.synchronize()
     assert (wk.walk_fwd.launches, wk.walk_bwd.launches) == (f0 + 1, b0 + 1)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               atol=1e-6)
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    _assert_grads(got_dq.cpu().numpy(), want_dq.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,N,C,lo,hi", [(6, 4, 48, 128, 8, 15),
+                                           (3, 5, 13, 24, 1, 13)])
+def test_kernels_match_plain_with_absent_slots_on_card(B, T, N, C, lo, hi):
+    """The superpixel step's walk: all-zero q rows (absent node slots), a
+    different set per frame, at its shape of record (6, 4, 48, 128) with
+    8-14 absent slots and at a small shape where a frame may keep a single
+    node. Everything finite; tolerances as above."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, m12, m21, dl = _inputs(B, T, N, C, 0.1, seed=N)
+    q = _drop_slots(q, lo, hi, seed=C)
+    q, m12, m21, dl = (torch.from_numpy(a).cuda() for a in (q, m12, m21, dl))
+    want = wk.fused_walk_plain_fwd(q, m12, m21, TEMP)
+    want_dq = wk.fused_walk_plain_bwd(q, *want[2:], dl, TEMP)
+    got = wk.walk_fwd(q, m12, m21, TEMP)
+    got_dq = wk.walk_bwd(q, *got[2:], dl, TEMP)
+    torch.cuda.synchronize()
+    for t in (*got, got_dq, *want, want_dq):
+        assert torch.isfinite(t).all()
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
                                rtol=1e-5)
     np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),

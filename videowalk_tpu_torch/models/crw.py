@@ -1,23 +1,29 @@
-"""CRW: Contrastive Random Walk model, patch-grid and whole-frame nodes
-(counterpart of ``videowalk_tpu/models/crw.py``; reference
+"""CRW: Contrastive Random Walk model, patch-grid, superpixel and
+whole-frame nodes (counterpart of ``videowalk_tpu/models/crw.py``; reference
 ``code/model.py``).
 
-``forward(x, just_feats=False, train=True)`` returns ``(q, loss, diags)``
-like the JAX ``__call__``, or ``(q, maps)`` with ``just_feats``:
+``forward(x, sp_mask=None, just_feats=False, train=True)`` returns
+``(q, loss, diags)`` like the JAX ``__call__``, or ``(q, maps)`` with
+``just_feats``:
 
 - patches ``(B, T, N, h, w, 3)``: ``pixels_to_nodes`` folds ``B * N`` into
   the encoder batch, means each map spatially, projects with the head (f32,
   also on a bf16 trunk) and L2-normalizes, giving ``q (B, C, T, N)``;
-- whole frames ``(B, T, h, w, 3)``: one node per feature cell (the
-  evaluator's path).
+- whole frames ``(B, T, h, w, 3)`` with superpixel ids ``sp_mask
+  (B, T, h, w)``: ``image_to_nodes`` pools the maps by segment-weighted
+  sums, one node per superpixel slot. The slot count ``max_sp_num`` is
+  fixed; an absent slot's pooled features are exactly zero, stay zero
+  through the head and ``l2_normalize`` (with a zero gradient) and are
+  unreachable under ZeroSoftmax. With ``dilate_superpixels`` the one-hot
+  masks are dilated first (L1 of radius >= 2 by ``ops/dilation.py``);
+- whole frames alone: one node per feature cell (the evaluator's path).
 
 The trunk's reflect convs take the reflect-conv kernels where ``rconv``
 routes them (``models/resnet.py``). The walk loss takes the fused kernel
 (``ops/walk.py``) where the config allows (ZeroSoftmax, no flip, no zeroed
 diagonal, T <= 10, N <= 128, C <= 512): on a CUDA tensor the CUDA
 kernels, on a CPU tensor their plain version. Elsewhere it takes ``core/walk.py``. Random numbers (edge dropout,
-featdrop) come from the ``generator`` argument. The superpixel path is
-still queued (ROADMAP.md, Queue 1 item 4). ``state_dict`` names are the
+featdrop) come from the ``generator`` argument. ``state_dict`` names are the
 reference's (``encoder.model.layer1.0.conv1.weight``, ``selfsim_fc.0.weight``).
 """
 
@@ -26,17 +32,22 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from videowalk_tpu_torch.core import walk as walk_lib
+from videowalk_tpu_torch.core.masks import make_dilation_kernel
 from videowalk_tpu_torch.core.walk import l2_normalize
 from videowalk_tpu_torch.models.encoder import make_encoder
 from videowalk_tpu_torch.ops import walk as walk_ops
+from videowalk_tpu_torch.ops.dilation import dilate_l1, unit_diamond
+from videowalk_tpu_torch.utils.device import full_f32_matmul
 
 
 @dataclasses.dataclass(frozen=True)
 class CRWConfig:
-    """The JAX package's ``CRWConfig`` fields that the port runs so far."""
+    """The JAX package's ``CRWConfig`` fields that the port runs so far,
+    with its defaults."""
 
     model_type: str = "scratch"
     remove_layers: tuple = ()
@@ -49,6 +60,11 @@ class CRWConfig:
     zero_diagonal: bool = False      # --zero-diagonal
     head_bias: bool = False          # CRW: Linear(bias=False); TS variant: True
     use_zero_softmax: bool = True    # CRW ZeroSoftmax; TS plain softmax
+    # Superpixels
+    max_sp_num: int = 48             # fixed node-slot count (see module doc)
+    dilate_superpixels: bool = False
+    dilation_kernel_shape: str = "L1"   # L1 | cross | circle
+    dilation_kernel_size: int = 51
     dtype: torch.dtype = torch.float32   # encoder trunk compute type
     # fused walk kernels (ops/walk.py): 'auto' takes them where the config
     # allows; 'on' forces them and raises where they do not apply; 'off'
@@ -77,6 +93,92 @@ class Head(nn.Sequential):
                 if i < len(dims) - 2:
                     layers.append(nn.ReLU())
         super().__init__(*layers)
+
+
+def dilate_onehot(onehot: torch.Tensor, kernel_size: int,
+                  shape: str) -> torch.Tensor:
+    """Morphological dilation of 0/1 masks ``(..., h, w)`` by the odd
+    structuring element ``shape`` ('L1' | 'cross' | 'circle') of radius
+    ``kernel_size // 2``; same shape and type out. No gradient (the
+    reference thresholds a grouped conv with ``> 0``,
+    ``code/model.py:303-309``).
+
+    L1 with radius >= 2 goes to ``ops.dilation.dilate_l1`` (its CUDA kernel
+    for a CUDA tensor, its plain version on the CPU); radius 1 is one unit
+    diamond; a cross is the max of two 1-D max-filters; a circle is a conv
+    with the binary kernel and a ``> 0`` threshold, like the reference."""
+    if shape not in ("L1", "cross", "circle"):
+        raise ValueError(f"unknown dilation kernel shape: {shape!r}")
+    r = kernel_size // 2
+    lead, (h, w) = onehot.shape[:-2], onehot.shape[-2:]
+    x = onehot.detach().reshape(-1, h, w)
+    if r == 0:
+        return x.reshape(*lead, h, w)
+    if shape == "L1":
+        x = dilate_l1(x, kernel_size) if r >= 2 else unit_diamond(x)
+    elif shape == "cross":
+        x = x[:, None]                  # max_pool pads with -inf: masks >= 0
+        x = torch.maximum(F.max_pool2d(x, (1, 2 * r + 1), 1, (0, r)),
+                          F.max_pool2d(x, (2 * r + 1, 1), 1, (r, 0)))
+    else:
+        kernel = make_dilation_kernel(2 * r + 1, "circle").to(x)
+        x = (F.conv2d(x[:, None], kernel[None, None], padding=r) > 0).to(x)
+    return x.reshape(*lead, h, w)
+
+
+def superpixel_pool_weights(
+    sp_mask: torch.Tensor, max_sp_num: int, feat_hw: tuple[int, int], *,
+    dilate: bool = False, dilation_kernel_size: int = 51,
+    dilation_kernel_shape: str = "L1",
+) -> torch.Tensor:
+    """Per-feature-cell, size-normalized superpixel pooling weights.
+
+    ``sp_mask (B, T, h, w)`` integer ids in ``[0, max_sp_num)`` and the
+    feature map's ``(H, W)`` (windows are ``(h // H, w // W)`` pixels) ->
+    ``(B, T, H, W, SP)`` f32: column s sums to 1 over (H, W) for a present
+    superpixel and is all zero for an absent one. Counts are exact integers
+    in f32 on both routes. Reference ``code/model.py:296-320``."""
+    B, T, h, w = sp_mask.shape
+    H, W = feat_hw
+    wh, ww = h // H, w // W
+    if H * wh != h or W * ww != w:
+        raise ValueError(f"superpixel ids {h}x{w} do not tile the {H}x{W} "
+                         f"feature map")
+    slots = torch.arange(max_sp_num, device=sp_mask.device)
+    if dilate:
+        # one-hot at pixel resolution (dilated masks overlap), bf16 through
+        # the morphology (exactly 0/1); the window sums accumulate in f32
+        onehot = (sp_mask[:, :, None] == slots[:, None, None]).to(
+            torch.bfloat16)
+        onehot = dilate_onehot(onehot, dilation_kernel_size,
+                               dilation_kernel_shape)
+        counts = onehot.reshape(B, T, max_sp_num, H, wh, W, ww).sum(
+            (4, 6), dtype=torch.float32).movedim(2, -1)
+    else:
+        # histogram per window, without the pixel-level one-hot
+        ids = sp_mask.reshape(B, T, H, wh, W, ww).movedim(3, 4).reshape(
+            B, T, H, W, wh * ww)
+        counts = (ids[..., None] == slots).sum(-2, dtype=torch.float32)
+    sp_size = counts.sum(dim=(2, 3), keepdim=True)          # (B, T, 1, 1, SP)
+    return counts / (sp_size + walk_lib.EPS)
+
+
+class _SegmentPool(torch.autograd.Function):
+    """``einsum('bthws,bthwc->btsc')`` of the (constant) pooling weights and
+    the maps, the product and its transpose in the backward both in full
+    f32 whatever the caller's TF32 switch."""
+
+    @staticmethod
+    def forward(ctx, weights, maps):
+        ctx.save_for_backward(weights)
+        with full_f32_matmul():
+            return torch.einsum("bthws,bthwc->btsc", weights, maps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (weights,) = ctx.saved_tensors
+        with full_f32_matmul():
+            return None, torch.einsum("bthws,btsc->bthwc", weights, grad)
 
 
 class CRW(nn.Module):
@@ -131,16 +233,42 @@ class CRW(nn.Module):
         q = self._project(maps.reshape(B, T, H * W, C))
         return q.permute(0, 3, 1, 2), maps
 
-    def forward(self, x: torch.Tensor, just_feats: bool = False,
-                train: bool = True, generator: torch.Generator | None = None,
-                walk_masks=None):
+    def image_to_nodes(self, x, sp_mask, train: bool, generator=None):
+        """``(B, T, h, w, 3)`` frames + ``(B, T, h, w)`` int32 or int64
+        superpixel ids -> q ``(B, C', T, SP)``, maps ``(B, T, H, W, C)``.
+        The pooling is an f32 product on f32-cast maps, in full f32 whatever
+        the caller's TF32 switch. Reference code/model.py:260-332."""
+        if (sp_mask.dtype not in (torch.int32, torch.int64)
+                or sp_mask.shape != x.shape[:4] or sp_mask.device != x.device):
+            raise ValueError(
+                f"sp_mask must be int32 or int64 ids {tuple(x.shape[:4])} on "
+                f"{x.device}; got {sp_mask.dtype} {tuple(sp_mask.shape)} on "
+                f"{sp_mask.device}")
+        maps = self.encoder(x, train)                   # (B, T, H, W, C)
+        maps = self._featdrop(maps, train, generator)
+        cfg = self.cfg
+        weights = superpixel_pool_weights(
+            sp_mask, cfg.max_sp_num, maps.shape[2:4],
+            dilate=cfg.dilate_superpixels,
+            dilation_kernel_size=cfg.dilation_kernel_size,
+            dilation_kernel_shape=cfg.dilation_kernel_shape)
+        wide = torch.promote_types(maps.dtype, torch.float32)
+        sp_feats = _SegmentPool.apply(weights.to(wide), maps.to(wide))
+        q = self._project(sp_feats)                     # (B, T, SP, C')
+        return q.permute(0, 3, 1, 2), maps
+
+    def forward(self, x: torch.Tensor, sp_mask: torch.Tensor | None = None,
+                just_feats: bool = False, train: bool = True,
+                generator: torch.Generator | None = None, walk_masks=None):
         """``(q, loss, diags)``, or ``(q, maps)`` with ``just_feats``.
 
         ``train`` puts BN in train mode (running statistics updated in
         place) and turns on edge dropout and featdrop, drawn from
         ``generator``; ``walk_masks`` ``(m12, m21)``, ``(B, T-1, N, N)``,
         replace the drawn edge-dropout masks (tests inject them)."""
-        if x.dim() == 6:
+        if sp_mask is not None:
+            q, maps = self.image_to_nodes(x, sp_mask, train, generator)
+        elif x.dim() == 6:
             q, maps = self.pixels_to_nodes(x, train, generator)
         else:
             q, maps = self.whole_image_to_nodes(x, train, generator)

@@ -75,12 +75,14 @@ def create_train_state(model: CRW, optimizer: Callable,
 
 
 def make_train_step() -> Callable:
-    """``step(state, batch, generator) -> metrics``.
+    """``step(state, batch, generator, sp_mask=None) -> metrics``.
 
     One reference training step on ``batch`` (patches
-    ``(B, T, N, h, w, 3)`` on ``state.device``; another device raises):
-    forward in train mode (BN batch statistics; edge dropout and featdrop
-    drawn from ``generator``, a ``torch.Generator`` on that device),
+    ``(B, T, N, h, w, 3)``, or whole frames ``(B, T, h, w, 3)`` with their
+    superpixel ids ``sp_mask (B, T, h, w)``; both on ``state.device``,
+    another device raises): forward in train mode (BN batch statistics;
+    edge dropout and featdrop drawn from ``generator``, a
+    ``torch.Generator`` on that device),
     backward, an optimizer step and a scheduler step. Parameters, BN
     running statistics and optimizer state are updated in place.
     ``metrics`` holds the loss and the walk diagnostics as detached 0-d
@@ -88,12 +90,15 @@ def make_train_step() -> Callable:
     not)."""
 
     def step(state: TrainState, batch: torch.Tensor,
-             generator: torch.Generator | None = None) -> dict:
-        if batch.device != state.device:
-            raise ValueError(f"batch on {batch.device}, train state on "
-                             f"{state.device}")
+             generator: torch.Generator | None = None,
+             sp_mask: torch.Tensor | None = None) -> dict:
+        for name, t in (("batch", batch), ("sp_mask", sp_mask)):
+            if t is not None and t.device != state.device:
+                raise ValueError(f"{name} on {t.device}, train state on "
+                                 f"{state.device}")
         state.optimizer.zero_grad(set_to_none=True)
-        _, loss, diags = state.model(batch, train=True, generator=generator)
+        _, loss, diags = state.model(batch, sp_mask=sp_mask, train=True,
+                                     generator=generator)
         loss.backward()
         state.optimizer.step()
         state.scheduler.step()

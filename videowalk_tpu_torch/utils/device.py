@@ -6,6 +6,8 @@ card is an error, never a silent fallback to the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -23,3 +25,17 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
             f"device {str(dev)!r} requested but CUDA is not available; "
             f"pass --device cpu to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """f32 matrix products in full f32 inside the block, whatever the caller
+    set: ``torch.backends.cuda.matmul.allow_tf32`` is turned off and put
+    back. For sums whose terms nearly cancel or must stay exact (segment
+    pooling weights, SLIC's expanded distances)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -25,18 +25,23 @@ card.
    flagship shape (B=8, T=8, N=49, C=128), at the gate's edge (T=10,
    N=128, C=512) and at the superpixel step's shape (B=6, T=4, N=48) with
    8-14 absent node slots (all-zero rows) a frame, and times both with CUDA
-   events.
+   events; then times the fused walk (forward + backward) against
+   ``core/walk.py``'s walk over T 4/8/10, N 48-128, C 128-512 at batch 8:
+   the sweep that bounds ``fused_walk="auto"`` (``ops/walk.py``).
 6. Holds the reflect-conv kernels (``ops/csrc/rconv.cu``: forward #4,
-   forward with BN moments #5, dx #9, dW #10, and the BN-input chain's
-   forward #6, dx with da/db #7 and dW #8, which apply ``relu(a*x + b)`` to
-   their operand) against their plain PyTorch version on bf16 inputs at
-   the step's shapes (the layer4 interior, 3136 images of 8x8 with 512
-   channels; layer1's 16x16x64; 8x8 128->256; a 32x32x512 map; the
-   superpixel step's 24 maps of 32x32x512 and its patch arm's 1176 of
-   8x8x512), and times
-   kernel, plain version and the library call (``F.pad`` + cuDNN
-   ``conv2d`` and its autograd backward; for the chain after an elementwise
-   affine + ReLU) with CUDA events.
+   forward with BN moments #5, and the BN-input chain's forward #6, dx with
+   da/db #7 and dW #8, which apply ``relu(a*x + b)`` to their operand;
+   ``ops/csrc/rconv_bwd.cu``: dx #9 and dW #10) against their plain PyTorch
+   version on bf16 inputs at the step's shapes (the layer4 interior, 3136
+   images of 8x8 with 512 channels; layer1's 16x16x64; 8x8 128->256; a
+   32x32x512 map; the superpixel step's 24 maps of 32x32x512 and its patch
+   arm's 1176 of 8x8x512); checks that two dW runs are bitwise equal and
+   that a planted dx fault (the row-1 fold leg of the dy=0 taps left out)
+   fails; and times kernel, the previous design of #9/#10 (``rconv.cu``'s
+   engine, through its C entries), plain version and the library call
+   (``F.pad`` + cuDNN ``conv2d``; for dx and dW each alone, autograd of it
+   for that input; for the chain after an elementwise affine + ReLU) with
+   CUDA events.
 7. Drives the training slice: ``bench.py``'s flagship step (8-frame clips,
    batch 8, a 7x7 grid of 64 px patches, the ``scratch`` ResNet-18 with a
    bf16 trunk in BN-train mode, edge dropout 0.1, T 0.05, Adam lr 3e-4)
@@ -114,6 +119,8 @@ BF16_PEAK = 989e12       # H100 SXM dense bf16 FLOP/s (tensor cores)
 HBM_RATE = 3.35e12       # H100 SXM bytes/s
 # bench.py's flagship training step
 CLIP_LEN, N_PATCHES, PATCH, BATCH, WALK_TEMP, EDGEDROP = 8, 49, 64, 8, 0.05, 0.1
+# the fused-walk gate's sweep: (T, N, C) at batch 8
+WALK_SWEEP = dict(T=(4, 8, 10), N=(48, 49, 64, 96, 128), C=(128, 256, 512))
 # reflect-conv kernels at the step's shapes: (tag, N, Cin, Cout, H, W)
 RCONV_SHAPES = (("flagship", 3136, 512, 512, 8, 8),     # layer4 interior
                 ("layer1", 3136, 64, 64, 16, 16),
@@ -449,6 +456,46 @@ def walk_kernels_vs_plain() -> dict:
     return res
 
 
+def walk_gate_sweep(batch: int = BATCH) -> dict:
+    """The fused walk (``walk.cu`` forward + backward, through
+    ``fused_walk_loss`` and autograd) against ``core/walk.py``'s
+    ``crw_walk_loss`` forward + backward on the same unit q and edge-drop
+    masks, at batch 8 over ``WALK_SWEEP``: the measurement that bounds
+    ``fused_walk="auto"`` (``ops/walk.py::fused_walk_wins``). Prints both
+    times, their ratio and whether the gate admits the shape."""
+    from videowalk_tpu_torch.core.walk import crw_walk_loss
+    before = (wk.walk_fwd.launches, wk.walk_bwd.launches)
+    rows = []
+    for T in WALK_SWEEP["T"]:
+        for N in WALK_SWEEP["N"]:
+            for C in WALK_SWEEP["C"]:
+                q, m12, m21, _ = _walk_inputs(batch, T, N, C, rate=EDGEDROP,
+                                              seed=5)
+                q = q.permute(0, 3, 1, 2).contiguous().requires_grad_()
+                masks = (m12.bool(), m21.bool())
+
+                def run(loss_fn):
+                    loss, _ = loss_fn(q, WALK_TEMP, masks=masks)
+                    torch.autograd.grad(loss, q)
+                fused_ms = cuda_ms(lambda: run(wk.fused_walk_loss), 5, 1)
+                core_ms = cuda_ms(lambda: run(crw_walk_loss), 5, 1)
+                rows.append(dict(T=T, N=N, C=C, fused_ms=fused_ms,
+                                 core_ms=core_ms, ratio=fused_ms / core_ms,
+                                 gate=wk.fused_walk_wins(T, N, C)))
+                del q, m12, m21, masks
+    wk.walk_fwd.launches, wk.walk_bwd.launches = before   # not the path's
+    print(f"fused walk vs core walk, forward + backward at batch {batch} "
+          f"(ms; ratio fused/core; gate = fused_walk_wins):", flush=True)
+    for r in rows:
+        print(f"  T={r['T']:2d} N={r['N']:3d} C={r['C']:3d}  fused "
+              f"{r['fused_ms']:8.3f}  core {r['core_ms']:8.3f}  ratio "
+              f"{r['ratio']:6.3f}  gate {r['gate']}", flush=True)
+    agree = sum((r["ratio"] < 1) == r["gate"] for r in rows)
+    print(f"  the gate agrees with the sweep on {agree} of {len(rows)} "
+          f"shapes", flush=True)
+    return dict(batch=batch, rows=rows, gate_agrees=agree)
+
+
 def rconv_counts() -> dict:
     return {name: f.launches for name, f in RCONV}
 
@@ -488,6 +535,53 @@ def moment_err(s1, s2, y) -> float:
                                (s2 - m2).abs() / m2).max())
 
 
+def prev_dx(gy, w):
+    """dx by the previous design (``rconv.cu``'s ``rconv_gemm<DX>``) through
+    its C entry: a same-call yardstick for #9, called by no route and
+    counted by no wrapper."""
+    N, cout, H, W = gy.shape
+    cin = w.shape[1]
+    w9t = w.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
+    dx = torch.empty((N, cin, H, W), dtype=gy.dtype, device=gy.device,
+                     memory_format=torch.channels_last)
+    err = rc._lib().rconv_dx_launch(
+        gy.data_ptr(), w9t.data_ptr(), dx.data_ptr(), rc._DTYPES[gy.dtype],
+        N, H, W, cin, cout, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"previous dx launch failed: cudaError {err}")
+    return dx
+
+
+def prev_dw(x, gy, w):
+    """dW by the previous design (``rconv_gemm<DW>`` + ``reduce_rows``), as
+    ``prev_dx``: ``(Cout, Cin, 3, 3)`` in w's dtype."""
+    N, cin, H, W = x.shape
+    cout = w.shape[0]
+    lib, dt = rc._lib(), rc._DTYPES[x.dtype]
+    splits = int(lib.rconv_dw_splits(dt, N, H, W, cin, cout))
+    part = torch.empty((splits, 9, cin, cout), dtype=torch.float32,
+                       device=x.device)
+    dw9 = torch.empty((9, cin, cout), dtype=torch.float32, device=x.device)
+    err = lib.rconv_dw_launch(x.data_ptr(), gy.data_ptr(), part.data_ptr(),
+                              dw9.data_ptr(), dt, N, H, W, cin, cout, splits,
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"previous dW launch failed: cudaError {err}")
+    return dw9.to(w.dtype).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+
+
+def fold_leg_of_row1(x, w, gy) -> torch.Tensor:
+    """What the row-1 fold leg of the dy = 0 taps adds to dx (f32): output
+    row 0's dy = 0 taps read pad row -1, the mirror of input row 1, so the
+    plain backward of gy's row 0 through those taps alone lands on row 1
+    only. dx minus this is the planted fault of the dx check."""
+    w0 = torch.zeros_like(w)
+    w0[:, :, 0] = w[:, :, 0]
+    g0 = torch.zeros_like(gy)
+    g0[:, :, 0] = gy[:, :, 0]
+    return rc.reflect_conv_plain_bwd(x.float(), w0.float(), g0.float())[0]
+
+
 def rconv_kernels_vs_plain() -> dict:
     """The reflect-conv kernels #4, #5, #9, #10 against their plain version
     on the same bf16 inputs at the step's shapes, and their times.
@@ -496,12 +590,17 @@ def rconv_kernels_vs_plain() -> dict:
     padded gradient before folding the pad back); moments per channel, as
     ``MOM_TOL`` states, against the kernel's own cast y and the plain y.
     Two planted faults (s1 zeroed; one forward tile of rows left out of
-    both sums) must fail that check. ``plain_ms`` is the plain version as the wrapper would call it
-    (forward: ``F.pad`` + ``conv2d``, + its f32 sums for the moments;
-    backward: autograd of the same, dx and dW together); ``library_ms`` is
-    the PyTorch calls of the same function: ``F.pad`` + cuDNN ``conv2d``
-    forward (followed by the f32 sums of y and y^2 for the moments), and
-    the autograd backward (dx and dW together) on a kept graph."""
+    both sums) must fail that check, and dx without the row-1 fold leg of
+    the dy=0 taps must fail the dx check; two dW runs must be bitwise
+    equal. ``ms["prev_dx"]``, ``ms["prev_dw"]``: the previous design of #9
+    and #10 on the same inputs. ``plain_ms`` is the plain version as the
+    wrapper would call it (forward: ``F.pad`` + ``conv2d``, + its f32 sums
+    for the moments; backward: autograd of the same, dx and dW together);
+    ``library_ms`` is the PyTorch calls of the same function: ``F.pad`` +
+    cuDNN ``conv2d`` forward (followed by the f32 sums of y and y^2 for the
+    moments), and on a kept graph the autograd backward for x alone (dx:
+    cuDNN dgrad and the pad's fold), for w alone (dW: cuDNN wgrad on the
+    padded x) and for both."""
     res = {}
     saved = rconv_counts()
     for tag, N, cin, cout, H, W in RCONV_SHAPES:
@@ -517,8 +616,10 @@ def rconv_kernels_vs_plain() -> dict:
                    fwd_stats=rc.reflect_conv_fwd_stats(x, w),
                    dx=rc.reflect_conv_dx(gy, w, x),
                    dw=rc.reflect_conv_dw(x, gy, w))
+        dw_again = rc.reflect_conv_dw(x, gy, w)
         y_ref = rc.reflect_conv_plain(x, w)
         dx_ref, dw_ref = rc.reflect_conv_plain_bwd(x, w, gy)
+        prev = dict(dx=prev_dx(gy, w), dw=prev_dw(x, gy, w))
         ys, s1, s2 = got["fwd_stats"]
         tile = ys.permute(0, 2, 3, 1).reshape(-1, cout)[
             :rc._lib().rconv_conv_bm(1)].float()
@@ -533,6 +634,10 @@ def rconv_kernels_vs_plain() -> dict:
 
         err = dict(fwd=rel(got["fwd"], y_ref), dx=rel(got["dx"], dx_ref),
                    dw=rel(got["dw"], dw_ref),
+                   dw_repeat_equal=bool(torch.equal(got["dw"], dw_again)),
+                   planted_dx=rel(got["dx"].float() - fold_leg_of_row1(x, w, gy),
+                                  dx_ref),
+                   prev_dx=rel(prev["dx"], dx_ref), prev_dw=rel(prev["dw"], dw_ref),
                    moments_own=moment_err(s1, s2, ys),
                    moments_ref=moment_err(s1, s2, y_ref),
                    planted={k: dict(own=moment_err(*f, ys),
@@ -548,12 +653,15 @@ def rconv_kernels_vs_plain() -> dict:
         ok = (err["fwd"] <= 1e-2 and err["dw"] <= 1e-2 and err["dx"] <= 2e-2
               and err["moments_own"] <= MOM_TOL["own"]
               and err["moments_ref"] <= MOM_TOL["ref"]
-              and err["y_stats_equal"]
+              and err["y_stats_equal"] and err["dw_repeat_equal"]
               and all(torch.isfinite(t).all() for t in
                       (got["fwd"], got["dx"], got["dw"], s1, s2)))
         print(f"reflect-conv kernels vs plain at {tag} (N,Cin,Cout,H,W)="
               f"{(N, cin, cout, H, W)} bf16: |d|/max y {err['fwd']:.2e}, dx "
-              f"{err['dx']:.2e}, dW {err['dw']:.2e}; moments per channel "
+              f"{err['dx']:.2e}, dW {err['dw']:.2e} (two dW runs bitwise equal: "
+              f"{err['dw_repeat_equal']}; previous design dx {err['prev_dx']:.2e}, "
+              f"dW {err['prev_dw']:.2e}); dx without the row-1 fold leg of the "
+              f"dy=0 taps (planted fault) {err['planted_dx']:.2e}; moments per channel "
               f"{err['moments_own']:.2e} of the kernel's y, "
               f"{err['moments_ref']:.2e} of the plain y; planted faults "
               f"{err['planted']} (tolerance: y, dW 1e-2, dx 2e-2 of the "
@@ -566,7 +674,10 @@ def rconv_kernels_vs_plain() -> dict:
                for k in MOM_TOL):
             fail(f"the moment check passes a planted fault at {tag}: "
                  f"{err['planted']}")
-        del got, y_ref, dx_ref, dw_ref, tile, faults
+        if err["planted_dx"] <= 2e-2:
+            fail(f"the dx check passes a planted fault at {tag}: "
+                 f"{err['planted_dx']:.2e}")
+        del got, y_ref, dx_ref, dw_ref, tile, faults, prev, dw_again
         xx = x.detach().requires_grad_()
         ww = w.detach().requires_grad_()
         yy = torch.nn.functional.conv2d(
@@ -576,7 +687,9 @@ def rconv_kernels_vs_plain() -> dict:
             fwd=cuda_ms(lambda: rc.reflect_conv_fwd(x, w), reps),
             fwd_stats=cuda_ms(lambda: rc.reflect_conv_fwd_stats(x, w), reps),
             dx=cuda_ms(lambda: rc.reflect_conv_dx(gy, w, x), reps),
-            dw=cuda_ms(lambda: rc.reflect_conv_dw(x, gy, w), reps))
+            dw=cuda_ms(lambda: rc.reflect_conv_dw(x, gy, w), reps),
+            prev_dx=cuda_ms(lambda: prev_dx(gy, w), reps),
+            prev_dw=cuda_ms(lambda: prev_dw(x, gy, w), reps))
         plain = dict(
             fwd=cuda_ms(lambda: rc.reflect_conv_plain(x, w), reps),
             fwd_stats=cuda_ms(lambda: rc.moments_plain(
@@ -587,7 +700,11 @@ def rconv_kernels_vs_plain() -> dict:
                 torch.nn.functional.pad(x, (1, 1, 1, 1), mode="reflect"), w),
                 reps),
             bwd=cuda_ms(lambda: torch.autograd.grad(
-                yy, (xx, ww), gy, retain_graph=True), reps))
+                yy, (xx, ww), gy, retain_graph=True), reps),
+            dx=cuda_ms(lambda: torch.autograd.grad(
+                yy, xx, gy, retain_graph=True), reps),
+            dw=cuda_ms(lambda: torch.autograd.grad(
+                yy, ww, gy, retain_graph=True), reps))
         library["fwd_stats"] = cuda_ms(lambda: rc.moments_plain(
             torch.nn.functional.conv2d(torch.nn.functional.pad(
                 x, (1, 1, 1, 1), mode="reflect"), w)), reps)
@@ -598,9 +715,11 @@ def rconv_kernels_vs_plain() -> dict:
                         bounds=bounds)
         for name in ("fwd", "fwd_stats", "dx", "dw"):
             p = plain.get(name, plain["bwd"])
-            lib = library.get(name, library["bwd"])
-            print(f"  {name:9s} {times[name]:8.3f} ms (plain {p:8.3f}, library "
-                  f"{lib:8.3f}, bound {bounds[name]['bound_ms']:.3f} by "
+            was = (f", previous design {times['prev_' + name]:8.3f}"
+                   if name in ("dx", "dw") else "")
+            print(f"  {name:9s} {times[name]:8.3f} ms{was} (plain {p:8.3f}, "
+                  f"library {library[name]:8.3f}, bound "
+                  f"{bounds[name]['bound_ms']:.3f} by "
                   f"{bounds[name]['bound_by']})", flush=True)
         bnin = bnin_kernels_vs_plain(tag, x, w, gy, reps)
         for k in ("err", "abs_err", "ms", "plain_ms", "library_ms"):
@@ -781,7 +900,7 @@ def profile_steps(run, n: int = 3) -> dict:
         kind = ("walk kernels" if low.startswith("walk_") else
                 "slic kernels" if "slic_" in low else
                 "dilation kernel" if "dilate_l1" in low else
-                "reflect-conv kernels" if ("rconv_gemm" in low
+                "reflect-conv kernels" if ("rconv_" in low
                                            or "reduce_rows" in low) else
                 "convolutions" if any(w in low for w in (
                     "conv", "cudnn", "xmma", "gemm", "dgrad", "wgrad",
@@ -1356,7 +1475,7 @@ def small_sp_step_card_vs_cpu() -> dict:
 PHASES = dict(prop=lambda a: kernel_vs_plain(),
               eval=lambda a: end_to_end(a.targets),
               small_eval=lambda a: small_card_vs_cpu(),
-              walk=lambda a: walk_kernels_vs_plain(),
+              walk=lambda a: (walk_kernels_vs_plain(), walk_gate_sweep()),
               rconv=lambda a: rconv_kernels_vs_plain(),
               train=lambda a: train_step_phase(a.steps),
               small_train=lambda a: small_step_card_vs_cpu(),
@@ -1410,6 +1529,7 @@ def main() -> int:
     e2e = end_to_end(args.targets)
     small = small_card_vs_cpu()
     walk = walk_kernels_vs_plain()
+    walk_sweep = walk_gate_sweep()
     rconv = rconv_kernels_vs_plain()
     train = train_step_phase(args.steps)
     small_train = small_step_card_vs_cpu()
@@ -1446,14 +1566,15 @@ def main() -> int:
                             ("dx", 607, "auto+auto"), ("dw", 660, "auto+auto")):
         kernels.append(dict(
             name=f"reflect_conv_{name}", route="cuda",
-            source="videowalk_tpu_torch/ops/csrc/rconv.cu",
+            source="videowalk_tpu_torch/ops/csrc/"
+                   + ("rconv_bwd.cu" if name in ("dx", "dw") else "rconv.cu"),
             replaces=f"videowalk_tpu/ops/rconv_kernel.py:{line}",
             launches=train[arm]["launches"][name],
             max_abs_err=rflag["abs_err"][name], ms=rflag["ms"][name],
             plain_ms=rflag["plain_ms"].get(name, rflag["plain_ms"]["bwd"]),
             bound_ms=rflag["bounds"][name]["bound_ms"],
             bound_by=rflag["bounds"][name]["bound_by"],
-            library_ms=rflag["library_ms"].get(name, rflag["library_ms"]["bwd"])))
+            library_ms=rflag["library_ms"][name]))
     headline = sp_train["sp_dil"]
     kernels.append(dict(
         name="dilate_l1", route="cuda",
@@ -1475,6 +1596,7 @@ def main() -> int:
         with open(args.out, "w") as fh:
             json.dump(dict(card=smi, build_s=build_s, kernel=kp,
                            end_to_end=e2e, small=small, walk=walk,
+                           walk_sweep=walk_sweep,
                            rconv=rconv, train=train, small_train=small_train,
                            slic=slic_res, dilation=dil, sp_train=sp_train,
                            small_sp_train=small_sp_train,

@@ -1,8 +1,9 @@
 """The reflect-conv kernels (``videowalk_tpu_torch/ops/rconv.py`` →
-``ops/csrc/rconv.cu``): on the card (``-m cuda``, skipped without one) each
-of forward (#4), forward with moments (#5), dx (#9), dW (#10) and the
-BN-input chain's forward (#6), dx with da/db (#7) and dW (#8) against the
-plain PyTorch version on the same inputs, and the wrapper's refusals.
+``ops/csrc/rconv.cu``, and ``ops/csrc/rconv_bwd.cu`` for bf16 dx and dW): on
+the card (``-m cuda``, skipped without one) each of forward (#4), forward
+with moments (#5), dx (#9), dW (#10) and the BN-input chain's forward (#6),
+dx with da/db (#7) and dW (#8) against the plain PyTorch version on the same
+inputs, which engine each dtype reaches, and the wrapper's refusals.
 
 Tolerances, relative to each output's largest entry: f32 1e-5 (the same
 f32 products summed in another order; TF32 off); bf16 y and dW 1e-2 and dx
@@ -104,6 +105,10 @@ def test_wrappers_refuse_other_devices():
     (3, 256, 128, 8, 8),         # Cout < Cin
     (2, 64, 64, 32, 32),         # 32x32 maps
     (3, 24, 40, 16, 8),          # channel tails, H != W
+    (7, 64, 96, 8, 8),           # odd N of 8x8: the last dx tile half empty
+    (3, 200, 72, 32, 32),        # Cin, Cout not a multiple of any tile
+    (1, 136, 520, 8, 32),        # W = 32 on 8 rows, ragged channel tiles
+    (2, 512, 512, 16, 16),       # 16x16 bands of whole rows
 ])
 def test_kernels_match_plain_on_card(N, cin, cout, H, W, dtype):
     _need_card()
@@ -150,6 +155,82 @@ def test_corner_legs_of_dx_on_card():
     gy = gy.contiguous(memory_format=torch.channels_last)
     _close("dx", rc.reflect_conv_dx(gy, w, x),
            rc.reflect_conv_plain_bwd(x, w, gy)[0], 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(8, 8), (16, 16), (32, 32), (8, 32)])
+def test_corner_legs_of_bf16_dx_on_card(H, W):
+    """The same one-hot gradients at every border pixel of a map, in bf16
+    on ``rconv_bwd.cu``'s leg sums: small integers in gy and w, so every
+    product, leg sum and f32 sum is exact; the kernel rounds the exact
+    integer to bf16 once, as ``want.bfloat16()`` does."""
+    _need_card()
+    rng = np.random.RandomState(H + W)
+    x = torch.zeros((3, 16, H, W), device="cuda", dtype=torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.from_numpy(rng.randint(-2, 3, (16, 16, 3, 3)).astype(np.float32))
+    gy = torch.zeros((3, 16, H, W))
+    border = torch.zeros((H, W), dtype=torch.bool)
+    border[[0, 1, H - 2, H - 1], :] = True
+    border[:, [0, 1, W - 2, W - 1]] = True
+    gy[:, :, border] = torch.from_numpy(
+        rng.randint(-3, 4, (3, 16, int(border.sum()))).astype(np.float32))
+    w, gy = w.cuda().bfloat16(), gy.cuda().bfloat16()
+    gy = gy.contiguous(memory_format=torch.channels_last)
+    got = rc.reflect_conv_dx(gy, w, x)
+    want = rc.reflect_conv_plain_bwd(x.float(), w.float(), gy.float())[0]
+    assert torch.equal(got.cpu(), want.bfloat16().cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W", [(33, 8, 8), (6, 32, 32)])
+def test_dw_repeats_bitwise_on_card(N, H, W):
+    """bf16 dW over many K splits: two runs are bitwise equal (fixed-order
+    partial sums, no float atomics)."""
+    _need_card()
+    x, w, gy = _inputs(N, 512, 512, H, W, torch.bfloat16, seed=21)
+    first = rc.reflect_conv_dw(x, gy, w)
+    for _ in range(2):
+        assert torch.equal(first, rc.reflect_conv_dw(x, gy, w))
+
+
+class _Spy:
+    """A kernel library whose calls are logged by entry name."""
+
+    def __init__(self, lib, log):
+        self._lib, self._log = lib, log
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+
+        def call(*args):
+            self._log.append(name)
+            return fn(*args)
+        return call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dx_entry,dw_entry", [
+    (torch.bfloat16, "rconv_bwd_dx_launch", "rconv_bwd_dw_launch"),
+    (torch.float32, "rconv_dx_launch", "rconv_dw_launch"),
+])
+def test_backward_engine_by_dtype_on_card(dtype, dx_entry, dw_entry,
+                                          monkeypatch):
+    """bf16 dx and dW launch ``rconv_bwd.cu``'s kernels, f32 ones stay on
+    ``rconv.cu``'s engine; each wrapper counts one launch either way."""
+    _need_card()
+    log = []
+    lib, bwd_lib = rc._lib(), rc._bwd_lib()
+    monkeypatch.setattr(rc, "_lib", lambda: _Spy(lib, log))
+    monkeypatch.setattr(rc, "_bwd_lib", lambda: _Spy(bwd_lib, log))
+    x, w, gy = _inputs(2, 64, 64, 8, 8, dtype, seed=5)
+    before = (rc.reflect_conv_dx.launches, rc.reflect_conv_dw.launches)
+    rc.reflect_conv_dx(gy, w, x)
+    rc.reflect_conv_dw(x, gy, w)
+    torch.cuda.synchronize()
+    assert [n for n in log if n.endswith("_launch")] == [dx_entry, dw_entry]
+    assert (rc.reflect_conv_dx.launches - before[0],
+            rc.reflect_conv_dw.launches - before[1]) == (1, 1)
 
 
 @pytest.mark.cuda

@@ -186,3 +186,24 @@ def test_sinkhorn_paths_raise_naming_the_roadmap():
         tw.sk_targets_walk_loss(torch.zeros(1, 2, 3, 4), TEMP)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tw.stoch_mat(torch.zeros(1, 3, 3), TEMP, do_sinkhorn=True)
+
+
+@pytest.mark.parametrize("T,N,C,fused", [
+    (8, 49, 128, True),          # the flagship patch step
+    (4, 48, 128, True),          # the superpixel step of record
+    (10, 128, 512, False),       # the gate's edge: the kernel lost 6.9x
+    (8, 64, 256, False),         # outside the measured region
+    (10, 64, 128, True),         # inside it
+    (2, 49, 128, True),          # no cycle: either path returns 0
+])
+def test_auto_fused_walk_follows_the_measured_region(T, N, C, fused):
+    """``fused_walk='auto'`` takes the fused kernels only where the card's
+    sweep found them faster than the core walk (``ops/walk.py::
+    FUSED_WALK_MAX_N``); ``on`` forces them on any supported shape and
+    ``off`` never takes them."""
+    from videowalk_tpu_torch.models.crw import CRWConfig, fused_walk_route
+
+    assert fused_walk_route(CRWConfig(), T, N, C) is fused
+    assert fused_walk_route(CRWConfig(fused_walk="on"), T, N, C)
+    assert not fused_walk_route(CRWConfig(fused_walk="off"), T, N, C)
+    assert not fused_walk_route(CRWConfig(flip=True), T, N, C)

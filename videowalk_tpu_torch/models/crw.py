@@ -67,16 +67,38 @@ class CRWConfig:
     dilation_kernel_size: int = 51
     dtype: torch.dtype = torch.float32   # encoder trunk compute type
     # fused walk kernels (ops/walk.py): 'auto' takes them where the config
-    # allows; 'on' forces them and raises where they do not apply; 'off'
+    # allows and the card's sweep says they win (ops/walk.py::
+    # fused_walk_wins); 'on' forces them and raises where they do not
+    # apply; 'off' never
     fused_walk: str = "auto"
     # reflect-conv kernels (ops/rconv.py): 'auto' routes the JAX package's
-    # shape set (the 8x8 interiors with C >= 512), 'on' every supported
-    # shape, 'off' none (ops/reflect_conv.py::rconv_kernel_routes)
+    # shape set (the 8x8 and 32x32 interiors with C >= 512), 'on' every
+    # supported shape, 'off' none (ops/reflect_conv.py::rconv_kernel_routes)
     rconv: str = "auto"
     # BN fused into routed convs (train mode): 'stats' takes the moments
     # from the conv's epilogue; 'auto' also folds bn1's affine and ReLU into
     # a routed conv2's operand (the BN-input chain); 'off' does neither
     bn_fuse: str = "auto"
+
+
+def fused_walk_route(cfg: CRWConfig, T: int, N: int, C: int) -> bool:
+    """True iff the walk loss of a ``(B, C, T, N)`` q takes the fused
+    kernels (``ops/walk.py``): the config must allow them (ZeroSoftmax, no
+    flip, no zeroed diagonal, a supported shape); ``on`` then forces them,
+    ``auto`` takes them inside the card's measured region
+    (``fused_walk_wins``), ``off`` never."""
+    fused_ok = (not cfg.flip and not cfg.zero_diagonal
+                and cfg.use_zero_softmax
+                and (T < 3 or walk_ops.walk_supported(T, N, C)))
+    if cfg.fused_walk == "on" and not fused_ok:
+        raise ValueError(
+            "fused_walk='on' is incompatible with this config "
+            "(flip/zero_diagonal/plain-softmax, N > 128 nodes, "
+            f"clip_len > 10 or C > 512; N={N}, T={T}, C={C}); use "
+            "fused_walk='auto' to let it fall back")
+    if cfg.fused_walk == "auto":
+        return fused_ok and (T < 3 or walk_ops.fused_walk_wins(T, N, C))
+    return cfg.fused_walk == "on"
 
 
 class Head(nn.Sequential):
@@ -277,18 +299,9 @@ class CRW(nn.Module):
 
         cfg = self.cfg
         _, C, T, N = q.shape
-        fused_ok = (not cfg.flip and not cfg.zero_diagonal
-                    and cfg.use_zero_softmax
-                    and (T < 3 or walk_ops.walk_supported(T, N, C)))
-        if cfg.fused_walk == "on" and not fused_ok:
-            raise ValueError(
-                "fused_walk='on' is incompatible with this config "
-                "(flip/zero_diagonal/plain-softmax, N > 128 nodes, "
-                f"clip_len > 10 or C > 512; N={N}, T={T}, C={C}); use "
-                "fused_walk='auto' to let it fall back")
         rate = cfg.edgedrop_rate if train else 0.0
         masks = walk_masks if train else None
-        if fused_ok and cfg.fused_walk != "off":
+        if fused_walk_route(cfg, T, N, C):
             loss, diags = walk_ops.fused_walk_loss(
                 q, cfg.temperature, generator=generator, edgedrop_rate=rate,
                 masks=masks)

@@ -7,8 +7,12 @@
 //   #4  _fwd_call    :240 -> _fwd_kernel     :224   (rconv_gemm<.., FWD>)
 //   #5  _fwd_call_st :319 -> _fwd_kernel_st  :291   (rconv_gemm<.., FWD_STATS>
 //                                                     + reduce_rows)
-//   #9  _dx_call     :633 -> _dx_kernel      :607   (rconv_gemm<.., DX>)
-//   #10 _dw_call     :682 -> _dw_kernel      :660   (rconv_gemm<.., DW>
+//   #9  _dx_call     :633 -> _dx_kernel      :607   (bf16: rconv_bwd.cu's
+//                                                     rconv_bwd_dx; f32:
+//                                                     rconv_gemm<.., DX>)
+//   #10 _dw_call     :682 -> _dw_kernel      :660   (bf16: rconv_bwd.cu's
+//                                                     rconv_bwd_dw; f32:
+//                                                     rconv_gemm<.., DW>
 //                                                     + reduce_rows)
 //   #6  _fwd_call_bnin_st :440 -> _fwd_kernel_bnin_st :401
 //                                   (rconv_gemm<.., FWD_BNIN_STATS> + reduce_rows)
@@ -16,7 +20,12 @@
 //                                   (rconv_gemm<.., DX_BNIN> + reduce_rows)
 //   #8  _dw_call_bnin :573 -> _dw_kernel_bnin :553
 //                                   (rconv_gemm<.., DW_BNIN> + reduce_rows)
-// built from what they compute, not from the TPU's flat-roll/select chain
+// The bf16 DX and DW modes are no route's any more: ops/rconv.py sends bf16
+// dx and dW to rconv_bwd.cu, f32 ones here. rconv_dx_launch /
+// rconv_dw_launch stay for f32 and as chip_smoke.py's same-call yardstick
+// of the previous bf16 design; their bf16 paths go when #7 and #8 (the
+// DX_BNIN / DW_BNIN modes, which share this engine) move to the new one.
+// Built from what they compute, not from the TPU's flat-roll/select chain
 // (which exists for the sublane layout). y = conv_valid(reflect_pad(x, 1), w)
 // with torch 'reflect' semantics: pad row -1 mirrors row 1, row H mirrors
 // H-2, corners diagonally. H and W are powers of two in [8, 32]

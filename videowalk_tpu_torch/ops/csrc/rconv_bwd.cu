@@ -1,0 +1,668 @@
+// Backward of the 3x3 stride-1 reflect-padded convolution in bf16: the input
+// gradient dx and the weight gradient dW, designed for Hopper around one
+// landed slab of whole image rows that feeds all nine taps.
+//
+// Replaces the Pallas TPU kernels of videowalk_tpu/ops/rconv_kernel.py:
+//   #9  _dx_call :633 -> _dx_kernel :607   (rconv_bwd_dx)
+//   #10 _dw_call :682 -> _dw_kernel :660   (rconv_bwd_dw + reduce_rows)
+// y = conv_valid(reflect_pad(x, 1), w) with torch 'reflect' semantics: pad
+// row -1 mirrors row 1, row H mirrors H-2. H and W are powers of two in
+// [8, 32] (rconv_supported); activations are channel-contiguous (N, H, W, C)
+// storage, channels a multiple of 8. f32 operands stay on rconv.cu's engine.
+//
+// Bound at the flagship's routed shape (3136 images of 8x8, 512 -> 512):
+// each pass is 2*200704*9*512*512 = 0.947 TFLOP, 0.96 ms at 989 TFLOP/s
+// dense bf16, against ~0.41 GB of bytes (0.12 ms at 3.35 TB/s); at the
+// superpixel step's (24, 32x32, 512 -> 512) 0.116 TFLOP, 0.117 ms. Both are
+// bound by the tensor cores, so the design cuts what kept the previous
+// engine (rconv.cu's rconv_gemm<DX>/<DW>) far from them: a gather of the A
+// operand once per tap (9x the distinct input through L2), synchronous
+// loads of the reflected legs, and wmma from unswizzled shared memory.
+//
+// Both kernels: a tile's pixel range is a run of whole image rows (128
+// output pixels for dx, a 64-pixel K chunk for dW: two whole 8x8 images, or
+// a band of rows of a larger map). The slab of flat pixels
+// [first - W, last + W), the tile's rows plus one row above and below, lands
+// in shared memory by 16-byte cp.async ONCE per K chunk; every source pixel
+// of every tap, reflected or not, lies inside it (a reflection stays within
+// one row of its pixel, in its own image). The nine taps are then nine sets
+// of ldmatrix row addresses into that slab: ldmatrix takes one shared
+// address per lane, so each A row of each tap is one address, computed
+// through the reflection. The products are wgmma (m64nNk16, bf16 in, f32
+// accumulate) with A, the gathered taps, from those ldmatrix registers and
+// B through a shared-memory descriptor. ptxas serializes every wgmma of a
+// kernel that writes an A register while an earlier product that reads
+// registers is in flight (C7513), so a register set is rewritten only
+// after its product is done.
+//
+// dx (#9): M = N*H*W input pixels, N = Cin, K = 9*Cout with W[t]^T. Input
+//   pixel (i, j) of tap (dy, dx) collects gy at the direct h = i-dy+1 (when
+//   inside) and, folded back through the pad, h = 0 when dy = 0 and i = 1,
+//   h = H-1 when dy = 2 and i = H-2; the same for columns. A pixel with one
+//   leg per axis reads one slab row, none reads a zero row; a pixel with a
+//   folded leg reads a leg-sum row: per K chunk the block sums the folds once
+//   from the landed slab into a small region behind it (f32, rounded once to
+//   bf16, as the previous engine): per slab row the column folds
+//   gy[h,0]+gy[h,2] and gy[h,W-1]+gy[h,W-3]; per image in the tile the row
+//   folds gy[0,w]+gy[2,w] (and gy[H-1,w]+gy[H-3,w]) and the 4 corners. The
+//   tap loop is then only ldmatrix + wgmma: no global load inside it.
+//   Block: 128 pixels x 128 (or 64) Cin, two warpgroups of 64 pixel rows;
+//   a K chunk is 16 Cout channels: the slab (<= 192 rows) plus all nine
+//   16 x 128 W^T tiles (128-byte swizzled, the layout the descriptor
+//   reads without bank conflicts; an unswizzled W^T measured slower than
+//   mma.sync) land together, two chunks in flight (~104 KB: two blocks an
+//   SM). A tap is one wgmma.m64n128k16 a warpgroup; two A register sets
+//   let a tap's gather overlap the previous tap's product.
+// dW (#10): dW[t] = sum_p tap_t(x)[p]^T gy[p]: M = Cin, N = Cout, K = pixels.
+//   A block owns a 64 Cin x 64 Cout tile for all nine taps and a K split;
+//   three warpgroups, warpgroup dy the taps (dy, 0..2) (96 f32 accumulators
+//   a thread). Per 64-pixel K chunk the x slab (64 + 2W rows x 64 Cin) and
+//   the gy tile (64 pixels x 64 Cout) land once by cp.async, gy 128-byte
+//   swizzled for its descriptor; per 16 pixels each warp gathers
+//   its three taps' A^T from the slab by ldmatrix.trans with per-lane pixel
+//   addresses shifted through the reflection, then issues three
+//   wgmma.m64n64k16 (A from registers, B = gy through one descriptor). gy
+//   is streamed once per Cin tile (8 times at 512 channels, 36 in the
+//   previous engine), x once per Cout tile. A ring of 4 chunks in flight.
+//   K splits write f32 partials (splits, 9, Cin, Cout) that reduce_rows sums
+//   in a fixed order: no float atomics, so dW repeats bit for bit.
+// Not yet used: TMA, a producer warp, clusters.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// (videowalk_tpu_torch/ops/_build.py); plain C interface, loaded with ctypes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 256;                 // threads per block (8 warps)
+constexpr int SMS = 132;                // H100 SXM streaming multiprocessors
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy to shared memory; zeros where !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d (m64 x n64, f32) += a (m64 x k16 bf16 in registers, the mma.sync A
+// fragment layout per warp) * B (k16 x n64 bf16 in shared memory, MN-major:
+// transpose-b 1, described by desc); scales +1
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const unsigned (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// cp.async's writes (generic proxy) made visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const unsigned (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// a wgmma descriptor of a 128-byte-swizzled MN-major operand: 64 MN values
+// (128 bytes) a K row, 8 K rows a 1024-byte atom whose 16-byte chunks are
+// XORed by the row; lbo bytes between 64-wide MN blocks, sbo between atoms
+// along K
+__device__ __forceinline__ uint64_t mn_desc_sw128(unsigned addr, unsigned lbo,
+                                                  unsigned sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
+         | ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+struct Geo {
+  int H, W, lw;
+  long long M;        // N*H*W pixels
+};
+
+// ------------------------------------------------------------------- dx
+
+namespace dxk {
+constexpr int BM = 128;                 // output pixels of a tile
+constexpr int BK = 16;                  // Cout channels of a K chunk
+constexpr int SLAB_MAX = BM + 2 * 32;   // slab rows at W = 32
+constexpr int LEG_MAX = 80;             // leg-sum rows (largest at W = 32)
+constexpr int ZERO_ROW = SLAB_MAX + LEG_MAX;
+constexpr int A_ROWS = ZERO_ROW + 1;
+constexpr int A_STRIDE = BK * 2 + 16;   // bytes: 48, conflict-free ldmatrix
+constexpr int A_BYTES = (A_ROWS * A_STRIDE + 1023) / 1024 * 1024;
+template <int BN> struct Cfg {
+  // a tap's W^T tile (16 Cout x BN Cin), 128-byte swizzled MN-major: Cout
+  // row k of Cin block b (64 wide) at b*2048 + (k/8)*1024 + (k%8)*128, its
+  // 16-byte chunk c at (c ^ k%8)*16
+  static constexpr int TAP_B = BK * BN * 2;
+  static constexpr int B_BYTES = 9 * TAP_B;             // all nine W^T tiles
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int TABLES = 9 * BM * 2 + LEG_MAX * 8;
+  static constexpr int SMEM = 2 * STAGE + TABLES;
+  static constexpr int C_STRIDE = BN + 8;               // bf16 epilogue tile
+  static_assert(BM * C_STRIDE * 2 <= 2 * STAGE, "epilogue staging");
+  static_assert(STAGE % 16 == 0 && A_BYTES % 16 == 0, "16-byte alignment");
+};
+}  // namespace dxk
+
+// dx (M, Cin) from gy (M, Cout) and w9t (9, Cout, Cin). Grid: ntiles (Cin)
+// fastest, then 128-pixel tiles.
+template <int BN>
+__global__ void __launch_bounds__(NT, 2) rconv_bwd_dx(
+    const __nv_bfloat16* __restrict__ gy, const __nv_bfloat16* __restrict__ w9t,
+    __nv_bfloat16* __restrict__ dx, Geo g, int cin, int cout, int ntiles) {
+  using namespace dxk;
+  using C = Cfg<BN>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  short* arow = reinterpret_cast<short*>(smem + 2 * C::STAGE);   // [9][BM]
+  short4* legsrc = reinterpret_cast<short4*>(arow + 9 * BM);      // [LEG_MAX]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockIdx.x % ntiles;
+  const long long m0 = (long long)(blockIdx.x / ntiles) * BM;
+  const int n0 = nt * BN;
+  const int H = g.H, W = g.W, HW = H * W;
+  const int R = BM / W;                        // image rows of the tile
+  const int SLAB = BM + 2 * W;
+  const int CF = SLAB_MAX;                     // first column-fold row
+  const int RF = CF + 2 * (R + 2);             // first row-fold block
+  const int NB = 2 * (HW < BM ? BM / HW : 1);  // row-fold blocks
+  // the image of the tile's first pixel starts this far before (or after) m0
+  const int img0 = -(int)(m0 % HW);
+
+  // ---- tables, once per block: each tap's A row of each pixel, and the
+  // slab rows that each leg-sum row adds up (-1: none)
+  for (int e = tid; e < 9 * BM; e += NT) {
+    const int t = e / BM, r = e % BM, dy = t / 3, dxo = t % 3;
+    const long long p = m0 + r;
+    int row = ZERO_ROW;
+    if (p < g.M) {
+      const int i = (int)((p >> g.lw) & (H - 1)), j = (int)(p & (W - 1));
+      const int hd = i - dy + 1, wd = j - dxo + 1;
+      const bool hf = (dy == 0 && i == 1) || (dy == 2 && i == H - 2);
+      const bool wf = (dxo == 0 && j == 1) || (dxo == 2 && j == W - 2);
+      const bool hok = hd >= 0 && hd < H, wok = wd >= 0 && wd < W;
+      if (hok && wok) {
+        if (!hf && !wf) {
+          row = r + W + (hd - i) * W + (wd - j);
+        } else if (!hf) {                      // column fold at row hd
+          row = CF + 2 * (r / W + 1 + hd - i) + (dxo == 2);
+        } else {                               // row fold (+ a corner)
+          const int img = (int)((p - m0 - img0) / HW);
+          const int blk = RF + (2 * img + (dy == 2)) * (W + 2);
+          row = wf ? blk + W + (dxo == 2) : blk + wd;
+        }
+      }
+    }
+    arow[e] = (short)row;
+  }
+  for (int e = tid; e < LEG_MAX; e += NT) {
+    short4 s = make_short4(-1, -1, -1, -1);
+    const int l = SLAB_MAX + e;
+    if (l >= CF && l < RF) {                   // column folds of slab row sr
+      const int sr = (l - CF) / 2, right = (l - CF) & 1;
+      const int a = sr * W + (right ? W - 1 : 0), b = sr * W + (right ? W - 3 : 2);
+      s = make_short4(a, b, -1, -1);
+    } else if (l >= RF && l < RF + NB * (W + 2)) {
+      const int blk = (l - RF) / (W + 2), k = (l - RF) % (W + 2);
+      const int img = blk / 2, bot = blk & 1;
+      // slab row of (h, w) in that image: img0 + img*HW + W + h*W + w
+      const int base = img0 + img * HW + W;
+      const int h0 = bot ? H - 1 : 0, h1 = bot ? H - 3 : 2;
+      // used only if the tile holds row 1 (or H-2) of the image: then rows
+      // h0 and h1 both lie in the slab
+      const int rowpix = base + (bot ? H - 2 : 1) * W;
+      if (rowpix >= W && rowpix < W + BM) {
+        if (k < W) {
+          s = make_short4(base + h0 * W + k, base + h1 * W + k, -1, -1);
+        } else {
+          const int c0 = k == W ? 0 : W - 1, c1 = k == W ? 2 : W - 3;
+          s = make_short4(base + h0 * W + c0, base + h0 * W + c1,
+                          base + h1 * W + c0, base + h1 * W + c1);
+        }
+      }
+    }
+    legsrc[e] = s;
+  }
+  // the zero row of both stages
+  if (tid < 2 * (A_STRIDE / 16))
+    reinterpret_cast<uint4*>(smem + (tid / (A_STRIDE / 16)) * C::STAGE
+                             + ZERO_ROW * A_STRIDE)[tid % (A_STRIDE / 16)] =
+        make_uint4(0, 0, 0, 0);
+
+  const int KC = (cout + BK - 1) / BK;
+  auto issue = [&](int c, int st) {
+    unsigned char* As = smem + st * C::STAGE;
+    unsigned char* Bs = As + A_BYTES;
+    const int k0 = c * BK;
+    for (int v = tid; v < SLAB * 2; v += NT) {   // the slab: 2 vectors a row
+      const int s = v >> 1, h = v & 1;
+      const long long q = m0 - W + s;
+      const bool ok = q >= 0 && q < g.M && k0 + h * 8 < cout;
+      cp_async16(As + s * A_STRIDE + h * 16,
+                 ok ? gy + q * cout + k0 + h * 8 : gy, ok);
+    }
+    constexpr int BV = BN / 8;                  // vectors of a W^T row
+    for (int v = tid; v < 9 * BK * BV; v += NT) {
+      const int t = v / (BK * BV), kr = (v / BV) % BK, nv = v % BV;
+      const int k = k0 + kr, n = n0 + nv * 8;
+      const bool ok = k < cout && n < cin;
+      cp_async16(Bs + t * C::TAP_B + (nv >> 3) * 2048 + (kr >> 3) * 1024
+                     + (kr & 7) * 128 + (((nv & 7) ^ (kr & 7)) << 4),
+                 ok ? w9t + ((long long)t * cout + k) * cin + n : w9t, ok);
+    }
+  };
+  // the leg sums of stage st from its landed slab, f32, rounded once
+  auto legs = [&](int st) {
+    unsigned char* As = smem + st * C::STAGE;
+    for (int v = tid; v < LEG_MAX * 2; v += NT) {
+      const short4 s = legsrc[v >> 1];
+      if (s.x < 0) continue;
+      const int h = v & 1;
+      float acc[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+      const short src[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (src[k] < 0) continue;
+        const uint4 u = *reinterpret_cast<const uint4*>(As + src[k] * A_STRIDE + h * 16);
+        const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(b[e]);
+          acc[2 * e] += f.x;
+          acc[2 * e + 1] += f.y;
+        }
+      }
+      uint4 o;
+      __nv_bfloat162* ob = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ob[e] = __floats2bfloat162_rn(acc[2 * e], acc[2 * e + 1]);
+      *reinterpret_cast<uint4*>(As + (SLAB_MAX + (v >> 1)) * A_STRIDE + h * 16) = o;
+    }
+  };
+
+  // a warpgroup's m64 x BN tile, this warp's 16 rows: n8 block j in
+  // acc[j] (rows lane/4 and lane/4 + 8)
+  float acc[BN / 8][4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // lane roles in ldmatrix: A rows (l&7) + 8*((l>>3)&1), k half l>>4
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lhalf = lane >> 4;
+  const short* ar = arow + warp * 16 + lrow;
+
+  issue(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < KC; ++c) {
+    const int st = c & 1;
+    cp_async_wait<0>();
+    fence_proxy_async();        // the landed W^T tiles, for wgmma
+    wgmma_wait<0>();            // chunk c-1's products have read their stage
+    __syncthreads();            // chunk c landed; chunk c-1's stage is free
+    if (c + 1 < KC) issue(c + 1, st ^ 1);
+    cp_async_commit();
+    legs(st);
+    __syncthreads();            // the leg sums are visible
+    const unsigned As = smem_u32(smem + st * C::STAGE);
+    const unsigned Bs = As + A_BYTES;
+    // one m64 x BN x k16 product a tap, A from the slab through this warp's
+    // ldmatrix rows; two register sets, so a tap's gather overlaps the
+    // previous tap's product (an A set is rewritten only after its product
+    // is done, or ptxas serializes every wgmma)
+    unsigned a[2][4];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      if (t >= 2) wgmma_wait<1>();
+      ldsm_x4(a[t & 1], As + ar[t * BM] * A_STRIDE + lhalf * 16);
+      wgmma_fence();
+      const uint64_t desc = mn_desc_sw128(Bs + t * C::TAP_B, 2048, 1024);
+      if constexpr (BN == 128)
+        wgmma_n128(reinterpret_cast<float(&)[64]>(acc), a[t & 1], desc);
+      else
+        wgmma_n64(reinterpret_cast<float(&)[32]>(acc), a[t & 1], desc);
+      wgmma_commit();
+    }
+  }
+  cp_async_wait<0>();
+  wgmma_wait<0>();
+  __syncthreads();
+
+  // ---- epilogue: bf16 tile through shared memory, 16-byte stores
+  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int gr = lane >> 2, gc = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int r = warp * 16 + gr, col = j * 8 + gc;
+    *reinterpret_cast<__nv_bfloat162*>(Cs + r * C::C_STRIDE + col) =
+        __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    *reinterpret_cast<__nv_bfloat162*>(Cs + (r + 8) * C::C_STRIDE + col) =
+        __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+  __syncthreads();
+  for (int v = tid; v < BM * BN / 8; v += NT) {
+    const int r = v / (BN / 8), cv = v % (BN / 8);
+    const long long p = m0 + r;
+    const int n = n0 + cv * 8;
+    if (p < g.M && n < cin)
+      *reinterpret_cast<uint4*>(dx + p * cin + n) =
+          *reinterpret_cast<const uint4*>(Cs + r * C::C_STRIDE + cv * 8);
+  }
+}
+
+// ------------------------------------------------------------------- dW
+
+namespace dwk {
+constexpr int NTW = 384;                // 3 warpgroups
+constexpr int BM = 64;                  // Cin of a tile
+constexpr int BN = 64;                  // Cout of a tile
+constexpr int BKP = 64;                 // pixels of a K chunk (whole rows)
+constexpr int X_ROWS = BKP + 2 * 32;    // slab rows at W = 32
+constexpr int STRIDE = BM * 2 + 16;     // bytes: 144, conflict-free ldmatrix
+constexpr int X_BYTES = X_ROWS * STRIDE;
+constexpr int G_BYTES = BKP * BN * 2;
+constexpr int STAGE = X_BYTES + G_BYTES;
+constexpr int S = 4;                    // chunks in flight
+constexpr int SMEM = S * STAGE;
+static_assert(X_BYTES % 1024 == 0 && STAGE % 1024 == 0, "swizzle atoms");
+}  // namespace dwk
+
+// part (splits, 9, Cin, Cout) f32 from x (M, Cin) and gy (M, Cout); block
+// (Cin tile, Cout tile, split), Cout tiles fastest. Warpgroup dy owns the
+// taps (dy, 0..2), its warp w the Cin rows 16w..16w+15 of the tile.
+__global__ void __launch_bounds__(dwk::NTW, 1) rconv_bwd_dw(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gy,
+    float* __restrict__ part, Geo g, int cin, int cout, int ntiles, int mtiles,
+    int span) {
+  using namespace dwk;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int dy = warp >> 2, w4 = warp & 3;
+  int bid = blockIdx.x;
+  const int nt = bid % ntiles;
+  bid /= ntiles;
+  const int mt = bid % mtiles, split = bid / mtiles;
+  const int ci0 = mt * BM, co0 = nt * BN;
+  const int H = g.H, W = g.W;
+  const long long KC = g.M / BKP;
+  const long long cb = (long long)split * span;
+  const long long ce = cb + span < KC ? cb + span : KC;
+  const int KT = cb < ce ? (int)(ce - cb) : 0;
+  const int SLAB = BKP + 2 * W;
+
+  // chunk kt into stage st: the x slab as padded rows (for the ldmatrix
+  // gather); gy's pixel rows of 64 Cout (128 bytes) in 1024-byte atoms of 8
+  // rows, 16-byte chunk c of row s at (c ^ s%8)*16 (for the descriptor)
+  auto issue = [&](int kt, int st) {
+    unsigned char* Xs = smem + st * STAGE;
+    unsigned char* Gs = Xs + X_BYTES;
+    const long long k0 = (cb + kt) * BKP;
+    for (int v = tid; v < SLAB * (BM / 8); v += NTW) {
+      const int s = v / (BM / 8), cv = v % (BM / 8);
+      const long long q = k0 - W + s;
+      const int c = ci0 + cv * 8;
+      const bool ok = q >= 0 && q < g.M && c < cin;
+      cp_async16(Xs + s * STRIDE + cv * 16, ok ? x + q * cin + c : x, ok);
+    }
+    for (int v = tid; v < BKP * (BN / 8); v += NTW) {
+      const int s = v / (BN / 8), cv = v % (BN / 8);
+      const int c = co0 + cv * 8;
+      const bool ok = c < cout;
+      cp_async16(Gs + (s >> 3) * 1024 + (s & 7) * 128 + ((cv ^ (s & 7)) << 4),
+                 ok ? gy + (k0 + s) * cout + c : gy, ok);
+    }
+  };
+
+  float acc[3][BN / 8][4];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+
+  // lane roles in ldmatrix.trans of A^T from [pixel][cin]: matrix q =
+  // lane>>3 (Cin half q&1, pixel half q>>1), row lane&7
+  const int q = lane >> 3, r8 = lane & 7;
+  const int a_col = (w4 * 16 + (q & 1) * 8) * 2;          // bytes
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < KT) issue(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<S - 2>();
+    fence_proxy_async();        // the landed gy tile, for wgmma
+    wgmma_wait<0>();            // chunk kt-1's products have read their stage
+    __syncthreads();            // chunk kt landed; chunk kt-1's stage is free
+    if (kt + S - 1 < KT) issue(kt + S - 1, (kt + S - 1) % S);
+    cp_async_commit();
+    const int st = kt % S;
+    const unsigned Xs = smem_u32(smem + st * STAGE);
+    const unsigned Gs = Xs + X_BYTES;
+    const long long k0 = (cb + kt) * BKP;
+#pragma unroll
+    for (int ks = 0; ks < BKP / 16; ++ks) {
+      // the previous products are done with the A registers (no A register
+      // is written while a product is in flight, or ptxas serializes every
+      // wgmma)
+      wgmma_wait<0>();
+      unsigned a[3][4];
+      const int kk = ks * 16 + (q >> 1) * 8 + r8;      // this lane's pixel
+      const long long p = k0 + kk;
+      const int i = (int)((p >> g.lw) & (H - 1)), j = kk & (W - 1);
+      const int rowoff = dy == 0 ? (i == 0 ? W : -W)
+                                 : dy == 2 ? (i == H - 1 ? -W : W) : 0;
+      const int left = j == 0 ? 1 : -1, right = j == W - 1 ? -1 : 1;
+      const unsigned base = Xs + (kk + W + rowoff) * STRIDE + a_col;
+      ldsm_x4_t(a[0], base + left * STRIDE);
+      ldsm_x4_t(a[1], base);
+      ldsm_x4_t(a[2], base + right * STRIDE);
+      wgmma_fence();
+      const uint64_t desc = mn_desc_sw128(Gs + ks * 2048, G_BYTES, 1024);
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        wgmma_n64(reinterpret_cast<float(&)[32]>(acc[t]), a[t], desc);
+      wgmma_commit();
+    }
+  }
+  cp_async_wait<0>();
+  wgmma_wait<0>();
+
+  const int gr = lane >> 2, gc = (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int nj = 0; nj < BN / 8; ++nj) {
+      const int ci = ci0 + w4 * 16 + gr;
+      const int co = co0 + nj * 8 + gc;
+      if (co >= cout) continue;
+      float* dst = part + (((long long)split * 9 + dy * 3 + t) * cin + ci) * cout + co;
+      if (ci < cin)
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[t][nj][0], acc[t][nj][1]);
+      if (ci + 8 < cin)
+        *reinterpret_cast<float2*>(dst + 8LL * cout) =
+            make_float2(acc[t][nj][2], acc[t][nj][3]);
+    }
+}
+
+// out[i] = sum over s < S of part[s*n + i], in a fixed order (G row groups
+// of a block, then the groups in order): no atomics, so it repeats.
+template <int G>
+__global__ void __launch_bounds__(32 * G) reduce_rows(
+    const float* __restrict__ part, float* __restrict__ out, int S, long long n) {
+  __shared__ float sh[G][33];
+  const long long i = (long long)blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (i < n)
+    for (int k = threadIdx.y; k < S; k += G) s += part[(long long)k * n + i];
+  sh[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < n) {
+    float tot = sh[0][threadIdx.x];
+#pragma unroll
+    for (int j = 1; j < G; ++j) tot += sh[j][threadIdx.x];
+    out[i] = tot;
+  }
+}
+
+int log2i(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+Geo make_geo(int N, int H, int W) {
+  Geo g;
+  g.H = H;
+  g.W = W;
+  g.lw = log2i(W);
+  g.M = (long long)N * H * W;
+  return g;
+}
+
+template <int BN>
+cudaError_t launch_dx(const void* gy, const void* w9t, void* dx, const Geo& g,
+                      int cin, int cout, cudaStream_t st) {
+  auto kern = rconv_bwd_dx<BN>;
+  const int smem = dxk::Cfg<BN>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int ntiles = (cin + BN - 1) / BN;
+  const long long blocks = ntiles * ((g.M + dxk::BM - 1) / dxk::BM);
+  kern<<<(unsigned)blocks, NT, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(gy), static_cast<const __nv_bfloat16*>(w9t),
+      static_cast<__nv_bfloat16*>(dx), g, cin, cout, ntiles);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dx (N,H,W,Cin) bf16 from gy (N,H,W,Cout) and the transposed taps w9t
+// (9,Cout,Cin)
+int rconv_bwd_dx_launch(const void* gy, const void* w9t, void* dx, int N, int H,
+                        int W, int cin, int cout, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geo g = make_geo(N, H, W);
+  if (cin <= 64) return (int)launch_dx<64>(gy, w9t, dx, g, cin, cout, st);
+  return (int)launch_dx<128>(gy, w9t, dx, g, cin, cout, st);
+}
+
+// dW's K splits: about two waves of one block an SM, >= 4 chunks each
+int rconv_bwd_dw_splits(int N, int H, int W, int cin, int cout) {
+  const long long tiles = (long long)((cin + dwk::BM - 1) / dwk::BM)
+      * ((cout + dwk::BN - 1) / dwk::BN);
+  const long long chunks = (long long)N * H * W / dwk::BKP;
+  long long s = (2 * SMS + tiles / 2) / tiles;
+  if (s > chunks / 4) s = chunks / 4;
+  if (s > 512) s = 512;
+  return s < 1 ? 1 : (int)s;
+}
+
+// dw (9,Cin,Cout) f32 from x (N,H,W,Cin) and gy (N,H,W,Cout), both bf16;
+// part is (splits, 9, Cin, Cout) f32 scratch, splits from rconv_bwd_dw_splits
+int rconv_bwd_dw_launch(const void* x, const void* gy, void* part, void* dw_out,
+                        int N, int H, int W, int cin, int cout, int splits,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geo g = make_geo(N, H, W);
+  cudaError_t e = cudaFuncSetAttribute(
+      rconv_bwd_dw, cudaFuncAttributeMaxDynamicSharedMemorySize, dwk::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int ntiles = (cout + dwk::BN - 1) / dwk::BN;
+  const int mtiles = (cin + dwk::BM - 1) / dwk::BM;
+  const long long chunks = g.M / dwk::BKP;
+  const int span = (int)((chunks + splits - 1) / splits);
+  rconv_bwd_dw<<<(unsigned)((long long)ntiles * mtiles * splits), dwk::NTW,
+                 dwk::SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gy),
+      static_cast<float*>(part), g, cin, cout, ntiles, mtiles, span);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long n = 9LL * cin * cout;
+  reduce_rows<8><<<(unsigned)((n + 31) / 32), dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dw_out), splits, n);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -39,8 +39,10 @@ Each wrapper (``reflect_conv_fwd``, ``reflect_conv_fwd_stats``,
 ``reflect_conv_dx_bnin``, ``reflect_conv_dw_bnin``) takes the plain PyTorch
 version
 (``F.pad(mode="reflect")`` + ``conv2d`` in the input's dtype, its f32 sums,
-and autograd of the same) for a tensor on the CPU, and launches the
-hand-written Hopper kernel ``csrc/rconv.cu`` for a CUDA tensor, or raises.
+and autograd of the same) for a tensor on the CPU, and launches a
+hand-written Hopper kernel for a CUDA tensor, or raises: ``csrc/rconv.cu``
+for #4–#8 and for f32 dx and dW, ``csrc/rconv_bwd.cu`` (one landed slab of
+whole image rows feeding all nine taps) for bf16 dx (#9) and dW (#10).
 Each counts its kernel launches in ``.launches``.
 
 Bound on the card at the flagship's routed shape (layer4 interior, 3136
@@ -145,6 +147,21 @@ def _lib():
         lib.rconv_dx_bnin_launch.restype = i
         lib.rconv_dw_bnin_launch.argtypes = [p] * 5 + [i] * 7 + [p]
         lib.rconv_dw_bnin_launch.restype = i
+    return lib
+
+
+def _bwd_lib():
+    from videowalk_tpu_torch.ops import _build
+
+    lib = _build.load("rconv_bwd")
+    if lib.rconv_bwd_dx_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rconv_bwd_dx_launch.argtypes = [p] * 3 + [i] * 5 + [p]
+        lib.rconv_bwd_dx_launch.restype = i
+        lib.rconv_bwd_dw_splits.argtypes = [i] * 5
+        lib.rconv_bwd_dw_splits.restype = i
+        lib.rconv_bwd_dw_launch.argtypes = [p] * 4 + [i] * 6 + [p]
+        lib.rconv_bwd_dw_launch.restype = i
     return lib
 
 
@@ -302,16 +319,20 @@ def _dx(name: str, gy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{name}: gy has {cout} channels, w {w.shape[0]}")
     if ab is not None:
         ab = _pack_ab(name, *ab, x)
-    lib = _lib()
     dt = _DTYPES[gy.dtype]
     w9t = w.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
     dx = _nhwc_empty(N, cin, H, W, gy)
     with torch.cuda.device(gy.device):
-        if ab is None:
-            err = lib.rconv_dx_launch(gy.data_ptr(), w9t.data_ptr(),
-                                      dx.data_ptr(), dt, N, H, W, cin, cout,
-                                      _stream(gy))
+        if ab is None and gy.dtype == torch.bfloat16:
+            err = _bwd_lib().rconv_bwd_dx_launch(
+                gy.data_ptr(), w9t.data_ptr(), dx.data_ptr(), N, H, W, cin,
+                cout, _stream(gy))
+        elif ab is None:
+            err = _lib().rconv_dx_launch(gy.data_ptr(), w9t.data_ptr(),
+                                         dx.data_ptr(), dt, N, H, W, cin,
+                                         cout, _stream(gy))
         else:
+            lib = _lib()
             f32 = dict(dtype=torch.float32, device=gy.device)
             mtiles = -(-N * H * W // int(lib.rconv_conv_bm(dt)))
             part = torch.empty((mtiles, 2, cin), **f32)
@@ -365,14 +386,20 @@ def _dw(name: str, x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
     _check_act(name, "gy", gy, x.dtype, x.device, (N, cout, H, W))
     if ab is not None:
         ab = _pack_ab(name, *ab, x)
-    lib = _lib()
     dt = _DTYPES[x.dtype]
-    splits = int(lib.rconv_dw_splits(dt, N, H, W, cin, cout))
+    slab = ab is None and x.dtype == torch.bfloat16     # rconv_bwd.cu's #10
+    lib = _bwd_lib() if slab else _lib()
+    splits = int(lib.rconv_bwd_dw_splits(N, H, W, cin, cout) if slab
+                 else lib.rconv_dw_splits(dt, N, H, W, cin, cout))
     f32 = dict(dtype=torch.float32, device=x.device)
     part = torch.empty((splits, 9, cin, cout), **f32)
     dw9 = torch.empty((9, cin, cout), **f32)
     with torch.cuda.device(x.device):
-        if ab is None:
+        if slab:
+            err = lib.rconv_bwd_dw_launch(
+                x.data_ptr(), gy.data_ptr(), part.data_ptr(), dw9.data_ptr(),
+                N, H, W, cin, cout, splits, _stream(x))
+        elif ab is None:
             err = lib.rconv_dw_launch(x.data_ptr(), gy.data_ptr(),
                                       part.data_ptr(), dw9.data_ptr(), dt, N,
                                       H, W, cin, cout, splits, _stream(x))

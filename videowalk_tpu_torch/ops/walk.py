@@ -24,8 +24,10 @@ for a tensor on the CPU, and launches the hand-written Hopper kernel
 
 Unlike the TPU kernel there is no 128-lane padding of N and C and no
 (8, 128) loss tile: losses and accuracies come out as ``(B, S-1)`` f32.
-The gate (``walk_supported``) is every shape the JAX model's fused gate
-takes: 3 <= T <= 10, N <= 128, with C <= 512.
+``walk_supported`` is every shape the JAX model's fused gate takes: 3 <= T
+<= 10, N <= 128, with C <= 512; ``fused_walk="auto"`` takes the kernels
+only inside the part of it where they beat the core walk on the card
+(``fused_walk_wins``).
 
 Bound on the card, at the flagship shape (B=8, T=8, N=49, C=128): the
 forward reads q (1.6 MB) and the masks (0.27 MB) and writes four
@@ -52,6 +54,24 @@ MAX_T, MAX_N, MAX_C = 10, 128, 512
 def walk_supported(T: int, N: int, C: int) -> bool:
     """Shapes the CUDA kernels take (and the model's fused gate admits)."""
     return 3 <= T <= MAX_T and 1 <= N <= MAX_N and 1 <= C <= MAX_C
+
+
+# Where the kernels beat ``core/walk.py``'s math on the card, forward +
+# backward at batch 8 over T in {4, 8, 10}, N in {48, 49, 64, 96, 128}, C in
+# {128, 256, 512} (``chip_smoke.py --phases walk``, PERF.md §6): the largest
+# swept N that won at every swept T, for C up to each bound. The core walk
+# is launch-bound, so its time moves with the host: at the region's corner
+# (T=10 with N=64, C=128 or N=49, C=512) the two are within 6% and their
+# order flips between runs. Both main shapes lie well inside, (T, N, C) =
+# (8, 49, 128) and (4, 48, 128).
+FUSED_WALK_MAX_N = ((128, 64), (512, 49))
+
+
+def fused_walk_wins(T: int, N: int, C: int) -> bool:
+    """Shapes where ``fused_walk="auto"`` takes the kernels: supported and
+    inside the card's measured region ``FUSED_WALK_MAX_N``."""
+    return walk_supported(T, N, C) and any(
+        C <= c and N <= n for c, n in FUSED_WALK_MAX_N)
 
 
 def _zsm_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

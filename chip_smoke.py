@@ -29,19 +29,21 @@ card.
    ``core/walk.py``'s walk over T 4/8/10, N 48-128, C 128-512 at batch 8:
    the sweep that bounds ``fused_walk="auto"`` (``ops/walk.py``).
 6. Holds the reflect-conv kernels (``ops/csrc/rconv.cu``: forward #4,
-   forward with BN moments #5, and the BN-input chain's forward #6, dx with
-   da/db #7 and dW #8, which apply ``relu(a*x + b)`` to their operand;
-   ``ops/csrc/rconv_bwd.cu``: dx #9 and dW #10) against their plain PyTorch
-   version on bf16 inputs at the step's shapes (the layer4 interior, 3136
-   images of 8x8 with 512 channels; layer1's 16x16x64; 8x8 128->256; a
-   32x32x512 map; the superpixel step's 24 maps of 32x32x512 and its patch
-   arm's 1176 of 8x8x512); checks that two dW runs are bitwise equal and
-   that a planted dx fault (the row-1 fold leg of the dy=0 taps left out)
-   fails; and times kernel, the previous design of #9/#10 (``rconv.cu``'s
-   engine, through its C entries), plain version and the library call
-   (``F.pad`` + cuDNN ``conv2d``; for dx and dW each alone, autograd of it
-   for that input; for the chain after an elementwise affine + ReLU) with
-   CUDA events.
+   forward with BN moments #5, and the BN-input chain's forward #6, which
+   applies ``relu(a*x + b)`` to its operand; ``ops/csrc/rconv_bwd.cu``: dx
+   #9 and dW #10, and the chain's dx with da/db #7 and dW #8) against their
+   plain PyTorch version on bf16 inputs at the step's shapes (the layer4
+   interior, 3136 images of 8x8 with 512 channels; layer1's 16x16x64; 8x8
+   128->256; a 32x32x512 map; the superpixel step's 24 maps of 32x32x512
+   and its patch arm's 1176 of 8x8x512); checks that two runs of dW, of #7
+   and of #8 are bitwise equal and that planted faults fail (dx without the
+   row-1 fold leg of the dy=0 taps; #7's dx without its gate on one row,
+   its da/db without a row group of every tile; #8's dW without the ReLU on
+   one channel vector); and times kernel, the previous design of #7/#8
+   (``rconv.cu``'s engine, through its C entries), plain version and the
+   library call (``F.pad`` + cuDNN ``conv2d``; for each backward kernel
+   alone, autograd of it for that kernel's inputs; for the chain after an
+   elementwise affine + ReLU) with CUDA events.
 7. Drives the training slice: ``bench.py``'s flagship step (8-frame clips,
    batch 8, a 7x7 grid of 64 px patches, the ``scratch`` ResNet-18 with a
    bf16 trunk in BN-train mode, edge dropout 0.1, T 0.05, Adam lr 3e-4)
@@ -535,26 +537,32 @@ def moment_err(s1, s2, y) -> float:
                                (s2 - m2).abs() / m2).max())
 
 
-def prev_dx(gy, w):
-    """dx by the previous design (``rconv.cu``'s ``rconv_gemm<DX>``) through
-    its C entry: a same-call yardstick for #9, called by no route and
-    counted by no wrapper."""
+def prev_dx_bnin(gy, w, x, ab):
+    """#7 by the previous design (``rconv.cu``'s ``rconv_gemm<DX_BNIN>`` +
+    ``reduce_rows``) through its C entry: a same-call yardstick, called by
+    no route and counted by no wrapper. ``ab``: the (2, Cin) f32 [a; b].
+    ``(dx, da, db)``."""
     N, cout, H, W = gy.shape
     cin = w.shape[1]
+    lib, dt = rc._lib(), rc._DTYPES[gy.dtype]
     w9t = w.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
     dx = torch.empty((N, cin, H, W), dtype=gy.dtype, device=gy.device,
                      memory_format=torch.channels_last)
-    err = rc._lib().rconv_dx_launch(
-        gy.data_ptr(), w9t.data_ptr(), dx.data_ptr(), rc._DTYPES[gy.dtype],
-        N, H, W, cin, cout, torch.cuda.current_stream().cuda_stream)
+    part = torch.empty((-(-N * H * W // int(lib.rconv_conv_bm(dt))), 2, cin),
+                       dtype=torch.float32, device=gy.device)
+    dab = torch.empty((2, cin), dtype=torch.float32, device=gy.device)
+    err = lib.rconv_dx_bnin_launch(
+        gy.data_ptr(), w9t.data_ptr(), x.data_ptr(), ab.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), dab.data_ptr(), dt, N, H, W, cin, cout,
+        torch.cuda.current_stream().cuda_stream)
     if err:
-        fail(f"previous dx launch failed: cudaError {err}")
-    return dx
+        fail(f"previous #7 launch failed: cudaError {err}")
+    return dx, dab[0], dab[1]
 
 
-def prev_dw(x, gy, w):
-    """dW by the previous design (``rconv_gemm<DW>`` + ``reduce_rows``), as
-    ``prev_dx``: ``(Cout, Cin, 3, 3)`` in w's dtype."""
+def prev_dw_bnin(x, ab, gy, w):
+    """#8 by the previous design (``rconv_gemm<DW_BNIN>`` + ``reduce_rows``),
+    as ``prev_dx_bnin``: ``(Cout, Cin, 3, 3)`` in w's dtype."""
     N, cin, H, W = x.shape
     cout = w.shape[0]
     lib, dt = rc._lib(), rc._DTYPES[x.dtype]
@@ -562,11 +570,12 @@ def prev_dw(x, gy, w):
     part = torch.empty((splits, 9, cin, cout), dtype=torch.float32,
                        device=x.device)
     dw9 = torch.empty((9, cin, cout), dtype=torch.float32, device=x.device)
-    err = lib.rconv_dw_launch(x.data_ptr(), gy.data_ptr(), part.data_ptr(),
-                              dw9.data_ptr(), dt, N, H, W, cin, cout, splits,
-                              torch.cuda.current_stream().cuda_stream)
+    err = lib.rconv_dw_bnin_launch(
+        x.data_ptr(), ab.data_ptr(), gy.data_ptr(), part.data_ptr(),
+        dw9.data_ptr(), dt, N, H, W, cin, cout, splits,
+        torch.cuda.current_stream().cuda_stream)
     if err:
-        fail(f"previous dW launch failed: cudaError {err}")
+        fail(f"previous #8 launch failed: cudaError {err}")
     return dw9.to(w.dtype).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
 
 
@@ -592,8 +601,7 @@ def rconv_kernels_vs_plain() -> dict:
     Two planted faults (s1 zeroed; one forward tile of rows left out of
     both sums) must fail that check, and dx without the row-1 fold leg of
     the dy=0 taps must fail the dx check; two dW runs must be bitwise
-    equal. ``ms["prev_dx"]``, ``ms["prev_dw"]``: the previous design of #9
-    and #10 on the same inputs. ``plain_ms`` is the plain version as the
+    equal. ``plain_ms`` is the plain version as the
     wrapper would call it (forward: ``F.pad`` + ``conv2d``, + its f32 sums
     for the moments; backward: autograd of the same, dx and dW together);
     ``library_ms`` is the PyTorch calls of the same function: ``F.pad`` +
@@ -619,7 +627,6 @@ def rconv_kernels_vs_plain() -> dict:
         dw_again = rc.reflect_conv_dw(x, gy, w)
         y_ref = rc.reflect_conv_plain(x, w)
         dx_ref, dw_ref = rc.reflect_conv_plain_bwd(x, w, gy)
-        prev = dict(dx=prev_dx(gy, w), dw=prev_dw(x, gy, w))
         ys, s1, s2 = got["fwd_stats"]
         tile = ys.permute(0, 2, 3, 1).reshape(-1, cout)[
             :rc._lib().rconv_conv_bm(1)].float()
@@ -637,7 +644,6 @@ def rconv_kernels_vs_plain() -> dict:
                    dw_repeat_equal=bool(torch.equal(got["dw"], dw_again)),
                    planted_dx=rel(got["dx"].float() - fold_leg_of_row1(x, w, gy),
                                   dx_ref),
-                   prev_dx=rel(prev["dx"], dx_ref), prev_dw=rel(prev["dw"], dw_ref),
                    moments_own=moment_err(s1, s2, ys),
                    moments_ref=moment_err(s1, s2, y_ref),
                    planted={k: dict(own=moment_err(*f, ys),
@@ -659,8 +665,7 @@ def rconv_kernels_vs_plain() -> dict:
         print(f"reflect-conv kernels vs plain at {tag} (N,Cin,Cout,H,W)="
               f"{(N, cin, cout, H, W)} bf16: |d|/max y {err['fwd']:.2e}, dx "
               f"{err['dx']:.2e}, dW {err['dw']:.2e} (two dW runs bitwise equal: "
-              f"{err['dw_repeat_equal']}; previous design dx {err['prev_dx']:.2e}, "
-              f"dW {err['prev_dw']:.2e}); dx without the row-1 fold leg of the "
+              f"{err['dw_repeat_equal']}); dx without the row-1 fold leg of the "
               f"dy=0 taps (planted fault) {err['planted_dx']:.2e}; moments per channel "
               f"{err['moments_own']:.2e} of the kernel's y, "
               f"{err['moments_ref']:.2e} of the plain y; planted faults "
@@ -677,7 +682,7 @@ def rconv_kernels_vs_plain() -> dict:
         if err["planted_dx"] <= 2e-2:
             fail(f"the dx check passes a planted fault at {tag}: "
                  f"{err['planted_dx']:.2e}")
-        del got, y_ref, dx_ref, dw_ref, tile, faults, prev, dw_again
+        del got, y_ref, dx_ref, dw_ref, tile, faults, dw_again
         xx = x.detach().requires_grad_()
         ww = w.detach().requires_grad_()
         yy = torch.nn.functional.conv2d(
@@ -687,9 +692,7 @@ def rconv_kernels_vs_plain() -> dict:
             fwd=cuda_ms(lambda: rc.reflect_conv_fwd(x, w), reps),
             fwd_stats=cuda_ms(lambda: rc.reflect_conv_fwd_stats(x, w), reps),
             dx=cuda_ms(lambda: rc.reflect_conv_dx(gy, w, x), reps),
-            dw=cuda_ms(lambda: rc.reflect_conv_dw(x, gy, w), reps),
-            prev_dx=cuda_ms(lambda: prev_dx(gy, w), reps),
-            prev_dw=cuda_ms(lambda: prev_dw(x, gy, w), reps))
+            dw=cuda_ms(lambda: rc.reflect_conv_dw(x, gy, w), reps))
         plain = dict(
             fwd=cuda_ms(lambda: rc.reflect_conv_plain(x, w), reps),
             fwd_stats=cuda_ms(lambda: rc.moments_plain(
@@ -715,9 +718,7 @@ def rconv_kernels_vs_plain() -> dict:
                         bounds=bounds)
         for name in ("fwd", "fwd_stats", "dx", "dw"):
             p = plain.get(name, plain["bwd"])
-            was = (f", previous design {times['prev_' + name]:8.3f}"
-                   if name in ("dx", "dw") else "")
-            print(f"  {name:9s} {times[name]:8.3f} ms{was} (plain {p:8.3f}, "
+            print(f"  {name:9s} {times[name]:8.3f} ms (plain {p:8.3f}, "
                   f"library {library[name]:8.3f}, bound "
                   f"{bounds[name]['bound_ms']:.3f} by "
                   f"{bounds[name]['bound_by']})", flush=True)
@@ -741,21 +742,35 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
     ``x*a + b > 0`` with the product rounded first: an element whose
     pre-activation lies within one f32 rounding of 0 may be gated
     differently and then moves one dx entry by a whole dxn entry; the share
-    of such elements is printed. ``plain_ms``: the plain version as the
-    wrappers call it (the f32 affine + ReLU pass, ``F.pad`` + ``conv2d``
-    and the sums; backward: the f32 conv's input gradient with the gate
-    and sums, and autograd's dW of the rebuilt xn). ``library_ms``: the
-    PyTorch calls of the same function, the elementwise affine + ReLU,
-    ``F.pad`` + cuDNN ``conv2d`` and the two sums, and for #7 + #8 their
-    autograd backward (x, a, b, w) on a kept graph."""
+    of such elements is printed. Two runs of #7 (dx, da, db) and of #8 must
+    be bitwise equal, and three faults planted in the kernels' own outputs
+    must fail the checks: dx with the gate dropped on image 0's row 0; da
+    and db without the last 8 rows of every 128-pixel tile (a row group of
+    the block's sums lost; one whole tile left out is also printed, but at
+    the flagship it is 1/1568 of a channel's pixels and may pass); dW with
+    the ReLU left out of channels 0-7 (the rebuild of one 16-byte vector
+    of x). ``ms["prev_dx_bnin"]``, ``ms["prev_dw_bnin"]``: the previous
+    design of #7 and #8 (``rconv.cu``) on the same inputs. ``plain_ms``:
+    the plain version as the wrappers call it (the f32 affine + ReLU pass,
+    ``F.pad`` + ``conv2d`` and the sums; backward: the f32 conv's input
+    gradient with the gate and sums, and autograd's dW of the rebuilt xn).
+    ``library_ms``: the PyTorch calls of the same function on a kept graph
+    of the elementwise affine + ReLU, ``F.pad`` + cuDNN ``conv2d`` and the
+    two sums: that forward; for #7 its autograd backward for (x, a, b)
+    alone (cuDNN dgrad, the pad's fold, the ReLU's and affine's backward),
+    for #8 for w alone (cuDNN wgrad on the padded xn); ``bnin_bwd`` both."""
     F = torch.nn.functional
     cin = x.shape[1]
     g = torch.Generator(device="cuda").manual_seed(cin)
     a = torch.randn((cin,), generator=g, device="cuda").abs() + 0.5
     b = torch.randn((cin,), generator=g, device="cuda") * 0.5
+    ab = torch.stack((a, b))
     y, s1, s2 = rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
     dx, da, db = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
     dw = rc.reflect_conv_dw_bnin(x, a, b, gy, w)
+    again = (*rc.reflect_conv_dx_bnin(gy, w, x, a, b),
+             rc.reflect_conv_dw_bnin(x, a, b, gy, w))
+    prev = (*prev_dx_bnin(gy, w, x, ab), prev_dw_bnin(x, ab, gy, w))
     xn, gate = rc.bnin_plain(x, a, b)
     y_ref = rc.reflect_conv_plain(xn, w)
     dx_ref, da_ref, db_ref = rc.reflect_conv_dx_bnin_plain(gy, w, x, a, b)
@@ -770,7 +785,31 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
     dxg = torch.where(gate, dx_ref.float() / av, torch.zeros_like(xf))
     mass_a = (dxg * xf).abs().sum((0, 2, 3))
     mass_b = dxg.abs().sum((0, 2, 3))
-    del dxg, xf, fused_gate
+    del dxg, fused_gate
+
+    def dab_err(da_, db_):
+        return float(torch.maximum(
+            (da_ - da_ref).abs() / mass_a.clamp_min(1e-30),
+            (db_ - db_ref).abs() / mass_b.clamp_min(1e-30)).max())
+
+    # planted faults, from the kernels' own outputs
+    N, _, H, W = x.shape
+    dxn0 = rc.reflect_conv_plain_bwd(xf[:1], w.float(), gy[:1].float())[0]
+    dx_fault = dx.float().clone()
+    dx_fault[:1, :, :1] += torch.where(gate[:1, :, :1], 0.0,
+                                       dxn0[:, :, :1] * av)
+    dxg_k = dx.float() / av                 # the kernel's dxn*g, bf16-rounded
+    pix = torch.arange(N * H * W, device="cuda").reshape(N, 1, H, W) % 128
+
+    def left_out(mask):
+        return (da - (dxg_k * xf * mask).sum((0, 2, 3)),
+                db - (dxg_k * mask).sum((0, 2, 3)))
+
+    xneg = torch.zeros_like(x)
+    xneg[:, :8] = torch.clamp_max(xf[:, :8] * av[:, :8] + b[None, :8, None, None],
+                                  0.0).to(x.dtype)
+    dw_fault = dw.float() + rc.reflect_conv_plain_bwd(xneg, w, gy)[1].float()
+    del xneg, dxn0
 
     def rel(p, q):
         return float((p.float() - q.float()).abs().max() / q.float().abs().max())
@@ -781,7 +820,18 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
                bnin_moments_ref=moment_err(s1, s2, y_ref),
                da=float(((da - da_ref).abs() / mass_a.clamp_min(1e-30)).max()),
                db=float(((db - db_ref).abs() / mass_b.clamp_min(1e-30)).max()),
-               gate_share=float(gate.float().mean()), gate_flips=flips)
+               gate_share=float(gate.float().mean()), gate_flips=flips,
+               bnin_repeat_equal=all(torch.equal(p, q) for p, q in
+                                     zip((dx, da, db, dw), again)),
+               planted_dx_gate=rel(dx_fault, dx_ref),
+               planted_dab_rows=dab_err(*left_out(pix >= 120)),
+               planted_dab_tile=dab_err(*left_out(torch.arange(
+                   N * H * W, device="cuda").reshape(N, 1, H, W) < 128)),
+               planted_dw_relu=rel(dw_fault, dw_ref),
+               prev_dx_bnin=rel(prev[0], dx_ref),
+               prev_dab=dab_err(prev[1], prev[2]),
+               prev_dw_bnin=rel(prev[3], dw_ref))
+    del dx_fault, dxg_k, pix, dw_fault, xf, again, prev
     m1, m2 = rc.moments_plain(y_ref)
     abs_err = dict(
         fwd_bnin_stats=float(max((y.float() - y_ref.float()).abs().max(),
@@ -794,7 +844,7 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
           and err["bnin_moments_own"] <= MOM_TOL["own"]
           and err["bnin_moments_ref"] <= MOM_TOL["ref"]
           and err["da"] <= DAB_TOL and err["db"] <= DAB_TOL
-          and 0.2 < err["gate_share"] < 0.8
+          and 0.2 < err["gate_share"] < 0.8 and err["bnin_repeat_equal"]
           and all(torch.isfinite(t.float()).all() for t in
                   (y, s1, s2, dx, da, db, dw)))
     print(f"BN-input kernels vs plain at {tag}: share of xn > 0 "
@@ -805,10 +855,20 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
           f"{err['bnin_moments_ref']:.2e} of the plain y; da {err['da']:.2e}, "
           f"db {err['db']:.2e} of each channel's sum |dxn*g*x|, sum |dxn*g| "
           f"(tolerance: y, dW 1e-2, dx 2e-2; moments {MOM_TOL}; da, db "
-          f"{DAB_TOL})", flush=True)
+          f"{DAB_TOL}); two runs of #7 and #8 bitwise equal: "
+          f"{err['bnin_repeat_equal']}; planted faults: dx without the gate "
+          f"on image 0's row 0 {err['planted_dx_gate']:.2e}, da/db without "
+          f"the last 8 rows of every tile {err['planted_dab_rows']:.2e} "
+          f"(without tile 0 alone {err['planted_dab_tile']:.2e}), dW without "
+          f"the ReLU on channels 0-7 {err['planted_dw_relu']:.2e}; previous "
+          f"design dx {err['prev_dx_bnin']:.2e}, da/db {err['prev_dab']:.2e}, "
+          f"dW {err['prev_dw_bnin']:.2e}", flush=True)
     if not ok:
         fail(f"BN-input kernels disagree with their plain version at {tag}: "
              f"{err}")
+    if (err["planted_dx_gate"] <= 2e-2 or err["planted_dab_rows"] <= DAB_TOL
+            or err["planted_dw_relu"] <= 1e-2):
+        fail(f"the BN-input checks pass a planted fault at {tag}: {err}")
     del y, dx, dw, xn, gate, y_ref, dx_ref, dw_ref
 
     def lib_fwd(xx, aa, bb, ww):
@@ -823,7 +883,9 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
         fwd_bnin_stats=cuda_ms(
             lambda: rc.reflect_conv_fwd_bnin_stats(x, a, b, w), reps),
         dx_bnin=cuda_ms(lambda: rc.reflect_conv_dx_bnin(gy, w, x, a, b), reps),
-        dw_bnin=cuda_ms(lambda: rc.reflect_conv_dw_bnin(x, a, b, gy, w), reps))
+        dw_bnin=cuda_ms(lambda: rc.reflect_conv_dw_bnin(x, a, b, gy, w), reps),
+        prev_dx_bnin=cuda_ms(lambda: prev_dx_bnin(gy, w, x, ab), reps),
+        prev_dw_bnin=cuda_ms(lambda: prev_dw_bnin(x, ab, gy, w), reps))
     plain = dict(
         fwd_bnin_stats=cuda_ms(lambda: rc.moments_plain(rc.reflect_conv_plain(
             rc.bnin_plain(x, a, b)[0], w)), reps),
@@ -834,14 +896,22 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
     library = dict(
         fwd_bnin_stats=cuda_ms(lambda: lib_fwd(x, a, b, w), reps),
         bnin_bwd=cuda_ms(lambda: torch.autograd.grad(
-            yy, leaves, gy, retain_graph=True), reps))
-    library["dx_bnin"] = library["dw_bnin"] = library["bnin_bwd"]
+            yy, leaves, gy, retain_graph=True), reps),
+        dx_bnin=cuda_ms(lambda: torch.autograd.grad(
+            yy, leaves[:3], gy, retain_graph=True), reps),
+        dw_bnin=cuda_ms(lambda: torch.autograd.grad(
+            yy, leaves[3:], gy, retain_graph=True), reps))
+    del yy, leaves
     bounds = rconv_bounds(x.shape[0], cin, w.shape[0], *x.shape[2:])
     for name in ("fwd_bnin_stats", "dx_bnin", "dw_bnin"):
-        print(f"  {name:14s} {times[name]:8.3f} ms (plain {plain[name]:8.3f}, "
-              f"library {library[name]:8.3f}, bound "
+        was = (f", previous design {times['prev_' + name]:8.3f}"
+               if name != "fwd_bnin_stats" else "")
+        print(f"  {name:14s} {times[name]:8.3f} ms{was} (plain "
+              f"{plain[name]:8.3f}, library {library[name]:8.3f}, bound "
               f"{bounds[name]['bound_ms']:.3f} by {bounds[name]['bound_by']})",
               flush=True)
+    print(f"  library dx + dW of the chain together {library['bnin_bwd']:8.3f}"
+          f" ms", flush=True)
     return dict(err=err, abs_err=abs_err, ms=times, plain_ms=plain,
                 library_ms=library)
 
@@ -1567,7 +1637,7 @@ def main() -> int:
         kernels.append(dict(
             name=f"reflect_conv_{name}", route="cuda",
             source="videowalk_tpu_torch/ops/csrc/"
-                   + ("rconv_bwd.cu" if name in ("dx", "dw") else "rconv.cu"),
+                   + ("rconv.cu" if name.startswith("fwd") else "rconv_bwd.cu"),
             replaces=f"videowalk_tpu/ops/rconv_kernel.py:{line}",
             launches=train[arm]["launches"][name],
             max_abs_err=rflag["abs_err"][name], ms=rflag["ms"][name],

@@ -442,6 +442,43 @@ def test_reflect_conv3x3_bnin_stats_bf16_matches_jax():
     assert all(torch.isfinite(t.float()).all() for t in (dx, da, db, dw))
 
 
+@pytest.mark.parametrize("N,H,W,cin,cout", [(2, 8, 8, 16, 32),
+                                            (1, 32, 8, 16, 8)])
+def test_bnin_bf16_plain_backward_matches_jax(N, H, W, cin, cout):
+    """The chain's bf16 backward as the card holds its kernels #7 and #8
+    (the wrappers on CPU tensors: the plain versions) against ``jax.vjp``
+    of the JAX op in bf16 (Pallas in interpret mode) at the same gy, with
+    zero moment cotangents. dx within 2e-2 and dW within 1e-2 of the
+    largest entry: both sides sum dxn (and dW) in f32 in another order and
+    round once to bf16 (one bf16 ulp, ~4e-3). da and db per channel within
+    2e-4 of that channel's Σ|dxn·g·x| and Σ|dxn·g| (``DAB_TOL`` of
+    ``chip_smoke.py``): both sum the same f32 products in another order."""
+    d = _bnin_inputs(N, H, W, cin, cout, 80)
+    bf = jnp.bfloat16
+    (_, s1_j, s2_j), vjp = jax.vjp(
+        jrk.reflect_conv3x3_bnin_stats, jnp.asarray(d["x"], bf),
+        jnp.asarray(d["a"]), jnp.asarray(d["b"]), jnp.asarray(d["w"], bf))
+    dx_j, da_j, db_j, dw_j = vjp((jnp.asarray(d["gy"], bf),
+                                  jnp.zeros_like(s1_j), jnp.zeros_like(s2_j)))
+
+    x, w = _nchw(d["x"]).bfloat16(), _oihw(d["w"]).bfloat16()
+    gy = _nchw(d["gy"]).bfloat16()
+    a, b = torch.from_numpy(d["a"]), torch.from_numpy(d["b"])
+    dx, da, db = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
+    dw = rc.reflect_conv_dw_bnin(x, a, b, gy, w)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    assert da.dtype == db.dtype == torch.float32
+    _close(_nhwc(dx), np.asarray(dx_j, np.float32), 2e-2, "dx")
+    _close(dw.float().numpy().transpose(2, 3, 1, 0),
+           np.asarray(dw_j, np.float32), 1e-2, "dw")
+    dxg = (rc.reflect_conv_plain_bwd(x.float(), w.float(), gy.float())[0]
+           * rc.bnin_plain(x, a, b)[1])
+    mass_a = (dxg * x.float()).abs().sum((0, 2, 3)).numpy()
+    mass_b = dxg.abs().sum((0, 2, 3)).numpy()
+    assert np.all(np.abs(da.numpy() - np.asarray(da_j)) <= 2e-4 * mass_a)
+    assert np.all(np.abs(db.numpy() - np.asarray(db_j)) <= 2e-4 * mass_b)
+
+
 def _jax_blocks(monkeypatch, bn_fuse, specs, x, ct):
     """Stacked JAX BasicBlocks ``specs = [(filters, stride, projection)]``
     under ``VIDEOWALK_RCONV=on VIDEOWALK_BN_FUSE=bn_fuse`` in train mode:

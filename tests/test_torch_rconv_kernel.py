@@ -1,5 +1,6 @@
 """The reflect-conv kernels (``videowalk_tpu_torch/ops/rconv.py`` →
-``ops/csrc/rconv.cu``, and ``ops/csrc/rconv_bwd.cu`` for bf16 dx and dW): on
+``ops/csrc/rconv.cu``, and ``ops/csrc/rconv_bwd.cu`` for bf16 dx and dW of
+the plain conv and of the BN-input chain): on
 the card (``-m cuda``, skipped without one) each of forward (#4), forward
 with moments (#5), dx (#9), dW (#10) and the BN-input chain's forward (#6),
 dx with da/db (#7) and dW (#8) against the plain PyTorch version on the same
@@ -210,13 +211,15 @@ class _Spy:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,dx_entry,dw_entry", [
-    (torch.bfloat16, "rconv_bwd_dx_launch", "rconv_bwd_dw_launch"),
-    (torch.float32, "rconv_dx_launch", "rconv_dw_launch"),
+@pytest.mark.parametrize("dtype,entries", [
+    (torch.bfloat16, ("rconv_bwd_dx_launch", "rconv_bwd_dw_launch",
+                      "rconv_bwd_dx_bnin_launch", "rconv_bwd_dw_bnin_launch")),
+    (torch.float32, ("rconv_dx_launch", "rconv_dw_launch",
+                     "rconv_dx_bnin_launch", "rconv_dw_bnin_launch")),
 ])
-def test_backward_engine_by_dtype_on_card(dtype, dx_entry, dw_entry,
-                                          monkeypatch):
-    """bf16 dx and dW launch ``rconv_bwd.cu``'s kernels, f32 ones stay on
+def test_backward_engine_by_dtype_on_card(dtype, entries, monkeypatch):
+    """bf16 dx and dW of the plain conv (#9, #10) and of the BN-input chain
+    (#7, #8) launch ``rconv_bwd.cu``'s kernels, f32 ones stay on
     ``rconv.cu``'s engine; each wrapper counts one launch either way."""
     _need_card()
     log = []
@@ -224,13 +227,17 @@ def test_backward_engine_by_dtype_on_card(dtype, dx_entry, dw_entry,
     monkeypatch.setattr(rc, "_lib", lambda: _Spy(lib, log))
     monkeypatch.setattr(rc, "_bwd_lib", lambda: _Spy(bwd_lib, log))
     x, w, gy = _inputs(2, 64, 64, 8, 8, dtype, seed=5)
-    before = (rc.reflect_conv_dx.launches, rc.reflect_conv_dw.launches)
+    a, b = _affine(64, seed=6)
+    wrappers = (rc.reflect_conv_dx, rc.reflect_conv_dw,
+                rc.reflect_conv_dx_bnin, rc.reflect_conv_dw_bnin)
+    before = [f.launches for f in wrappers]
     rc.reflect_conv_dx(gy, w, x)
     rc.reflect_conv_dw(x, gy, w)
+    rc.reflect_conv_dx_bnin(gy, w, x, a, b)
+    rc.reflect_conv_dw_bnin(x, a, b, gy, w)
     torch.cuda.synchronize()
-    assert [n for n in log if n.endswith("_launch")] == [dx_entry, dw_entry]
-    assert (rc.reflect_conv_dx.launches - before[0],
-            rc.reflect_conv_dw.launches - before[1]) == (1, 1)
+    assert tuple(n for n in log if n.endswith("_launch")) == entries
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [1, 1, 1, 1]
 
 
 @pytest.mark.cuda
@@ -360,6 +367,23 @@ def test_bnin_kernels_match_plain_on_card(N, cin, cout, H, W, dtype):
     assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
     assert torch.equal(da, dab) and torch.equal(db, dbb)
     assert torch.equal(dw, rc.reflect_conv_dw_bnin(x, a, b, gy, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W", [(33, 8, 8), (6, 32, 32)])
+def test_bnin_backward_repeats_bitwise_on_card(N, H, W):
+    """bf16 #7 over many 128-pixel tiles and #8 over many K splits: two runs
+    of dx, da, db and dW are bitwise equal (fixed-order sums of the per-tile
+    and per-split partials, no float atomics)."""
+    _need_card()
+    x, w, gy = _inputs(N, 512, 512, H, W, torch.bfloat16, seed=22)
+    a, b = _affine(512, seed=23)
+    first = (*rc.reflect_conv_dx_bnin(gy, w, x, a, b),
+             rc.reflect_conv_dw_bnin(x, a, b, gy, w))
+    for _ in range(2):
+        again = (*rc.reflect_conv_dx_bnin(gy, w, x, a, b),
+                 rc.reflect_conv_dw_bnin(x, a, b, gy, w))
+        assert all(torch.equal(p, q) for p, q in zip(first, again))
 
 
 @pytest.mark.cuda

@@ -7,24 +7,22 @@
 //   #4  _fwd_call    :240 -> _fwd_kernel     :224   (rconv_gemm<.., FWD>)
 //   #5  _fwd_call_st :319 -> _fwd_kernel_st  :291   (rconv_gemm<.., FWD_STATS>
 //                                                     + reduce_rows)
-//   #9  _dx_call     :633 -> _dx_kernel      :607   (bf16: rconv_bwd.cu's
-//                                                     rconv_bwd_dx; f32:
-//                                                     rconv_gemm<.., DX>)
-//   #10 _dw_call     :682 -> _dw_kernel      :660   (bf16: rconv_bwd.cu's
-//                                                     rconv_bwd_dw; f32:
-//                                                     rconv_gemm<.., DW>
-//                                                     + reduce_rows)
 //   #6  _fwd_call_bnin_st :440 -> _fwd_kernel_bnin_st :401
 //                                   (rconv_gemm<.., FWD_BNIN_STATS> + reduce_rows)
+// and, for f32 operands only, the backward kernels whose bf16 versions are
+// rconv_bwd.cu's:
+//   #9  _dx_call     :633 -> _dx_kernel      :607   (rconv_gemm<float, DX>)
+//   #10 _dw_call     :682 -> _dw_kernel      :660   (rconv_gemm<float, DW>
+//                                                     + reduce_rows)
 //   #7  _dx_call_bnin :514 -> _dx_kernel_bnin :474
-//                                   (rconv_gemm<.., DX_BNIN> + reduce_rows)
+//                                   (rconv_gemm<float, DX_BNIN> + reduce_rows)
 //   #8  _dw_call_bnin :573 -> _dw_kernel_bnin :553
-//                                   (rconv_gemm<.., DW_BNIN> + reduce_rows)
-// The bf16 DX and DW modes are no route's any more: ops/rconv.py sends bf16
-// dx and dW to rconv_bwd.cu, f32 ones here. rconv_dx_launch /
-// rconv_dw_launch stay for f32 and as chip_smoke.py's same-call yardstick
-// of the previous bf16 design; their bf16 paths go when #7 and #8 (the
-// DX_BNIN / DW_BNIN modes, which share this engine) move to the new one.
+//                                   (rconv_gemm<float, DW_BNIN> + reduce_rows)
+// rconv_dx_launch / rconv_dw_launch take f32 only (a bf16 call returns
+// cudaErrorNotSupported). The bf16 DX_BNIN / DW_BNIN modes are no route's:
+// ops/rconv.py sends bf16 #7 and #8 to rconv_bwd.cu; they stay only as
+// chip_smoke.py's same-call yardstick of the previous design, and go, with
+// this engine's bf16 paths, when #4-#6 leave it.
 // Built from what they compute, not from the TPU's flat-roll/select chain
 // (which exists for the sublane layout). y = conv_valid(reflect_pad(x, 1), w)
 // with torch 'reflect' semantics: pad row -1 mirrors row 1, row H mirrors
@@ -738,9 +736,13 @@ cudaError_t conv(int dtype, const void* a, const void* w, void* out, float* part
                  const Bnin& bn, const Geo& g, cudaStream_t st) {
   const int mtiles = conv_mtiles(dtype, g);
   if (dtype == 1) {
-    if (g.nc <= 64)
-      return launch_gemm<__nv_bfloat16, 128, 64, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
-    return launch_gemm<__nv_bfloat16, 128, 128, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
+    if constexpr (MODE == DX) {
+      return cudaErrorNotSupported;      // bf16 dx: rconv_bwd.cu
+    } else {
+      if (g.nc <= 64)
+        return launch_gemm<__nv_bfloat16, 128, 64, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
+      return launch_gemm<__nv_bfloat16, 128, 128, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
+    }
   }
   return launch_gemm<float, 64, 64, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
 }
@@ -766,14 +768,18 @@ cudaError_t dw(int dtype, const void* x, const void* gy, float* p, void* dwo,
   const long long kspan = ((steps + splits - 1) / splits) * 32;
   cudaError_t e;
   if (dtype == 1) {
-    if (bm == 128 && dw_bn(dtype, cout) == 128)
-      e = launch_gemm<__nv_bfloat16, 128, 128, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
-    else if (bm == 128)
-      e = launch_gemm<__nv_bfloat16, 128, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
-    else if (dw_bn(dtype, cout) == 128)
-      e = launch_gemm<__nv_bfloat16, 64, 128, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
-    else
-      e = launch_gemm<__nv_bfloat16, 64, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
+    if constexpr (MODE == DW) {
+      return cudaErrorNotSupported;      // bf16 dW: rconv_bwd.cu
+    } else {
+      if (bm == 128 && dw_bn(dtype, cout) == 128)
+        e = launch_gemm<__nv_bfloat16, 128, 128, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
+      else if (bm == 128)
+        e = launch_gemm<__nv_bfloat16, 128, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
+      else if (dw_bn(dtype, cout) == 128)
+        e = launch_gemm<__nv_bfloat16, 64, 128, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
+      else
+        e = launch_gemm<__nv_bfloat16, 64, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
+    }
   } else {
     e = launch_gemm<float, 64, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
   }
@@ -833,7 +839,8 @@ int rconv_fwd_bnin_launch(const void* x, const void* ab, const void* w9,
   return (int)reduce_pairs(p, s12, conv_mtiles(dtype, g), cout, st);
 }
 
-// dx (N,H,W,Cin) from gy (N,H,W,Cout) and the transposed taps w9t (9,Cout,Cin)
+// dx (N,H,W,Cin) from gy (N,H,W,Cout) and the transposed taps w9t
+// (9,Cout,Cin); f32 only
 int rconv_dx_launch(const void* gy, const void* w9t, void* dx, int dtype,
                     int N, int H, int W, int cin, int cout, void* stream) {
   const Geo g = make_geo(N, H, W, cout, cin);
@@ -859,8 +866,8 @@ int rconv_dx_bnin_launch(const void* gy, const void* w9t, const void* x,
   return (int)reduce_pairs(p, dab, conv_mtiles(dtype, g), cin, st);
 }
 
-// dw (9,Cin,Cout) f32 from x (N,H,W,Cin) and gy (N,H,W,Cout); part is
-// (splits, 9, Cin, Cout) f32 scratch, splits from rconv_dw_splits
+// dw (9,Cin,Cout) f32 from x (N,H,W,Cin) and gy (N,H,W,Cout), f32 only;
+// part is (splits, 9, Cin, Cout) f32 scratch, splits from rconv_dw_splits
 int rconv_dw_launch(const void* x, const void* gy, void* part, void* dw_out,
                     int dtype, int N, int H, int W, int cin, int cout,
                     int splits, void* stream) {

@@ -1,10 +1,16 @@
 // Backward of the 3x3 stride-1 reflect-padded convolution in bf16: the input
-// gradient dx and the weight gradient dW, designed for Hopper around one
-// landed slab of whole image rows that feeds all nine taps.
+// gradient dx and the weight gradient dW, of the plain conv and of the
+// BN-input chain's conv of xn = relu(a*x + b), designed for Hopper around
+// one landed slab of whole image rows that feeds all nine taps.
 //
 // Replaces the Pallas TPU kernels of videowalk_tpu/ops/rconv_kernel.py:
-//   #9  _dx_call :633 -> _dx_kernel :607   (rconv_bwd_dx)
-//   #10 _dw_call :682 -> _dw_kernel :660   (rconv_bwd_dw + reduce_rows)
+//   #9  _dx_call      :633 -> _dx_kernel      :607  (rconv_bwd_dx<BN, false>)
+//   #10 _dw_call      :682 -> _dw_kernel      :660  (rconv_bwd_dw<false>
+//                                                     + reduce_rows)
+//   #7  _dx_call_bnin :514 -> _dx_kernel_bnin :474  (rconv_bwd_dx<BN, true>
+//                                                     + reduce_rows)
+//   #8  _dw_call_bnin :573 -> _dw_kernel_bnin :553  (rconv_bwd_dw<true>
+//                                                     + reduce_rows)
 // y = conv_valid(reflect_pad(x, 1), w) with torch 'reflect' semantics: pad
 // row -1 mirrors row 1, row H mirrors H-2. H and W are powers of two in
 // [8, 32] (rconv_supported); activations are channel-contiguous (N, H, W, C)
@@ -13,13 +19,14 @@
 // Bound at the flagship's routed shape (3136 images of 8x8, 512 -> 512):
 // each pass is 2*200704*9*512*512 = 0.947 TFLOP, 0.96 ms at 989 TFLOP/s
 // dense bf16, against ~0.41 GB of bytes (0.12 ms at 3.35 TB/s); at the
-// superpixel step's (24, 32x32, 512 -> 512) 0.116 TFLOP, 0.117 ms. Both are
-// bound by the tensor cores, so the design cuts what kept the previous
-// engine (rconv.cu's rconv_gemm<DX>/<DW>) far from them: a gather of the A
-// operand once per tap (9x the distinct input through L2), synchronous
-// loads of the reflected legs, and wmma from unswizzled shared memory.
+// superpixel step's (24, 32x32, 512 -> 512) 0.116 TFLOP, 0.117 ms. All four
+// are bound by the tensor cores, so the design cuts what kept the previous
+// engine (rconv.cu's rconv_gemm) far from them: a gather of the A operand
+// once per tap (9x the distinct input through L2), synchronous loads of the
+// reflected legs, wmma from unswizzled shared memory, and in its DW_BNIN
+// the affine applied to every gathered tap copy of x (36 times an element).
 //
-// Both kernels: a tile's pixel range is a run of whole image rows (128
+// All four: a tile's pixel range is a run of whole image rows (128
 // output pixels for dx, a 64-pixel K chunk for dW: two whole 8x8 images, or
 // a band of rows of a larger map). The slab of flat pixels
 // [first - W, last + W), the tile's rows plus one row above and below, lands
@@ -53,6 +60,16 @@
 //   mma.sync) land together, two chunks in flight (~104 KB: two blocks an
 //   SM). A tap is one wgmma.m64n128k16 a warpgroup; two A register sets
 //   let a tap's gather overlap the previous tap's product.
+// dx of the chain (#7): the same main loop on gy; only the epilogue
+//   differs. The f32 tile dxn (128 pixels x BN Cin) is staged in the freed
+//   stage memory; a thread keeps one 8-channel vector and walks its rows:
+//   it reads x at the output pixel (16-byte loads), gates by
+//   g = fmaf(x, a, b) > 0 (the forward #6's gate on rconv.cu, so a pixel
+//   kept forward is kept backward), writes dx = bf16(dxn*g*a) rounded once
+//   from f32, and sums da = sum dxn*g*x and db = sum dxn*g from the f32
+//   dxn; the row groups are summed through shared memory in a fixed order
+//   into per-block partials (mtiles, 2, Cin) that reduce_rows sums in a
+//   fixed order: no float atomics, so dx, da and db repeat bit for bit.
 // dW (#10): dW[t] = sum_p tap_t(x)[p]^T gy[p]: M = Cin, N = Cout, K = pixels.
 //   A block owns a 64 Cin x 64 Cout tile for all nine taps and a K split;
 //   three warpgroups, warpgroup dy the taps (dy, 0..2) (96 f32 accumulators
@@ -66,6 +83,21 @@
 //   previous engine), x once per Cout tile. A ring of 4 chunks in flight.
 //   K splits write f32 partials (splits, 9, Cin, Cout) that reduce_rows sums
 //   in a fixed order: no float atomics, so dW repeats bit for bit.
+// dW of the chain (#8): the same, with xn = bf16(relu(fmaf(x, a, b))) (f32
+//   math, rounded once) rebuilt ONCE per landed slab element: after
+//   cp.async.wait_group each thread rewrites the x vectors it copied itself
+//   (its own copies are visible to it without a barrier), and the chunk's
+//   one barrier publishes them. A thread's vectors share their 8 channels
+//   (384 threads, 8 vectors a slab row), so their (a, b) are loaded once a
+//   block into registers. Chunk kt+1's vectors are rewritten during chunk
+//   kt's k steps, one a step right after its products are issued: no
+//   barrier is added and the rewrite overlaps the tensor cores. By the
+//   code's count the loop moves about as many shared-memory wavefronts
+//   (ldmatrix gathers, wgmma's B reads) as it has tensor cycles, so the
+//   rewrite costs its 16-byte read and write a vector; reading (a, b) from
+//   shared memory per vector as well cost about twice as much on an H100.
+//   Zero-filled vectors (rows outside the pixels, channel tails) stay
+//   zero, never relu(b).
 // Not yet used: TMA, a producer warp, clusters.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -193,6 +225,41 @@ struct Geo {
   long long M;        // N*H*W pixels
 };
 
+// 8 bf16 of a 16-byte vector as f32, and back rounded once
+__device__ __forceinline__ void unpack8(float (&f)[8], const uint4& v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 p = __bfloat1622float2(h[e]);
+    f[2 * e] = p.x;
+    f[2 * e + 1] = p.y;
+  }
+}
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+  return v;
+}
+
+// 8 consecutive f32 from a 16-byte aligned address
+__device__ __forceinline__ void load8f(float (&f)[8], const float* src) {
+  const float4 lo = reinterpret_cast<const float4*>(src)[0];
+  const float4 hi = reinterpret_cast<const float4*>(src)[1];
+  f[0] = lo.x, f[1] = lo.y, f[2] = lo.z, f[3] = lo.w;
+  f[4] = hi.x, f[5] = hi.y, f[6] = hi.z, f[7] = hi.w;
+}
+
+// the BN-input chain's operands of #7 (null for #9): the raw x at the
+// output pixels (M, Cin), the affine (2, Cin) f32 [a; b], and the per-block
+// [da; db] partials (mtiles, 2, Cin)
+struct DxBnin {
+  const __nv_bfloat16* x;
+  const float* ab;
+  float* part;
+};
+
 // ------------------------------------------------------------------- dx
 
 namespace dxk {
@@ -216,15 +283,24 @@ template <int BN> struct Cfg {
   static constexpr int C_STRIDE = BN + 8;               // bf16 epilogue tile
   static_assert(BM * C_STRIDE * 2 <= 2 * STAGE, "epilogue staging");
   static_assert(STAGE % 16 == 0 && A_BYTES % 16 == 0, "16-byte alignment");
+  // #7's epilogue: the f32 tile dxn, then the (RG, 2, BN) row-group sums
+  static constexpr int F_STRIDE = BN + 8;
+  static constexpr int CV = BN / 8, RG = NT / CV;
+  static_assert(NT % CV == 0 && BM % RG == 0 && 2 * BN <= NT,
+                "da/db: a thread per sum");
+  static_assert((BM * F_STRIDE + RG * 2 * BN) * 4 <= 2 * STAGE,
+                "f32 epilogue staging");
 };
 }  // namespace dxk
 
-// dx (M, Cin) from gy (M, Cout) and w9t (9, Cout, Cin). Grid: ntiles (Cin)
-// fastest, then 128-pixel tiles.
-template <int BN>
+// dx (M, Cin) from gy (M, Cout) and w9t (9, Cout, Cin); with BNIN the
+// chain's dx = bf16(dxn*g*a) and the [da; db] partials of bn. Grid: ntiles
+// (Cin) fastest, then 128-pixel tiles.
+template <int BN, bool BNIN>
 __global__ void __launch_bounds__(NT, 2) rconv_bwd_dx(
     const __nv_bfloat16* __restrict__ gy, const __nv_bfloat16* __restrict__ w9t,
-    __nv_bfloat16* __restrict__ dx, Geo g, int cin, int cout, int ntiles) {
+    __nv_bfloat16* __restrict__ dx, DxBnin bn, Geo g, int cin, int cout,
+    int ntiles) {
   using namespace dxk;
   using C = Cfg<BN>;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -232,7 +308,8 @@ __global__ void __launch_bounds__(NT, 2) rconv_bwd_dx(
   short4* legsrc = reinterpret_cast<short4*>(arow + 9 * BM);      // [LEG_MAX]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nt = blockIdx.x % ntiles;
-  const long long m0 = (long long)(blockIdx.x / ntiles) * BM;
+  const int mt = blockIdx.x / ntiles;
+  const long long m0 = (long long)mt * BM;
   const int n0 = nt * BN;
   const int H = g.H, W = g.W, HW = H * W;
   const int R = BM / W;                        // image rows of the tile
@@ -404,9 +481,78 @@ __global__ void __launch_bounds__(NT, 2) rconv_bwd_dx(
   wgmma_wait<0>();
   __syncthreads();
 
+  const int gr = lane >> 2, gc = (lane & 3) * 2;
+  if constexpr (BNIN) {
+    // ---- #7's epilogue: the f32 tile dxn through shared memory; a thread
+    // keeps one 8-channel vector (cv) and walks the rows rg, rg + RG, ...,
+    // whose x it loads first (the loads overlap the staging)
+    constexpr int RPT = BM / C::RG;
+    const int cv = tid % C::CV, rg = tid / C::CV;
+    const int n = n0 + cv * 8;
+    uint4 xr[RPT];
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const long long p = m0 + rg + k * C::RG;
+      xr[k] = n < cin && p < g.M
+          ? __ldg(reinterpret_cast<const uint4*>(bn.x + p * cin + n))
+          : make_uint4(0, 0, 0, 0);
+    }
+    float* Cf = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int r = warp * 16 + gr, col = j * 8 + gc;
+      *reinterpret_cast<float2*>(Cf + r * C::F_STRIDE + col) =
+          make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(Cf + (r + 8) * C::F_STRIDE + col) =
+          make_float2(acc[j][2], acc[j][3]);
+    }
+    __syncthreads();
+    float da[8], db[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) da[e] = db[e] = 0.f;
+    if (n < cin) {
+      float av[8], bv[8];
+      load8f(av, bn.ab + n);
+      load8f(bv, bn.ab + cin + n);
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const int r = rg + k * C::RG;
+        const long long p = m0 + r;
+        if (p >= g.M) break;
+        float xv[8], d[8];
+        unpack8(xv, xr[k]);
+        const float* cp = Cf + r * C::F_STRIDE + cv * 8;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float gd = fmaf(xv[e], av[e], bv[e]) > 0.f ? cp[e] : 0.f;
+          d[e] = gd * av[e];
+          da[e] = fmaf(gd, xv[e], da[e]);
+          db[e] += gd;
+        }
+        *reinterpret_cast<uint4*>(dx + p * cin + n) = pack8(d);
+      }
+    }
+    // the row groups' sums in a fixed order: red (RG, 2, BN) behind the tile
+    float* red = Cf + BM * C::F_STRIDE;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      red[(rg * 2) * BN + cv * 8 + e] = da[e];
+      red[(rg * 2 + 1) * BN + cv * 8 + e] = db[e];
+    }
+    __syncthreads();
+    if (tid < 2 * BN) {
+      const int j = tid / BN, col = tid % BN;
+      if (n0 + col < cin) {
+        float tot = 0.f;
+        for (int k = 0; k < C::RG; ++k) tot += red[(k * 2 + j) * BN + col];
+        bn.part[((long long)mt * 2 + j) * cin + n0 + col] = tot;
+      }
+    }
+    return;
+  }
+
   // ---- epilogue: bf16 tile through shared memory, 16-byte stores
   __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int gr = lane >> 2, gc = (lane & 3) * 2;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int r = warp * 16 + gr, col = j * 8 + gc;
@@ -441,15 +587,22 @@ constexpr int STAGE = X_BYTES + G_BYTES;
 constexpr int S = 4;                    // chunks in flight
 constexpr int SMEM = S * STAGE;
 static_assert(X_BYTES % 1024 == 0 && STAGE % 1024 == 0, "swizzle atoms");
+// #8: a thread's x vectors v = tid + i*NTW share their channels v % (BM/8),
+// and it rebuilds one of them a k step
+static_assert(NTW % (BM / 8) == 0, "one (a, b) vector a thread");
+constexpr int NV = (X_ROWS * (BM / 8) + NTW - 1) / NTW;
+static_assert(NV <= BKP / 16, "a thread's vectors: one a k step");
 }  // namespace dwk
 
-// part (splits, 9, Cin, Cout) f32 from x (M, Cin) and gy (M, Cout); block
-// (Cin tile, Cout tile, split), Cout tiles fastest. Warpgroup dy owns the
-// taps (dy, 0..2), its warp w the Cin rows 16w..16w+15 of the tile.
+// part (splits, 9, Cin, Cout) f32 from x (M, Cin) and gy (M, Cout), with
+// BNIN of xn = bf16(relu(a*x + b)), ab (2, Cin) f32 [a; b]; block (Cin
+// tile, Cout tile, split), Cout tiles fastest. Warpgroup dy owns the taps
+// (dy, 0..2), its warp w the Cin rows 16w..16w+15 of the tile.
+template <bool BNIN>
 __global__ void __launch_bounds__(dwk::NTW, 1) rconv_bwd_dw(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gy,
-    float* __restrict__ part, Geo g, int cin, int cout, int ntiles, int mtiles,
-    int span) {
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ ab,
+    const __nv_bfloat16* __restrict__ gy, float* __restrict__ part, Geo g,
+    int cin, int cout, int ntiles, int mtiles, int span) {
   using namespace dwk;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -489,6 +642,31 @@ __global__ void __launch_bounds__(dwk::NTW, 1) rconv_bwd_dw(
     }
   };
 
+  // #8: vector i of the x vectors this thread copied for chunk kt into
+  // stage st (issue's v = tid + i*NTW), rewritten in place as
+  // xn = bf16(relu(fmaf(x, a, b))) once its own copies have landed;
+  // zero-filled vectors stay zero. Its 8 channels' (a, b) stay in registers.
+  const int bcv = tid % (BM / 8);
+  const bool bch = BNIN && ci0 + bcv * 8 < cin;
+  float av[8], bv[8];
+  if (bch) {
+    load8f(av, ab + ci0 + bcv * 8);
+    load8f(bv, ab + cin + ci0 + bcv * 8);
+  }
+  auto bnin = [&](int kt, int st, int i) {
+    const int v = tid + i * NTW;
+    if (!bch || v >= SLAB * (BM / 8)) return;
+    const int s = v / (BM / 8);
+    const long long q = (cb + kt) * BKP - W + s;
+    if (q < 0 || q >= g.M) return;
+    uint4* vec = reinterpret_cast<uint4*>(smem + st * STAGE + s * STRIDE + bcv * 16);
+    float f[8];
+    unpack8(f, *vec);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = fmaxf(fmaf(f[e], av[e], bv[e]), 0.f);
+    *vec = pack8(f);
+  };
+
   float acc[3][BN / 8][4];
 #pragma unroll
   for (int t = 0; t < 3; ++t)
@@ -509,11 +687,15 @@ __global__ void __launch_bounds__(dwk::NTW, 1) rconv_bwd_dw(
   }
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<S - 2>();
+    if (BNIN && kt == 0)        // chunk 0's own x vectors; later chunks are
+      for (int i = 0; i < NV; ++i) bnin(0, 0, i);   // rebuilt in the k steps
     fence_proxy_async();        // the landed gy tile, for wgmma
     wgmma_wait<0>();            // chunk kt-1's products have read their stage
-    __syncthreads();            // chunk kt landed; chunk kt-1's stage is free
+    __syncthreads();            // chunk kt landed (and rebuilt); chunk kt-1's
+                                // stage is free
     if (kt + S - 1 < KT) issue(kt + S - 1, (kt + S - 1) % S);
     cp_async_commit();
+    const bool next = BNIN && kt + 1 < KT;
     const int st = kt % S;
     const unsigned Xs = smem_u32(smem + st * STAGE);
     const unsigned Gs = Xs + X_BYTES;
@@ -541,6 +723,12 @@ __global__ void __launch_bounds__(dwk::NTW, 1) rconv_bwd_dw(
       for (int t = 0; t < 3; ++t)
         wgmma_n64(reinterpret_cast<float(&)[32]>(acc[t]), a[t], desc);
       wgmma_commit();
+      // #8: while these products run, one of this thread's x vectors of
+      // chunk kt+1 (its copies landed: all but the newest S-2 groups)
+      if (next && ks < NV) {
+        if (ks == 0) cp_async_wait<S - 2>();
+        bnin(kt + 1, (kt + 1) % S, ks);
+      }
     }
   }
   cp_async_wait<0>();
@@ -598,10 +786,11 @@ Geo make_geo(int N, int H, int W) {
   return g;
 }
 
-template <int BN>
-cudaError_t launch_dx(const void* gy, const void* w9t, void* dx, const Geo& g,
-                      int cin, int cout, cudaStream_t st) {
-  auto kern = rconv_bwd_dx<BN>;
+template <int BN, bool BNIN>
+cudaError_t launch_dx(const void* gy, const void* w9t, void* dx,
+                      const DxBnin& bn, const Geo& g, int cin, int cout,
+                      cudaStream_t st) {
+  auto kern = rconv_bwd_dx<BN, BNIN>;
   const int smem = dxk::Cfg<BN>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -610,7 +799,42 @@ cudaError_t launch_dx(const void* gy, const void* w9t, void* dx, const Geo& g,
   const long long blocks = ntiles * ((g.M + dxk::BM - 1) / dxk::BM);
   kern<<<(unsigned)blocks, NT, smem, st>>>(
       static_cast<const __nv_bfloat16*>(gy), static_cast<const __nv_bfloat16*>(w9t),
-      static_cast<__nv_bfloat16*>(dx), g, cin, cout, ntiles);
+      static_cast<__nv_bfloat16*>(dx), bn, g, cin, cout, ntiles);
+  return cudaGetLastError();
+}
+
+template <bool BNIN>
+cudaError_t run_dx(const void* gy, const void* w9t, void* dxo,
+                   const DxBnin& bn, const Geo& g, int cin, int cout,
+                   cudaStream_t st) {
+  if (cin <= 64) return launch_dx<64, BNIN>(gy, w9t, dxo, bn, g, cin, cout, st);
+  return launch_dx<128, BNIN>(gy, w9t, dxo, bn, g, cin, cout, st);
+}
+
+// dW (BNIN: of xn rebuilt from the raw x): the K-split partials, then their
+// sum in a fixed order
+template <bool BNIN>
+cudaError_t run_dw(const void* x, const float* ab, const void* gy, void* part,
+                   void* dw_out, const Geo& g, int cin, int cout, int splits,
+                   cudaStream_t st) {
+  auto kern = rconv_bwd_dw<BNIN>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dwk::SMEM);
+  if (e != cudaSuccess) return e;
+  const int ntiles = (cout + dwk::BN - 1) / dwk::BN;
+  const int mtiles = (cin + dwk::BM - 1) / dwk::BM;
+  const long long chunks = g.M / dwk::BKP;
+  const int span = (int)((chunks + splits - 1) / splits);
+  kern<<<(unsigned)((long long)ntiles * mtiles * splits), dwk::NTW, dwk::SMEM,
+         st>>>(
+      static_cast<const __nv_bfloat16*>(x), ab,
+      static_cast<const __nv_bfloat16*>(gy), static_cast<float*>(part), g,
+      cin, cout, ntiles, mtiles, span);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long n = 9LL * cin * cout;
+  reduce_rows<8><<<(unsigned)((n + 31) / 32), dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dw_out), splits, n);
   return cudaGetLastError();
 }
 
@@ -618,14 +842,37 @@ cudaError_t launch_dx(const void* gy, const void* w9t, void* dx, const Geo& g,
 
 extern "C" {
 
+// pixels of one dx tile: #7's [da; db] partials are (ceil(N*H*W / bm), 2, Cin)
+int rconv_bwd_dx_bm() { return dxk::BM; }
+
 // dx (N,H,W,Cin) bf16 from gy (N,H,W,Cout) and the transposed taps w9t
 // (9,Cout,Cin)
-int rconv_bwd_dx_launch(const void* gy, const void* w9t, void* dx, int N, int H,
+int rconv_bwd_dx_launch(const void* gy, const void* w9t, void* dxo, int N, int H,
                         int W, int cin, int cout, void* stream) {
+  return (int)run_dx<false>(gy, w9t, dxo, DxBnin{nullptr, nullptr, nullptr},
+                            make_geo(N, H, W), cin, cout,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// the chain's dx = bf16(dxn*g*a), dxn the plain dx of gy, g = (a*x + b > 0)
+// at the raw x (N,H,W,Cin), ab (2,Cin) f32 = [a; b]; dab (2,Cin) f32 =
+// [sum dxn*g*x; sum dxn*g] from the f32 dxn; part (ceil(N*H*W / 128), 2,
+// Cin) f32 scratch
+int rconv_bwd_dx_bnin_launch(const void* gy, const void* w9t, const void* x,
+                             const void* ab, void* dxo, void* part, void* dab,
+                             int N, int H, int W, int cin, int cout,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g = make_geo(N, H, W);
-  if (cin <= 64) return (int)launch_dx<64>(gy, w9t, dx, g, cin, cout, st);
-  return (int)launch_dx<128>(gy, w9t, dx, g, cin, cout, st);
+  const DxBnin bn{static_cast<const __nv_bfloat16*>(x),
+                  static_cast<const float*>(ab), static_cast<float*>(part)};
+  cudaError_t e = run_dx<true>(gy, w9t, dxo, bn, g, cin, cout, st);
+  if (e != cudaSuccess) return (int)e;
+  const int mtiles = (int)((g.M + dxk::BM - 1) / dxk::BM);
+  const long long n = 2LL * cin;
+  reduce_rows<32><<<(unsigned)((n + 31) / 32), dim3(32, 32), 0, st>>>(
+      bn.part, static_cast<float*>(dab), mtiles, n);
+  return (int)cudaGetLastError();
 }
 
 // dW's K splits: about two waves of one block an SM, >= 4 chunks each
@@ -644,25 +891,18 @@ int rconv_bwd_dw_splits(int N, int H, int W, int cin, int cout) {
 int rconv_bwd_dw_launch(const void* x, const void* gy, void* part, void* dw_out,
                         int N, int H, int W, int cin, int cout, int splits,
                         void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Geo g = make_geo(N, H, W);
-  cudaError_t e = cudaFuncSetAttribute(
-      rconv_bwd_dw, cudaFuncAttributeMaxDynamicSharedMemorySize, dwk::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const int ntiles = (cout + dwk::BN - 1) / dwk::BN;
-  const int mtiles = (cin + dwk::BM - 1) / dwk::BM;
-  const long long chunks = g.M / dwk::BKP;
-  const int span = (int)((chunks + splits - 1) / splits);
-  rconv_bwd_dw<<<(unsigned)((long long)ntiles * mtiles * splits), dwk::NTW,
-                 dwk::SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gy),
-      static_cast<float*>(part), g, cin, cout, ntiles, mtiles, span);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long n = 9LL * cin * cout;
-  reduce_rows<8><<<(unsigned)((n + 31) / 32), dim3(32, 8), 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dw_out), splits, n);
-  return (int)cudaGetLastError();
+  return (int)run_dw<false>(x, nullptr, gy, part, dw_out, make_geo(N, H, W),
+                            cin, cout, splits, static_cast<cudaStream_t>(stream));
+}
+
+// the same of xn = bf16(relu(a*x + b)) rebuilt from the raw x, ab (2,Cin)
+// f32 = [a; b]
+int rconv_bwd_dw_bnin_launch(const void* x, const void* ab, const void* gy,
+                             void* part, void* dw_out, int N, int H, int W,
+                             int cin, int cout, int splits, void* stream) {
+  return (int)run_dw<true>(x, static_cast<const float*>(ab), gy, part, dw_out,
+                           make_geo(N, H, W), cin, cout, splits,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -41,9 +41,10 @@ version
 (``F.pad(mode="reflect")`` + ``conv2d`` in the input's dtype, its f32 sums,
 and autograd of the same) for a tensor on the CPU, and launches a
 hand-written Hopper kernel for a CUDA tensor, or raises: ``csrc/rconv.cu``
-for #4–#8 and for f32 dx and dW, ``csrc/rconv_bwd.cu`` (one landed slab of
-whole image rows feeding all nine taps) for bf16 dx (#9) and dW (#10).
-Each counts its kernel launches in ``.launches``.
+for the forward kernels #4–#6 and for f32 #7–#10, ``csrc/rconv_bwd.cu`` (one
+landed slab of whole image rows feeding all nine taps) for bf16 dx (#9) and
+dW (#10) and the chain's bf16 dx with da/db (#7) and dW (#8). Each counts
+its kernel launches in ``.launches``.
 
 Bound on the card at the flagship's routed shape (layer4 interior, 3136
 images of 8x8, Cin = Cout = 512, bf16): each pass is 0.947 TFLOP, 0.96 ms
@@ -162,6 +163,12 @@ def _bwd_lib():
         lib.rconv_bwd_dw_splits.restype = i
         lib.rconv_bwd_dw_launch.argtypes = [p] * 4 + [i] * 6 + [p]
         lib.rconv_bwd_dw_launch.restype = i
+        lib.rconv_bwd_dx_bm.argtypes = []
+        lib.rconv_bwd_dx_bm.restype = i
+        lib.rconv_bwd_dx_bnin_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.rconv_bwd_dx_bnin_launch.restype = i
+        lib.rconv_bwd_dw_bnin_launch.argtypes = [p] * 5 + [i] * 6 + [p]
+        lib.rconv_bwd_dw_bnin_launch.restype = i
     return lib
 
 
@@ -320,23 +327,30 @@ def _dx(name: str, gy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     if ab is not None:
         ab = _pack_ab(name, *ab, x)
     dt = _DTYPES[gy.dtype]
+    slab = gy.dtype == torch.bfloat16     # rconv_bwd.cu's #9 / #7
+    lib = _bwd_lib() if slab else _lib()
     w9t = w.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
     dx = _nhwc_empty(N, cin, H, W, gy)
+    if ab is not None:
+        f32 = dict(dtype=torch.float32, device=gy.device)
+        bm = lib.rconv_bwd_dx_bm() if slab else lib.rconv_conv_bm(dt)
+        part = torch.empty((-(-N * H * W // int(bm)), 2, cin), **f32)
+        dab = torch.empty((2, cin), **f32)
     with torch.cuda.device(gy.device):
-        if ab is None and gy.dtype == torch.bfloat16:
-            err = _bwd_lib().rconv_bwd_dx_launch(
+        if ab is None and slab:
+            err = lib.rconv_bwd_dx_launch(
                 gy.data_ptr(), w9t.data_ptr(), dx.data_ptr(), N, H, W, cin,
                 cout, _stream(gy))
         elif ab is None:
-            err = _lib().rconv_dx_launch(gy.data_ptr(), w9t.data_ptr(),
-                                         dx.data_ptr(), dt, N, H, W, cin,
-                                         cout, _stream(gy))
+            err = lib.rconv_dx_launch(gy.data_ptr(), w9t.data_ptr(),
+                                      dx.data_ptr(), dt, N, H, W, cin, cout,
+                                      _stream(gy))
+        elif slab:
+            err = lib.rconv_bwd_dx_bnin_launch(
+                gy.data_ptr(), w9t.data_ptr(), x.data_ptr(), ab.data_ptr(),
+                dx.data_ptr(), part.data_ptr(), dab.data_ptr(), N, H, W, cin,
+                cout, _stream(gy))
         else:
-            lib = _lib()
-            f32 = dict(dtype=torch.float32, device=gy.device)
-            mtiles = -(-N * H * W // int(lib.rconv_conv_bm(dt)))
-            part = torch.empty((mtiles, 2, cin), **f32)
-            dab = torch.empty((2, cin), **f32)
             err = lib.rconv_dx_bnin_launch(
                 gy.data_ptr(), w9t.data_ptr(), x.data_ptr(), ab.data_ptr(),
                 dx.data_ptr(), part.data_ptr(), dab.data_ptr(), dt, N, H, W,
@@ -387,7 +401,7 @@ def _dw(name: str, x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
     if ab is not None:
         ab = _pack_ab(name, *ab, x)
     dt = _DTYPES[x.dtype]
-    slab = ab is None and x.dtype == torch.bfloat16     # rconv_bwd.cu's #10
+    slab = x.dtype == torch.bfloat16      # rconv_bwd.cu's #10 / #8
     lib = _bwd_lib() if slab else _lib()
     splits = int(lib.rconv_bwd_dw_splits(N, H, W, cin, cout) if slab
                  else lib.rconv_dw_splits(dt, N, H, W, cin, cout))
@@ -395,10 +409,14 @@ def _dw(name: str, x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
     part = torch.empty((splits, 9, cin, cout), **f32)
     dw9 = torch.empty((9, cin, cout), **f32)
     with torch.cuda.device(x.device):
-        if slab:
+        if ab is None and slab:
             err = lib.rconv_bwd_dw_launch(
                 x.data_ptr(), gy.data_ptr(), part.data_ptr(), dw9.data_ptr(),
                 N, H, W, cin, cout, splits, _stream(x))
+        elif slab:
+            err = lib.rconv_bwd_dw_bnin_launch(
+                x.data_ptr(), ab.data_ptr(), gy.data_ptr(), part.data_ptr(),
+                dw9.data_ptr(), N, H, W, cin, cout, splits, _stream(x))
         elif ab is None:
             err = lib.rconv_dw_launch(x.data_ptr(), gy.data_ptr(),
                                       part.data_ptr(), dw9.data_ptr(), dt, N,

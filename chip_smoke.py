@@ -28,22 +28,27 @@ card.
    events; then times the fused walk (forward + backward) against
    ``core/walk.py``'s walk over T 4/8/10, N 48-128, C 128-512 at batch 8:
    the sweep that bounds ``fused_walk="auto"`` (``ops/walk.py``).
-6. Holds the reflect-conv kernels (``ops/csrc/rconv.cu``: forward #4,
-   forward with BN moments #5, and the BN-input chain's forward #6, which
-   applies ``relu(a*x + b)`` to its operand; ``ops/csrc/rconv_bwd.cu``: dx
-   #9 and dW #10, and the chain's dx with da/db #7 and dW #8) against their
-   plain PyTorch version on bf16 inputs at the step's shapes (the layer4
+6. Holds the reflect-conv kernels (``ops/csrc/rconv.cu``: forward #4;
+   ``ops/csrc/rconv_slab.cu``: forward with BN moments #5, dx #9 and dW
+   #10, and the BN-input chain's forward #6, which applies ``relu(a*x +
+   b)`` to its operand, dx with da/db #7 and dW #8) against their plain
+   PyTorch version on bf16 inputs at the step's shapes (the layer4
    interior, 3136 images of 8x8 with 512 channels; layer1's 16x16x64; 8x8
    128->256; a 32x32x512 map; the superpixel step's 24 maps of 32x32x512
-   and its patch arm's 1176 of 8x8x512); checks that two runs of dW, of #7
-   and of #8 are bitwise equal and that planted faults fail (dx without the
-   row-1 fold leg of the dy=0 taps; #7's dx without its gate on one row,
-   its da/db without a row group of every tile; #8's dW without the ReLU on
-   one channel vector); and times kernel, the previous design of #7/#8
-   (``rconv.cu``'s engine, through its C entries), plain version and the
-   library call (``F.pad`` + cuDNN ``conv2d``; for each backward kernel
-   alone, autograd of it for that kernel's inputs; for the chain after an
-   elementwise affine + ReLU) with CUDA events.
+   and its patch arm's 1176 of 8x8x512), and #6 on a ragged last tile with
+   ``b > 0``; checks that two runs of #5, #6, dW, #7 and #8 are bitwise
+   equal and that planted faults fail (#5's y of a zero-padded conv, its
+   moments without s1 or without one tile; dx without the row-1 fold leg
+   of the dy=0 taps; #6's y without the ReLU on one channel vector, its
+   moments with the ragged tile's empty rows counted as ``relu(b)``; #7's
+   dx without its gate on one row, its da/db without a row group of every
+   tile; #8's dW without the ReLU on one channel vector); and times
+   kernel, the previous design of #5-#8 (``rconv.cu``'s engine, through
+   its C entries), plain version and the library call (``F.pad`` + cuDNN
+   ``conv2d``; for each backward kernel alone, autograd of it for that
+   kernel's inputs; for the chain after an elementwise affine + ReLU) with
+   CUDA events. ptxas's verdict on each slab kernel: does it serialize
+   ``wgmma`` (C7513, C7515)?
 7. Drives the training slice: ``bench.py``'s flagship step (8-frame clips,
    batch 8, a 7x7 grid of 64 px patches, the ``scratch`` ResNet-18 with a
    bf16 trunk in BN-train mode, edge dropout 0.1, T 0.05, Adam lr 3e-4)
@@ -143,6 +148,11 @@ MOM_TOL = dict(own=1e-5, ref=2e-5)
 # of an 8x8 map's pixels, signs random, 2e5 pixels a channel), the plain
 # version does not: the largest reading at the four shapes is 3.7e-5
 DAB_TOL = 2e-4
+# #6's moments on a ragged last tile (3 images of 8x8: 192 pixels a
+# channel) against the plain y, per channel: where the two sides round a y
+# entry to bf16 differently its channel's sums move by up to 2^-8 of that
+# entry, ~1e-4 of a 192-row channel's sum |y| (the card tests' bound)
+RAGGED_MOM_TOL = 1e-3
 RCONV = (("fwd", rc.reflect_conv_fwd), ("fwd_stats", rc.reflect_conv_fwd_stats),
          ("dx", rc.reflect_conv_dx), ("dw", rc.reflect_conv_dw),
          ("fwd_bnin_stats", rc.reflect_conv_fwd_bnin_stats),
@@ -498,6 +508,50 @@ def walk_gate_sweep(batch: int = BATCH) -> dict:
     return dict(batch=batch, rows=rows, gate_agrees=agree)
 
 
+def px_modes() -> list[str]:
+    """``rconv_slab_px``'s modes in the order of ``pxk::Mode`` in its
+    source, which is how ptxas's mangled names number them."""
+    import re
+
+    with open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                           "rconv_slab.cu")) as fh:
+        m = re.search(r"enum Mode \{([^}]*)\}", fh.read())
+    if not m:
+        raise RuntimeError("rconv_slab.cu declares no enum Mode")
+    return [v.strip() for v in m.group(1).split(",")]
+
+
+def wgmma_verdicts(log: str) -> dict:
+    """ptxas's verdict on each slab kernel of a build log: whether it
+    serializes the kernel's ``wgmma`` (C7513, C7515: the reason as ptxas
+    gives it), by instantiation: ``rconv_slab_px<BN, MODE>``,
+    ``rconv_slab_dw<BNIN>``."""
+    import re
+
+    modes = px_modes()
+
+    def readable(mangled):
+        m = re.search(r"(rconv_slab_(?:px|dw))I((?:L[ib]\d+E)+)E", mangled)
+        if not m:
+            return None
+        args = re.findall(r"L[ib](\d+)E", m.group(2))
+        if m.group(1) == "rconv_slab_px":
+            return f"rconv_slab_px<{args[0]}, {modes[int(args[1])]}>"
+        return f"rconv_slab_dw<{'true' if args[0] == '1' else 'false'}>"
+
+    out = {}
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        name = m and readable(m.group(1))
+        if name:
+            out.setdefault(name, "not serialized")
+        c = re.search(r"\((C751\d)\)(.*?)(?:in the function '([^']+)')", line)
+        if c and readable(c.group(3)):
+            out[readable(c.group(3))] = (f"serialized ({c.group(1)}:"
+                                         f"{c.group(2).rstrip()})")
+    return out
+
+
 def rconv_counts() -> dict:
     return {name: f.launches for name, f in RCONV}
 
@@ -535,6 +589,34 @@ def moment_err(s1, s2, y) -> float:
     m1, m2 = yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))
     return float(torch.maximum((s1 - m1).abs() / yf.abs().sum((0, 2, 3)),
                                (s2 - m2).abs() / m2).max())
+
+
+def prev_fwd_stats(x, w, ab=None):
+    """#5 (with ``ab``, the (2, Cin) f32 [a; b]: #6) by the previous design
+    (``rconv.cu``'s ``rconv_gemm<FWD_STATS>`` or ``<FWD_BNIN_STATS>`` +
+    ``reduce_rows``) through its C entry: a same-call yardstick, called by
+    no route and counted by no wrapper. ``(y, s1, s2)``."""
+    N, cin, H, W = x.shape
+    cout = w.shape[0]
+    lib, dt = rc._lib(), rc._DTYPES[x.dtype]
+    w9 = w.permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
+    y = torch.empty((N, cout, H, W), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    part = torch.empty((-(-N * H * W // int(lib.rconv_conv_bm(dt))), 2, cout),
+                       dtype=torch.float32, device=x.device)
+    s12 = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if ab is None:
+        err = lib.rconv_fwd_launch(x.data_ptr(), w9.data_ptr(), y.data_ptr(),
+                                   part.data_ptr(), s12.data_ptr(), dt, N, H,
+                                   W, cin, cout, 1, stream)
+    else:
+        err = lib.rconv_fwd_bnin_launch(
+            x.data_ptr(), ab.data_ptr(), w9.data_ptr(), y.data_ptr(),
+            part.data_ptr(), s12.data_ptr(), dt, N, H, W, cin, cout, stream)
+    if err:
+        fail(f"previous #{5 if ab is None else 6} launch failed: cudaError {err}")
+    return y, s12[0], s12[1]
 
 
 def prev_dx_bnin(gy, w, x, ab):
@@ -599,9 +681,12 @@ def rconv_kernels_vs_plain() -> dict:
     padded gradient before folding the pad back); moments per channel, as
     ``MOM_TOL`` states, against the kernel's own cast y and the plain y.
     Two planted faults (s1 zeroed; one forward tile of rows left out of
-    both sums) must fail that check, and dx without the row-1 fold leg of
-    the dy=0 taps must fail the dx check; two dW runs must be bitwise
-    equal. ``plain_ms`` is the plain version as the
+    both sums) must fail that check, #5's y with the border of a
+    zero-padded conv in place of the reflection must fail the y check, and
+    dx without the row-1 fold leg of the dy=0 taps must fail the dx check;
+    two runs of #5 (y, s1, s2) and of dW must be bitwise equal.
+    ``ms["prev_fwd_stats"]``: #5 by the previous design (``rconv.cu``) on
+    the same inputs. ``plain_ms`` is the plain version as the
     wrapper would call it (forward: ``F.pad`` + ``conv2d``, + its f32 sums
     for the moments; backward: autograd of the same, dx and dW together);
     ``library_ms`` is the PyTorch calls of the same function: ``F.pad`` +
@@ -625,11 +710,16 @@ def rconv_kernels_vs_plain() -> dict:
                    dx=rc.reflect_conv_dx(gy, w, x),
                    dw=rc.reflect_conv_dw(x, gy, w))
         dw_again = rc.reflect_conv_dw(x, gy, w)
+        stats_again = rc.reflect_conv_fwd_stats(x, w)
+        prev = prev_fwd_stats(x, w)
         y_ref = rc.reflect_conv_plain(x, w)
         dx_ref, dw_ref = rc.reflect_conv_plain_bwd(x, w, gy)
         ys, s1, s2 = got["fwd_stats"]
+        # the kernel's y with the border of a zero-padded conv
+        y_zero_pad = ys.float() + (torch.nn.functional.conv2d(
+            x, w, padding=1).float() - y_ref.float())
         tile = ys.permute(0, 2, 3, 1).reshape(-1, cout)[
-            :rc._lib().rconv_conv_bm(1)].float()
+            :rc._slab_lib().rconv_slab_bm()].float()
         faults = dict(s1_zeroed=(torch.zeros_like(s1), s2),
                       tile_left_out=(s1 - tile.sum(0),
                                      s2 - (tile * tile).sum(0)))
@@ -649,7 +739,12 @@ def rconv_kernels_vs_plain() -> dict:
                    planted={k: dict(own=moment_err(*f, ys),
                                     ref=moment_err(*f, y_ref))
                             for k, f in faults.items()},
-                   y_stats_equal=bool(torch.equal(ys, got["fwd"])))
+                   planted_y_zero_pad=rel(y_zero_pad, y_ref),
+                   stats_repeat_equal=all(torch.equal(p, q) for p, q in
+                                          zip(got["fwd_stats"], stats_again)),
+                   prev_fwd_stats=rel(prev[0], y_ref),
+                   prev_moments_ref=moment_err(prev[1], prev[2], y_ref),
+                   y_stats_close=rel(ys, got["fwd"]))
         m1, m2 = rc.moments_plain(y_ref)
         abs_err = dict(fwd=float((got["fwd"].float() - y_ref.float()).abs().max()),
                        fwd_stats=float(max((s1 - m1).abs().max(),
@@ -659,13 +754,19 @@ def rconv_kernels_vs_plain() -> dict:
         ok = (err["fwd"] <= 1e-2 and err["dw"] <= 1e-2 and err["dx"] <= 2e-2
               and err["moments_own"] <= MOM_TOL["own"]
               and err["moments_ref"] <= MOM_TOL["ref"]
-              and err["y_stats_equal"] and err["dw_repeat_equal"]
+              and err["y_stats_close"] <= 1e-2 and err["dw_repeat_equal"]
+              and err["stats_repeat_equal"]
               and all(torch.isfinite(t).all() for t in
                       (got["fwd"], got["dx"], got["dw"], s1, s2)))
         print(f"reflect-conv kernels vs plain at {tag} (N,Cin,Cout,H,W)="
               f"{(N, cin, cout, H, W)} bf16: |d|/max y {err['fwd']:.2e}, dx "
-              f"{err['dx']:.2e}, dW {err['dw']:.2e} (two dW runs bitwise equal: "
-              f"{err['dw_repeat_equal']}); dx without the row-1 fold leg of the "
+              f"{err['dx']:.2e}, dW {err['dw']:.2e}, #5's y against #4's "
+              f"{err['y_stats_close']:.2e} (two runs bitwise equal: #5 "
+              f"{err['stats_repeat_equal']}, dW {err['dw_repeat_equal']}); "
+              f"#5's y with a zero-padded border (planted fault) "
+              f"{err['planted_y_zero_pad']:.2e}; previous design #5: y "
+              f"{err['prev_fwd_stats']:.2e}, moments "
+              f"{err['prev_moments_ref']:.2e}; dx without the row-1 fold leg of the "
               f"dy=0 taps (planted fault) {err['planted_dx']:.2e}; moments per channel "
               f"{err['moments_own']:.2e} of the kernel's y, "
               f"{err['moments_ref']:.2e} of the plain y; planted faults "
@@ -682,7 +783,11 @@ def rconv_kernels_vs_plain() -> dict:
         if err["planted_dx"] <= 2e-2:
             fail(f"the dx check passes a planted fault at {tag}: "
                  f"{err['planted_dx']:.2e}")
-        del got, y_ref, dx_ref, dw_ref, tile, faults, dw_again
+        if err["planted_y_zero_pad"] <= 1e-2:
+            fail(f"the y check passes a zero-padded border at {tag}: "
+                 f"{err['planted_y_zero_pad']:.2e}")
+        del got, y_ref, dx_ref, dw_ref, tile, faults, dw_again, stats_again
+        del prev, y_zero_pad
         xx = x.detach().requires_grad_()
         ww = w.detach().requires_grad_()
         yy = torch.nn.functional.conv2d(
@@ -691,6 +796,7 @@ def rconv_kernels_vs_plain() -> dict:
         times = dict(
             fwd=cuda_ms(lambda: rc.reflect_conv_fwd(x, w), reps),
             fwd_stats=cuda_ms(lambda: rc.reflect_conv_fwd_stats(x, w), reps),
+            prev_fwd_stats=cuda_ms(lambda: prev_fwd_stats(x, w), reps),
             dx=cuda_ms(lambda: rc.reflect_conv_dx(gy, w, x), reps),
             dw=cuda_ms(lambda: rc.reflect_conv_dw(x, gy, w), reps))
         plain = dict(
@@ -718,7 +824,9 @@ def rconv_kernels_vs_plain() -> dict:
                         bounds=bounds)
         for name in ("fwd", "fwd_stats", "dx", "dw"):
             p = plain.get(name, plain["bwd"])
-            print(f"  {name:9s} {times[name]:8.3f} ms (plain {p:8.3f}, "
+            was = (f", previous design {times['prev_fwd_stats']:8.3f}"
+                   if name == "fwd_stats" else "")
+            print(f"  {name:9s} {times[name]:8.3f} ms{was} (plain {p:8.3f}, "
                   f"library {library[name]:8.3f}, bound "
                   f"{bounds[name]['bound_ms']:.3f} by "
                   f"{bounds[name]['bound_by']})", flush=True)
@@ -729,6 +837,33 @@ def rconv_kernels_vs_plain() -> dict:
         torch.cuda.empty_cache()
     set_rconv_counts(saved)                 # comparison launches do not count
     return res
+
+
+def ragged_bnin_moments(cin, a, b, w) -> dict:
+    """#6 on 3 images of 8x8 (192 pixels: the second 128-pixel tile holds
+    64 rows past M) with ``b`` made positive on every channel, so that
+    ``relu(b)`` is nonzero everywhere: y against the plain version, the
+    moments per channel against the kernel's y and the plain y, and the
+    planted fault of the 64 empty rows counted as ``relu(b)``: each such
+    row's y is the conv of a constant ``relu(b)`` image."""
+    g = torch.Generator(device="cuda").manual_seed(cin + 1)
+    x = torch.randn((3, cin, 8, 8), generator=g, device="cuda",
+                    dtype=torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+    bp = b.abs() + 0.1
+    y, s1, s2 = rc.reflect_conv_fwd_bnin_stats(x, a, bp, w)
+    y_ref = rc.reflect_conv_plain(rc.bnin_plain(x, a, bp)[0], w)
+    flat = torch.relu(bp).to(x.dtype)[None, :, None, None].expand(1, cin, 8, 8)
+    yc = rc.reflect_conv_plain(flat.contiguous(), w)[0, :, 0, 0].float()
+    empty = 128 * 2 - 3 * 64
+    fault = (s1 + empty * yc, s2 + empty * yc * yc)
+    return dict(
+        ragged_y=float((y.float() - y_ref.float()).abs().max()
+                       / y_ref.float().abs().max()),
+        ragged_moments_own=moment_err(s1, s2, y),
+        ragged_moments_ref=moment_err(s1, s2, y_ref),
+        planted_ragged_relu_b=min(moment_err(*fault, y),
+                                  moment_err(*fault, y_ref)))
 
 
 def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
@@ -742,15 +877,23 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
     ``x*a + b > 0`` with the product rounded first: an element whose
     pre-activation lies within one f32 rounding of 0 may be gated
     differently and then moves one dx entry by a whole dxn entry; the share
-    of such elements is printed. Two runs of #7 (dx, da, db) and of #8 must
-    be bitwise equal, and three faults planted in the kernels' own outputs
-    must fail the checks: dx with the gate dropped on image 0's row 0; da
+    of such elements is printed. Two runs of #6 (y, s1, s2), of #7 (dx, da,
+    db) and of #8 must be bitwise equal, and faults planted in the kernels'
+    own outputs must fail the checks: #6's y without the ReLU on channels
+    0-7; dx with the gate dropped on image 0's row 0; da
     and db without the last 8 rows of every 128-pixel tile (a row group of
     the block's sums lost; one whole tile left out is also printed, but at
     the flagship it is 1/1568 of a channel's pixels and may pass); dW with
     the ReLU left out of channels 0-7 (the rebuild of one 16-byte vector
-    of x). ``ms["prev_dx_bnin"]``, ``ms["prev_dw_bnin"]``: the previous
-    design of #7 and #8 (``rconv.cu``) on the same inputs. ``plain_ms``:
+    of x). #6 also runs on a ragged last tile (3 images of 8x8: 64 of the
+    second tile's 128 rows lie past M) with ``b > 0`` on every channel:
+    its moments per channel within ``MOM_TOL["own"]`` of its own y and
+    ``RAGGED_MOM_TOL`` of the plain y, and the same moments with the 64
+    empty rows counted as ``relu(b)`` (the conv of a constant ``relu(b)``
+    image, as zero-filled slab vectors rebuilt as ``relu(b)`` would give)
+    must fail. ``ms["prev_fwd_bnin_stats"]``, ``ms["prev_dx_bnin"]``,
+    ``ms["prev_dw_bnin"]``: the previous design of #6, #7 and #8
+    (``rconv.cu``) on the same inputs. ``plain_ms``:
     the plain version as the wrappers call it (the f32 affine + ReLU pass,
     ``F.pad`` + ``conv2d`` and the sums; backward: the f32 conv's input
     gradient with the gate and sums, and autograd's dW of the rebuilt xn).
@@ -768,9 +911,11 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
     y, s1, s2 = rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
     dx, da, db = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
     dw = rc.reflect_conv_dw_bnin(x, a, b, gy, w)
-    again = (*rc.reflect_conv_dx_bnin(gy, w, x, a, b),
+    again = (*rc.reflect_conv_fwd_bnin_stats(x, a, b, w),
+             *rc.reflect_conv_dx_bnin(gy, w, x, a, b),
              rc.reflect_conv_dw_bnin(x, a, b, gy, w))
-    prev = (*prev_dx_bnin(gy, w, x, ab), prev_dw_bnin(x, ab, gy, w))
+    prev = (*prev_dx_bnin(gy, w, x, ab), prev_dw_bnin(x, ab, gy, w),
+            *prev_fwd_stats(x, w, ab))
     xn, gate = rc.bnin_plain(x, a, b)
     y_ref = rc.reflect_conv_plain(xn, w)
     dx_ref, da_ref, db_ref = rc.reflect_conv_dx_bnin_plain(gy, w, x, a, b)
@@ -809,7 +954,9 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
     xneg[:, :8] = torch.clamp_max(xf[:, :8] * av[:, :8] + b[None, :8, None, None],
                                   0.0).to(x.dtype)
     dw_fault = dw.float() + rc.reflect_conv_plain_bwd(xneg, w, gy)[1].float()
+    y_fault = y.float() + rc.reflect_conv_plain(xneg, w).float()
     del xneg, dxn0
+    ragged = ragged_bnin_moments(cin, a, b, w)
 
     def rel(p, q):
         return float((p.float() - q.float()).abs().max() / q.float().abs().max())
@@ -822,7 +969,9 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
                db=float(((db - db_ref).abs() / mass_b.clamp_min(1e-30)).max()),
                gate_share=float(gate.float().mean()), gate_flips=flips,
                bnin_repeat_equal=all(torch.equal(p, q) for p, q in
-                                     zip((dx, da, db, dw), again)),
+                                     zip((y, s1, s2, dx, da, db, dw), again)),
+               planted_y_relu=rel(y_fault, y_ref),
+               **ragged,
                planted_dx_gate=rel(dx_fault, dx_ref),
                planted_dab_rows=dab_err(*left_out(pix >= 120)),
                planted_dab_tile=dab_err(*left_out(torch.arange(
@@ -830,8 +979,10 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
                planted_dw_relu=rel(dw_fault, dw_ref),
                prev_dx_bnin=rel(prev[0], dx_ref),
                prev_dab=dab_err(prev[1], prev[2]),
-               prev_dw_bnin=rel(prev[3], dw_ref))
-    del dx_fault, dxg_k, pix, dw_fault, xf, again, prev
+               prev_dw_bnin=rel(prev[3], dw_ref),
+               prev_fwd_bnin_stats=rel(prev[4], y_ref),
+               prev_bnin_moments_ref=moment_err(prev[5], prev[6], y_ref))
+    del dx_fault, dxg_k, pix, dw_fault, y_fault, xf, again, prev
     m1, m2 = rc.moments_plain(y_ref)
     abs_err = dict(
         fwd_bnin_stats=float(max((y.float() - y_ref.float()).abs().max(),
@@ -845,6 +996,9 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
           and err["bnin_moments_ref"] <= MOM_TOL["ref"]
           and err["da"] <= DAB_TOL and err["db"] <= DAB_TOL
           and 0.2 < err["gate_share"] < 0.8 and err["bnin_repeat_equal"]
+          and err["ragged_y"] <= 1e-2
+          and err["ragged_moments_own"] <= MOM_TOL["own"]
+          and err["ragged_moments_ref"] <= RAGGED_MOM_TOL
           and all(torch.isfinite(t.float()).all() for t in
                   (y, s1, s2, dx, da, db, dw)))
     print(f"BN-input kernels vs plain at {tag}: share of xn > 0 "
@@ -855,19 +1009,28 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
           f"{err['bnin_moments_ref']:.2e} of the plain y; da {err['da']:.2e}, "
           f"db {err['db']:.2e} of each channel's sum |dxn*g*x|, sum |dxn*g| "
           f"(tolerance: y, dW 1e-2, dx 2e-2; moments {MOM_TOL}; da, db "
-          f"{DAB_TOL}); two runs of #7 and #8 bitwise equal: "
-          f"{err['bnin_repeat_equal']}; planted faults: dx without the gate "
+          f"{DAB_TOL}); two runs of #6, #7 and #8 bitwise equal: "
+          f"{err['bnin_repeat_equal']}; #6 on a ragged tile with b > 0: y "
+          f"{err['ragged_y']:.2e}, moments {err['ragged_moments_own']:.2e} of "
+          f"its y, {err['ragged_moments_ref']:.2e} of the plain y (tolerance "
+          f"{RAGGED_MOM_TOL}); planted faults: #6's y without the ReLU on "
+          f"channels 0-7 {err['planted_y_relu']:.2e}, its ragged moments with "
+          f"the empty rows as relu(b) {err['planted_ragged_relu_b']:.2e}, dx "
+          f"without the gate "
           f"on image 0's row 0 {err['planted_dx_gate']:.2e}, da/db without "
           f"the last 8 rows of every tile {err['planted_dab_rows']:.2e} "
           f"(without tile 0 alone {err['planted_dab_tile']:.2e}), dW without "
           f"the ReLU on channels 0-7 {err['planted_dw_relu']:.2e}; previous "
-          f"design dx {err['prev_dx_bnin']:.2e}, da/db {err['prev_dab']:.2e}, "
-          f"dW {err['prev_dw_bnin']:.2e}", flush=True)
+          f"design y {err['prev_fwd_bnin_stats']:.2e}, moments "
+          f"{err['prev_bnin_moments_ref']:.2e}, dx {err['prev_dx_bnin']:.2e}, "
+          f"da/db {err['prev_dab']:.2e}, dW {err['prev_dw_bnin']:.2e}",
+          flush=True)
     if not ok:
         fail(f"BN-input kernels disagree with their plain version at {tag}: "
              f"{err}")
     if (err["planted_dx_gate"] <= 2e-2 or err["planted_dab_rows"] <= DAB_TOL
-            or err["planted_dw_relu"] <= 1e-2):
+            or err["planted_dw_relu"] <= 1e-2 or err["planted_y_relu"] <= 1e-2
+            or err["planted_ragged_relu_b"] <= RAGGED_MOM_TOL):
         fail(f"the BN-input checks pass a planted fault at {tag}: {err}")
     del y, dx, dw, xn, gate, y_ref, dx_ref, dw_ref
 
@@ -884,6 +1047,7 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
             lambda: rc.reflect_conv_fwd_bnin_stats(x, a, b, w), reps),
         dx_bnin=cuda_ms(lambda: rc.reflect_conv_dx_bnin(gy, w, x, a, b), reps),
         dw_bnin=cuda_ms(lambda: rc.reflect_conv_dw_bnin(x, a, b, gy, w), reps),
+        prev_fwd_bnin_stats=cuda_ms(lambda: prev_fwd_stats(x, w, ab), reps),
         prev_dx_bnin=cuda_ms(lambda: prev_dx_bnin(gy, w, x, ab), reps),
         prev_dw_bnin=cuda_ms(lambda: prev_dw_bnin(x, ab, gy, w), reps))
     plain = dict(
@@ -904,8 +1068,7 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
     del yy, leaves
     bounds = rconv_bounds(x.shape[0], cin, w.shape[0], *x.shape[2:])
     for name in ("fwd_bnin_stats", "dx_bnin", "dw_bnin"):
-        was = (f", previous design {times['prev_' + name]:8.3f}"
-               if name != "fwd_bnin_stats" else "")
+        was = f", previous design {times['prev_' + name]:8.3f}"
         print(f"  {name:14s} {times[name]:8.3f} ms{was} (plain "
               f"{plain[name]:8.3f}, library {library[name]:8.3f}, bound "
               f"{bounds[name]['bound_ms']:.3f} by {bounds[name]['bound_by']})",
@@ -1587,8 +1750,17 @@ def main() -> int:
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("registers", "spill", "smem", "C75")):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    # the slab library's build log, kept beside it: also when an earlier
+    # process built it
+    slab_log = _build.build_log("rconv_slab")
+    verdicts = wgmma_verdicts(slab_log or "")
+    if slab_log is None:
+        print("  ptxas wgmma verdicts absent: rconv_slab's library has no "
+              "kept build log", flush=True)
+    for kernel, verdict in verdicts.items():
+        print(f"  ptxas wgmma verdict {kernel}: {verdict}", flush=True)
 
     if only:
         for name in only:
@@ -1627,7 +1799,8 @@ def main() -> int:
             ms=flag[f"{d}_ms"], plain_ms=flag[f"plain_{d}_ms"],
             bound_ms=flag["bounds"][d]["bound_ms"],
             bound_by=flag["bounds"][d]["bound_by"], library_ms=None))
-    # #4 runs on the route-on, BN-unfused path; the other six on the default
+    # #4 runs on the route-on, BN-unfused path; the other six on the default.
+    # #4 is rconv.cu's; the other six rconv_slab.cu's
     rflag = rconv["flagship"]
     for name, line, arm in (("fwd", 224, "on+off"), ("fwd_stats", 291, "auto+auto"),
                             ("fwd_bnin_stats", 401, "auto+auto"),
@@ -1637,7 +1810,7 @@ def main() -> int:
         kernels.append(dict(
             name=f"reflect_conv_{name}", route="cuda",
             source="videowalk_tpu_torch/ops/csrc/"
-                   + ("rconv.cu" if name.startswith("fwd") else "rconv_bwd.cu"),
+                   + ("rconv.cu" if name == "fwd" else "rconv_slab.cu"),
             replaces=f"videowalk_tpu/ops/rconv_kernel.py:{line}",
             launches=train[arm]["launches"][name],
             max_abs_err=rflag["abs_err"][name], ms=rflag["ms"][name],
@@ -1670,7 +1843,8 @@ def main() -> int:
                            rconv=rconv, train=train, small_train=small_train,
                            slic=slic_res, dilation=dil, sp_train=sp_train,
                            small_sp_train=small_sp_train,
-                           kernels=kernels, ptxas=logs), fh, indent=1)
+                           kernels=kernels, ptxas=logs,
+                           wgmma_verdicts=verdicts), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

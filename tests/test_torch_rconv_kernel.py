@@ -1,6 +1,6 @@
 """The reflect-conv kernels (``videowalk_tpu_torch/ops/rconv.py`` →
-``ops/csrc/rconv.cu``, and ``ops/csrc/rconv_bwd.cu`` for bf16 dx and dW of
-the plain conv and of the BN-input chain): on
+``ops/csrc/rconv.cu``, and ``ops/csrc/rconv_slab.cu`` for bf16 forward
+with moments, dx and dW of the plain conv and of the BN-input chain): on
 the card (``-m cuda``, skipped without one) each of forward (#4), forward
 with moments (#5), dx (#9), dW (#10) and the BN-input chain's forward (#6),
 dx with da/db (#7) and dW (#8) against the plain PyTorch version on the same
@@ -32,6 +32,9 @@ channel; largest reading 9.0e-4) of that channel's Σ|dxn·g·x| and
 Σ|dxn·g|.
 
 Runs on the card's machine with ``--noconftest`` (no jax there)."""
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -97,6 +100,60 @@ def test_wrappers_refuse_other_devices():
             call()
 
 
+def test_build_keeps_the_ptxas_log_beside_the_library(monkeypatch, tmp_path):
+    """Each built library keeps nvcc's output (the ptxas report that
+    ``chip_smoke.py`` reads ``wgmma`` verdicts from) beside it, so a later
+    process that finds the library built still reads its log."""
+    from videowalk_tpu_torch.ops import _build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\n"
+                    "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+                    "echo \"ptxas info    : Used 90 registers\"\n"
+                    ": > \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    assert _build.build_log("rconv_slab") is None
+    logs = _build.build_all(["rconv_slab"])
+    assert logs == {"rconv_slab": "ptxas info    : Used 90 registers\n"}
+    assert _build.build_all(["rconv_slab"]) == {}     # up to date: not rebuilt
+    assert _build.build_log("rconv_slab") == logs["rconv_slab"]
+    lib, _ = _build._target("rconv_slab")
+    os.unlink(lib)
+    assert _build.build_log("rconv_slab") is None     # a log without its library
+
+
+def test_wgmma_verdicts_read_a_ptxas_log():
+    """``chip_smoke.py`` names each slab kernel's instantiation and whether
+    ptxas serialized its ``wgmma`` (C7515), from ptxas's own lines."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    fn = ("_ZN46_GLOBAL__N__3f08cc69_13_rconv_slab_cu_1d4e251213rconv_slab_px"
+          "ILi128ELi2EEEvPK13__nv_bfloat16S3_PS1_NS_5PxAuxENS_3GeoEiii")
+    log = "\n".join((
+        f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'",
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to non wgmma instructions defining "
+        f"accumulator registers in the function '{fn}'",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113"
+        "rconv_slab_pxILi64ELi0EEEvPK13__nv_bfloat16' for 'sm_90a'",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113"
+        "rconv_slab_dwILb1EEEvPK13__nv_bfloat16' for 'sm_90a'",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111"
+        "reduce_rowsILi8EEEvPKfPfix' for 'sm_90a'"))
+    assert smoke.px_modes() == ["DX", "DX_BNIN", "FWD_STATS", "FWD_BNIN_STATS"]
+    got = smoke.wgmma_verdicts(log)
+    assert set(got) == {"rconv_slab_px<128, FWD_STATS>", "rconv_slab_px<64, DX>",
+                        "rconv_slab_dw<true>"}
+    assert got["rconv_slab_px<128, FWD_STATS>"].startswith("serialized (C7515")
+    assert got["rconv_slab_px<64, DX>"] == "not serialized"
+    assert got["rconv_slab_dw<true>"] == "not serialized"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("N,cin,cout,H,W", [
@@ -110,6 +167,8 @@ def test_wrappers_refuse_other_devices():
     (3, 200, 72, 32, 32),        # Cin, Cout not a multiple of any tile
     (1, 136, 520, 8, 32),        # W = 32 on 8 rows, ragged channel tiles
     (2, 512, 512, 16, 16),       # 16x16 bands of whole rows
+    (3, 24, 64, 8, 8),           # a channel tail inside a K chunk, the
+                                 # narrow tile, M = 192: a ragged last tile
 ])
 def test_kernels_match_plain_on_card(N, cin, cout, H, W, dtype):
     _need_card()
@@ -129,15 +188,18 @@ def test_kernels_match_plain_on_card(N, cin, cout, H, W, dtype):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
     assert y.dtype == ys.dtype == dx.dtype == dw.dtype == dtype
     assert y.is_contiguous(memory_format=torch.channels_last)
-    assert torch.equal(y, ys)
+    if dtype == torch.float32:
+        assert torch.equal(y, ys)        # one engine: the same sums
     _close("y", y, y_ref, tol["y"])
+    _close("ys", ys, y_ref, tol["y"])
     _close("dx", dx, dx_ref, tol["dx"])
     _close("dw", dw, dw_ref, tol["dw"])
     # moments per channel, of the kernel's own cast y and of the plain y
     assert _moment_err(s1, s2, ys) <= tol["mom"]
     assert _moment_err(s1, s2, y_ref) <= tol["mom_ref"]
     # deterministic: no atomics in the moment or dW reductions
-    _, s1b, s2b = rc.reflect_conv_fwd_stats(x, w)
+    ysb, s1b, s2b = rc.reflect_conv_fwd_stats(x, w)
+    assert torch.equal(ys, ysb)
     assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
     assert torch.equal(dw, rc.reflect_conv_dw(x, gy, w))
 
@@ -162,7 +224,7 @@ def test_corner_legs_of_dx_on_card():
 @pytest.mark.parametrize("H,W", [(8, 8), (16, 16), (32, 32), (8, 32)])
 def test_corner_legs_of_bf16_dx_on_card(H, W):
     """The same one-hot gradients at every border pixel of a map, in bf16
-    on ``rconv_bwd.cu``'s leg sums: small integers in gy and w, so every
+    on ``rconv_slab.cu``'s leg sums: small integers in gy and w, so every
     product, leg sum and f32 sum is exact; the kernel rounds the exact
     integer to bf16 once, as ``want.bfloat16()`` does."""
     _need_card()
@@ -211,21 +273,68 @@ class _Spy:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W", [(33, 8, 8), (6, 32, 32)])
+def test_forward_stats_repeat_bitwise_on_card(N, H, W):
+    """bf16 #5 and #6 over many 128-pixel tiles: two runs of y, s1 and s2
+    are bitwise equal (fixed-order row-group and per-tile sums, no float
+    atomics)."""
+    _need_card()
+    x, w, _ = _inputs(N, 512, 512, H, W, torch.bfloat16, seed=24)
+    a, b = _affine(512, seed=25)
+    first = (*rc.reflect_conv_fwd_stats(x, w),
+             *rc.reflect_conv_fwd_bnin_stats(x, a, b, w))
+    for _ in range(2):
+        again = (*rc.reflect_conv_fwd_stats(x, w),
+                 *rc.reflect_conv_fwd_bnin_stats(x, a, b, w))
+        assert all(torch.equal(p, q) for p, q in zip(first, again))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,entries", [
-    (torch.bfloat16, ("rconv_bwd_dx_launch", "rconv_bwd_dw_launch",
-                      "rconv_bwd_dx_bnin_launch", "rconv_bwd_dw_bnin_launch")),
+    (torch.bfloat16, ("rconv_fwd_launch", "rconv_slab_fwd_stats_launch",
+                      "rconv_slab_fwd_bnin_stats_launch")),
+    (torch.float32, ("rconv_fwd_launch", "rconv_fwd_launch",
+                     "rconv_fwd_bnin_launch")),
+])
+def test_forward_engine_by_dtype_on_card(dtype, entries, monkeypatch):
+    """bf16 forwards with moments, of the plain conv (#5) and of the
+    BN-input chain (#6), launch ``rconv_slab.cu``'s kernels; bf16 #4 and
+    every f32 forward stay on ``rconv.cu``'s engine; each wrapper counts
+    one launch either way."""
+    _need_card()
+    log = []
+    lib, slab_lib = rc._lib(), rc._slab_lib()
+    monkeypatch.setattr(rc, "_lib", lambda: _Spy(lib, log))
+    monkeypatch.setattr(rc, "_slab_lib", lambda: _Spy(slab_lib, log))
+    x, w, _ = _inputs(2, 64, 64, 8, 8, dtype, seed=5)
+    a, b = _affine(64, seed=6)
+    wrappers = (rc.reflect_conv_fwd, rc.reflect_conv_fwd_stats,
+                rc.reflect_conv_fwd_bnin_stats)
+    before = [f.launches for f in wrappers]
+    rc.reflect_conv_fwd(x, w)
+    rc.reflect_conv_fwd_stats(x, w)
+    rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
+    torch.cuda.synchronize()
+    assert tuple(n for n in log if n.endswith("_launch")) == entries
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,entries", [
+    (torch.bfloat16, ("rconv_slab_dx_launch", "rconv_slab_dw_launch",
+                      "rconv_slab_dx_bnin_launch", "rconv_slab_dw_bnin_launch")),
     (torch.float32, ("rconv_dx_launch", "rconv_dw_launch",
                      "rconv_dx_bnin_launch", "rconv_dw_bnin_launch")),
 ])
 def test_backward_engine_by_dtype_on_card(dtype, entries, monkeypatch):
     """bf16 dx and dW of the plain conv (#9, #10) and of the BN-input chain
-    (#7, #8) launch ``rconv_bwd.cu``'s kernels, f32 ones stay on
+    (#7, #8) launch ``rconv_slab.cu``'s kernels, f32 ones stay on
     ``rconv.cu``'s engine; each wrapper counts one launch either way."""
     _need_card()
     log = []
-    lib, bwd_lib = rc._lib(), rc._bwd_lib()
+    lib, slab_lib = rc._lib(), rc._slab_lib()
     monkeypatch.setattr(rc, "_lib", lambda: _Spy(lib, log))
-    monkeypatch.setattr(rc, "_bwd_lib", lambda: _Spy(bwd_lib, log))
+    monkeypatch.setattr(rc, "_slab_lib", lambda: _Spy(slab_lib, log))
     x, w, gy = _inputs(2, 64, 64, 8, 8, dtype, seed=5)
     a, b = _affine(64, seed=6)
     wrappers = (rc.reflect_conv_dx, rc.reflect_conv_dw,
@@ -334,6 +443,8 @@ def _dab_err(da, db, gy, w, x, a, b):
     (3, 256, 128, 8, 8),         # Cout < Cin
     (2, 64, 64, 32, 32),         # 32x32 maps
     (3, 24, 40, 16, 8),          # channel tails, H != W
+    (3, 24, 64, 8, 8),           # a channel tail inside a K chunk, the
+                                 # narrow tile, M = 192: a ragged last tile
 ])
 def test_bnin_kernels_match_plain_on_card(N, cin, cout, H, W, dtype):
     _need_card()
@@ -362,7 +473,8 @@ def test_bnin_kernels_match_plain_on_card(N, cin, cout, H, W, dtype):
     assert _moment_err(s1, s2, y_ref) <= tol["mom_ref"]
     assert _dab_err(da, db, gy, w, x, a, b) <= AB_TOL[dtype]
     # deterministic: no atomics in the moment, da/db or dW reductions
-    _, s1b, s2b = rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
+    yb, s1b, s2b = rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
+    assert torch.equal(y, yb)
     _, dab, dbb = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
     assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
     assert torch.equal(da, dab) and torch.equal(db, dbb)
@@ -384,6 +496,26 @@ def test_bnin_backward_repeats_bitwise_on_card(N, H, W):
         again = (*rc.reflect_conv_dx_bnin(gy, w, x, a, b),
                  rc.reflect_conv_dw_bnin(x, a, b, gy, w))
         assert all(torch.equal(p, q) for p, q in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bnin_forward_positive_b_ragged_tile_on_card(dtype):
+    """#6 with ``b > 0`` on every channel, so ``relu(b)`` is nonzero
+    everywhere, on 3 images of 8x8 (192 pixels: the last tile is ragged):
+    its moments match the plain version per channel, so no empty row of
+    the ragged tile and no zero-filled operand vector became ``relu(b)``
+    (64 such rows would move a channel's sums by ~30%)."""
+    _need_card()
+    tol = TOL[dtype]
+    x, w, _ = _inputs(3, 24, 64, 8, 8, dtype, seed=26)
+    a, b = _affine(24, seed=27)
+    b = b.abs() + 0.1
+    y_ref = rc.reflect_conv_plain(rc.bnin_plain(x, a, b)[0], w)
+    y, s1, s2 = rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
+    _close("y", y, y_ref, tol["y"])
+    assert _moment_err(s1, s2, y) <= tol["mom"]
+    assert _moment_err(s1, s2, y_ref) <= tol["mom_ref"]
 
 
 @pytest.mark.cuda

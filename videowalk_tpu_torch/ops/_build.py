@@ -6,7 +6,8 @@ Each ``csrc/<name>.cu`` compiles on its own into ``_build/lib<name>-<hash>.so``
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-(``-Xptxas -v`` reports each kernel's registers and spills.)
+(``-Xptxas -v`` reports each kernel's registers and spills; the report is
+kept beside the library as ``lib<name>-<hash>.log``, ``build_log``.)
 The hash is of the source and the flags, so an edited source never loads a
 stale library. The build happens at first use (``load``), or for every
 source at once with one ``nvcc`` each, all started together (``build_all``).
@@ -82,10 +83,28 @@ def build_all(names=None) -> dict[str, str]:
             os.unlink(tmp)
             failed.append(f"{name}.cu (nvcc exit {p.returncode}):\n{out}")
         else:
+            with open(_log_path(lib), "w") as fh:
+                fh.write(out)
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return logs
+
+
+def _log_path(lib: str) -> str:
+    return lib[:-len(".so")] + ".log"
+
+
+def build_log(name: str) -> str | None:
+    """nvcc's output of the build of ``csrc/<name>.cu``'s up-to-date
+    library (also when it was built by an earlier process), or None where
+    there is no such library or it was built without its log."""
+    lib, _ = _target(name)
+    path = _log_path(lib)
+    if not (os.path.isfile(lib) and os.path.isfile(path)):
+        return None
+    with open(path) as fh:
+        return fh.read()
 
 
 def load(name: str) -> ctypes.CDLL:

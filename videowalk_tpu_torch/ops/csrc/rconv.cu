@@ -5,12 +5,12 @@
 //
 // Replaces the Pallas TPU kernels of videowalk_tpu/ops/rconv_kernel.py:
 //   #4  _fwd_call    :240 -> _fwd_kernel     :224   (rconv_gemm<.., FWD>)
-//   #5  _fwd_call_st :319 -> _fwd_kernel_st  :291   (rconv_gemm<.., FWD_STATS>
+// and, for f32 operands only, the kernels whose bf16 versions are
+// rconv_slab.cu's:
+//   #5  _fwd_call_st :319 -> _fwd_kernel_st  :291   (rconv_gemm<float, FWD_STATS>
 //                                                     + reduce_rows)
 //   #6  _fwd_call_bnin_st :440 -> _fwd_kernel_bnin_st :401
-//                                   (rconv_gemm<.., FWD_BNIN_STATS> + reduce_rows)
-// and, for f32 operands only, the backward kernels whose bf16 versions are
-// rconv_bwd.cu's:
+//                                   (rconv_gemm<float, FWD_BNIN_STATS> + reduce_rows)
 //   #9  _dx_call     :633 -> _dx_kernel      :607   (rconv_gemm<float, DX>)
 //   #10 _dw_call     :682 -> _dw_kernel      :660   (rconv_gemm<float, DW>
 //                                                     + reduce_rows)
@@ -19,10 +19,11 @@
 //   #8  _dw_call_bnin :573 -> _dw_kernel_bnin :553
 //                                   (rconv_gemm<float, DW_BNIN> + reduce_rows)
 // rconv_dx_launch / rconv_dw_launch take f32 only (a bf16 call returns
-// cudaErrorNotSupported). The bf16 DX_BNIN / DW_BNIN modes are no route's:
-// ops/rconv.py sends bf16 #7 and #8 to rconv_bwd.cu; they stay only as
-// chip_smoke.py's same-call yardstick of the previous design, and go, with
-// this engine's bf16 paths, when #4-#6 leave it.
+// cudaErrorNotSupported). The bf16 FWD_STATS, FWD_BNIN_STATS, DX_BNIN and
+// DW_BNIN modes are no route's: ops/rconv.py sends bf16 #5-#8 to
+// rconv_slab.cu; they stay only as chip_smoke.py's same-call yardstick of
+// the previous design, and go, with this engine's bf16 paths, when #4
+// leaves it.
 // Built from what they compute, not from the TPU's flat-roll/select chain
 // (which exists for the sublane layout). y = conv_valid(reflect_pad(x, 1), w)
 // with torch 'reflect' semantics: pad row -1 mirrors row 1, row H mirrors
@@ -737,7 +738,7 @@ cudaError_t conv(int dtype, const void* a, const void* w, void* out, float* part
   const int mtiles = conv_mtiles(dtype, g);
   if (dtype == 1) {
     if constexpr (MODE == DX) {
-      return cudaErrorNotSupported;      // bf16 dx: rconv_bwd.cu
+      return cudaErrorNotSupported;      // bf16 dx: rconv_slab.cu
     } else {
       if (g.nc <= 64)
         return launch_gemm<__nv_bfloat16, 128, 64, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
@@ -769,7 +770,7 @@ cudaError_t dw(int dtype, const void* x, const void* gy, float* p, void* dwo,
   cudaError_t e;
   if (dtype == 1) {
     if constexpr (MODE == DW) {
-      return cudaErrorNotSupported;      // bf16 dW: rconv_bwd.cu
+      return cudaErrorNotSupported;      // bf16 dW: rconv_slab.cu
     } else {
       if (bm == 128 && dw_bn(dtype, cout) == 128)
         e = launch_gemm<__nv_bfloat16, 128, 128, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);

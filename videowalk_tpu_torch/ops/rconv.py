@@ -40,11 +40,10 @@ Each wrapper (``reflect_conv_fwd``, ``reflect_conv_fwd_stats``,
 version
 (``F.pad(mode="reflect")`` + ``conv2d`` in the input's dtype, its f32 sums,
 and autograd of the same) for a tensor on the CPU, and launches a
-hand-written Hopper kernel for a CUDA tensor, or raises: ``csrc/rconv.cu``
-for the forward kernels #4–#6 and for f32 #7–#10, ``csrc/rconv_bwd.cu`` (one
-landed slab of whole image rows feeding all nine taps) for bf16 dx (#9) and
-dW (#10) and the chain's bf16 dx with da/db (#7) and dW (#8). Each counts
-its kernel launches in ``.launches``.
+hand-written Hopper kernel for a CUDA tensor, or raises:
+``csrc/rconv_slab.cu`` (one landed slab of whole image rows feeding all
+nine taps, ``wgmma``) for bf16 #5–#10, ``csrc/rconv.cu`` for bf16 #4 and
+every f32 kernel. Each counts its kernel launches in ``.launches``.
 
 Bound on the card at the flagship's routed shape (layer4 interior, 3136
 images of 8x8, Cin = Cout = 512, bf16): each pass is 0.947 TFLOP, 0.96 ms
@@ -151,24 +150,28 @@ def _lib():
     return lib
 
 
-def _bwd_lib():
+def _slab_lib():
     from videowalk_tpu_torch.ops import _build
 
-    lib = _build.load("rconv_bwd")
-    if lib.rconv_bwd_dx_launch.argtypes is None:
+    lib = _build.load("rconv_slab")
+    if lib.rconv_slab_dx_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rconv_bwd_dx_launch.argtypes = [p] * 3 + [i] * 5 + [p]
-        lib.rconv_bwd_dx_launch.restype = i
-        lib.rconv_bwd_dw_splits.argtypes = [i] * 5
-        lib.rconv_bwd_dw_splits.restype = i
-        lib.rconv_bwd_dw_launch.argtypes = [p] * 4 + [i] * 6 + [p]
-        lib.rconv_bwd_dw_launch.restype = i
-        lib.rconv_bwd_dx_bm.argtypes = []
-        lib.rconv_bwd_dx_bm.restype = i
-        lib.rconv_bwd_dx_bnin_launch.argtypes = [p] * 7 + [i] * 5 + [p]
-        lib.rconv_bwd_dx_bnin_launch.restype = i
-        lib.rconv_bwd_dw_bnin_launch.argtypes = [p] * 5 + [i] * 6 + [p]
-        lib.rconv_bwd_dw_bnin_launch.restype = i
+        lib.rconv_slab_bm.argtypes = []
+        lib.rconv_slab_bm.restype = i
+        lib.rconv_slab_fwd_stats_launch.argtypes = [p] * 5 + [i] * 5 + [p]
+        lib.rconv_slab_fwd_stats_launch.restype = i
+        lib.rconv_slab_fwd_bnin_stats_launch.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.rconv_slab_fwd_bnin_stats_launch.restype = i
+        lib.rconv_slab_dx_launch.argtypes = [p] * 3 + [i] * 5 + [p]
+        lib.rconv_slab_dx_launch.restype = i
+        lib.rconv_slab_dx_bnin_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.rconv_slab_dx_bnin_launch.restype = i
+        lib.rconv_slab_dw_splits.argtypes = [i] * 5
+        lib.rconv_slab_dw_splits.restype = i
+        lib.rconv_slab_dw_launch.argtypes = [p] * 4 + [i] * 6 + [p]
+        lib.rconv_slab_dw_launch.restype = i
+        lib.rconv_slab_dw_bnin_launch.argtypes = [p] * 5 + [i] * 6 + [p]
+        lib.rconv_slab_dw_bnin_launch.restype = i
     return lib
 
 
@@ -244,19 +247,29 @@ def _fwd(name: str, x: torch.Tensor, w: torch.Tensor, stats: bool,
     cout = w.shape[0]
     if ab is not None:
         ab = _pack_ab(name, *ab, x)
-    lib = _lib()
     dt = _DTYPES[x.dtype]
+    slab = stats and x.dtype == torch.bfloat16   # rconv_slab.cu's #5 / #6
+    lib = _slab_lib() if slab else _lib()
     w9 = w.permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
     y = _nhwc_empty(N, cout, H, W, x)
     f32 = dict(dtype=torch.float32, device=x.device)
     if stats:
-        mtiles = -(-N * H * W // int(lib.rconv_conv_bm(dt)))
-        part = torch.empty((mtiles, 2, cout), **f32)
+        bm = lib.rconv_slab_bm() if slab else lib.rconv_conv_bm(dt)
+        part = torch.empty((-(-N * H * W // int(bm)), 2, cout), **f32)
         s12 = torch.empty((2, cout), **f32)
     else:
         part = s12 = torch.empty((0,), **f32)
     with torch.cuda.device(x.device):
-        if ab is None:
+        if slab and ab is None:
+            err = lib.rconv_slab_fwd_stats_launch(
+                x.data_ptr(), w9.data_ptr(), y.data_ptr(), part.data_ptr(),
+                s12.data_ptr(), N, H, W, cin, cout, _stream(x))
+        elif slab:
+            err = lib.rconv_slab_fwd_bnin_stats_launch(
+                x.data_ptr(), ab.data_ptr(), w9.data_ptr(), y.data_ptr(),
+                part.data_ptr(), s12.data_ptr(), N, H, W, cin, cout,
+                _stream(x))
+        elif ab is None:
             err = lib.rconv_fwd_launch(
                 x.data_ptr(), w9.data_ptr(), y.data_ptr(), part.data_ptr(),
                 s12.data_ptr(), dt, N, H, W, cin, cout, int(stats),
@@ -327,18 +340,18 @@ def _dx(name: str, gy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     if ab is not None:
         ab = _pack_ab(name, *ab, x)
     dt = _DTYPES[gy.dtype]
-    slab = gy.dtype == torch.bfloat16     # rconv_bwd.cu's #9 / #7
-    lib = _bwd_lib() if slab else _lib()
+    slab = gy.dtype == torch.bfloat16     # rconv_slab.cu's #9 / #7
+    lib = _slab_lib() if slab else _lib()
     w9t = w.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
     dx = _nhwc_empty(N, cin, H, W, gy)
     if ab is not None:
         f32 = dict(dtype=torch.float32, device=gy.device)
-        bm = lib.rconv_bwd_dx_bm() if slab else lib.rconv_conv_bm(dt)
+        bm = lib.rconv_slab_bm() if slab else lib.rconv_conv_bm(dt)
         part = torch.empty((-(-N * H * W // int(bm)), 2, cin), **f32)
         dab = torch.empty((2, cin), **f32)
     with torch.cuda.device(gy.device):
         if ab is None and slab:
-            err = lib.rconv_bwd_dx_launch(
+            err = lib.rconv_slab_dx_launch(
                 gy.data_ptr(), w9t.data_ptr(), dx.data_ptr(), N, H, W, cin,
                 cout, _stream(gy))
         elif ab is None:
@@ -346,7 +359,7 @@ def _dx(name: str, gy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
                                       dx.data_ptr(), dt, N, H, W, cin, cout,
                                       _stream(gy))
         elif slab:
-            err = lib.rconv_bwd_dx_bnin_launch(
+            err = lib.rconv_slab_dx_bnin_launch(
                 gy.data_ptr(), w9t.data_ptr(), x.data_ptr(), ab.data_ptr(),
                 dx.data_ptr(), part.data_ptr(), dab.data_ptr(), N, H, W, cin,
                 cout, _stream(gy))
@@ -401,20 +414,20 @@ def _dw(name: str, x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
     if ab is not None:
         ab = _pack_ab(name, *ab, x)
     dt = _DTYPES[x.dtype]
-    slab = x.dtype == torch.bfloat16      # rconv_bwd.cu's #10 / #8
-    lib = _bwd_lib() if slab else _lib()
-    splits = int(lib.rconv_bwd_dw_splits(N, H, W, cin, cout) if slab
+    slab = x.dtype == torch.bfloat16      # rconv_slab.cu's #10 / #8
+    lib = _slab_lib() if slab else _lib()
+    splits = int(lib.rconv_slab_dw_splits(N, H, W, cin, cout) if slab
                  else lib.rconv_dw_splits(dt, N, H, W, cin, cout))
     f32 = dict(dtype=torch.float32, device=x.device)
     part = torch.empty((splits, 9, cin, cout), **f32)
     dw9 = torch.empty((9, cin, cout), **f32)
     with torch.cuda.device(x.device):
         if ab is None and slab:
-            err = lib.rconv_bwd_dw_launch(
+            err = lib.rconv_slab_dw_launch(
                 x.data_ptr(), gy.data_ptr(), part.data_ptr(), dw9.data_ptr(),
                 N, H, W, cin, cout, splits, _stream(x))
         elif slab:
-            err = lib.rconv_bwd_dw_bnin_launch(
+            err = lib.rconv_slab_dw_bnin_launch(
                 x.data_ptr(), ab.data_ptr(), gy.data_ptr(), part.data_ptr(),
                 dw9.data_ptr(), N, H, W, cin, cout, splits, _stream(x))
         elif ab is None:

@@ -7,10 +7,14 @@ card.
 
 1. Prints the card's name and power limit, builds every CUDA kernel of
    ``videowalk_tpu_torch/ops/csrc`` (one nvcc each, started together).
-2. Holds the block-sparse top-k propagation kernel against its plain
-   PyTorch version at DAVIS-480p geometry (C=256, 60x107 maps, 1 long + 20
-   short context frames, k=10, r=12, T=0.05, 4 labels), target by target on
-   one shared label buffer, and times both with CUDA events.
+2. Holds the block-sparse top-k propagation kernel (f32 FMAs) against its
+   plain PyTorch version at DAVIS-480p geometry (C=256,
+   60x107 maps, 1 long + 20 short context frames, k=10, r=12, T=0.05, 4
+   labels), target by target on one shared label buffer, on random unit
+   features and on near-tie features (frames that are rolled copies of one
+   smooth texture plus 1e-7 noise), prints the share of queries whose top-k
+   ids differ, and times both with CUDA events beside two bounds (f32
+   products on the CUDA cores; the same as 3xTF32 on the tensor cores).
 3. Drives the eval slice end to end through ``cli.test.test()``: a seeded
    random-init ``scratch`` CRW (ResNet-18, layer4 removed, C=256) on a
    synthetic 480x854 video with moving squares and 3 labels, 20-frame
@@ -28,42 +32,42 @@ card.
    events; then times the fused walk (forward + backward) against
    ``core/walk.py``'s walk over T 4/8/10, N 48-128, C 128-512 at batch 8:
    the sweep that bounds ``fused_walk="auto"`` (``ops/walk.py``).
-6. Holds the reflect-conv kernels (``ops/csrc/rconv.cu``: forward #4;
-   ``ops/csrc/rconv_slab.cu``: forward with BN moments #5, dx #9 and dW
-   #10, and the BN-input chain's forward #6, which applies ``relu(a*x +
-   b)`` to its operand, dx with da/db #7 and dW #8) against their plain
+6. Holds the bf16 reflect-conv kernels (``ops/csrc/rconv_slab.cu``:
+   forward #4, forward with BN moments #5, dx #9 and dW #10, and the
+   BN-input chain's forward #6, which applies ``relu(a*x + b)`` to its
+   operand, dx with da/db #7 and dW #8) against their plain
    PyTorch version on bf16 inputs at the step's shapes (the layer4
    interior, 3136 images of 8x8 with 512 channels; layer1's 16x16x64; 8x8
    128->256; a 32x32x512 map; the superpixel step's 24 maps of 32x32x512
    and its patch arm's 1176 of 8x8x512), and #6 on a ragged last tile with
-   ``b > 0``; checks that two runs of #5, #6, dW, #7 and #8 are bitwise
-   equal and that planted faults fail (#5's y of a zero-padded conv, its
+   ``b > 0``; checks that two runs of #4, #5, #6, dW, #7 and #8 are bitwise
+   equal and that planted faults fail (#4's and #5's y of a zero-padded conv, #5's
    moments without s1 or without one tile; dx without the row-1 fold leg
    of the dy=0 taps; #6's y without the ReLU on one channel vector, its
    moments with the ragged tile's empty rows counted as ``relu(b)``; #7's
    dx without its gate on one row, its da/db without a row group of every
    tile; #8's dW without the ReLU on one channel vector); and times
-   kernel, the previous design of #5-#8 (``rconv.cu``'s engine, through
-   its C entries), plain version and the library call (``F.pad`` + cuDNN
+   kernel, plain version and the library call (``F.pad`` + cuDNN
    ``conv2d``; for each backward kernel alone, autograd of it for that
    kernel's inputs; for the chain after an elementwise affine + ReLU) with
    CUDA events. ptxas's verdict on each slab kernel: does it serialize
-   ``wgmma`` (C7513, C7515)?
+   ``wgmma`` (C7513, C7515)? (The parent tree's kernels are timed by
+   running its own ``--phases rconv`` from an unpacked copy in the same
+   call.)
 7. Drives the training slice: ``bench.py``'s flagship step (8-frame clips,
    batch 8, a 7x7 grid of 64 px patches, the ``scratch`` ResNet-18 with a
    bf16 trunk in BN-train mode, edge dropout 0.1, T 0.05, Adam lr 3e-4)
-   from a seeded init through ``make_train_step``, in six arms one after
+   from a seeded init through ``make_train_step``, in four arms one after
    another that differ only by the reflect-conv route: ``rconv='off'``
    (cuDNN), ``auto`` + ``bn_fuse='stats'``, the default ``auto`` +
-   ``auto`` (the BN-input chain), ``on`` + ``stats``, ``on`` + ``auto`` and
-   ``on`` + ``off``. Each arm takes 3 warm-up steps, then timed ones
+   ``auto`` (every supported conv routed, the BN-input chain) and ``on`` +
+   ``off`` (#4). Each arm takes 3 warm-up steps, then timed ones
    (``--steps`` for the default, 5 for the others) with every kernel count
    zeroed just before and read just after: every loss must be finite, each
    walk kernel launched once a step and each reflect-conv kernel as often
    as the route says. The default arm takes 3 more steps under
    ``torch.profiler``: device time by kernel and kind, idle share.
-8. A small f32 step with ``rconv='on'``, ``bn_fuse='auto'`` (64 px
-   patches) on the card against the same step on the CPU (plain versions),
+8. A small f32 step on the default routes (64 px patches) on the card against the same step on the CPU (plain versions),
    same weights and edge-drop masks: loss and gradients.
 
 9. Holds the fused SLIC kernels (``ops/csrc/slic.cu``, #12) against the
@@ -80,7 +84,8 @@ card.
 11. Drives the superpixel training step of record through
    ``make_train_step`` with ``slic_fused`` inside the timed step: ``sp``,
    ``sp_dil`` (L1 dilation k=55; profiled, stages timed), ``sp_dil`` with
-   ``rconv='off'`` and the patch step at the same batch 6 / clip 4; each
+   ``rconv='off'`` and with ``rconv='on'``, and the patch step at the same
+   batch 6 / clip 4; each
    asserts finite losses and its kernels' launches per step.
 12. A small f32 superpixel step (64 px frames, dilation) on the card
    against the CPU with the same labels: loss, q, gradients, launches.
@@ -123,6 +128,7 @@ H, W, C, NL = 60, 107, 256, 4
 N_CONTEXT, LONG_MEM, TOPK, RADIUS, TEMP = 20, [0], 10, 12.0, 0.05
 FP32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
 BF16_PEAK = 989e12       # H100 SXM dense bf16 FLOP/s (tensor cores)
+TF32_PEAK = 495e12       # H100 SXM dense TF32 FLOP/s (tensor cores)
 HBM_RATE = 3.35e12       # H100 SXM bytes/s
 # bench.py's flagship training step
 CLIP_LEN, N_PATCHES, PATCH, BATCH, WALK_TEMP, EDGEDROP = 8, 49, 64, 8, 0.05, 0.1
@@ -177,15 +183,13 @@ def _launches(fwd=0, fwd_stats=0, dx=0, dw=0, bnin=0) -> dict:
 
 
 # training arms: (rconv, bn_fuse) -> reflect-conv launches per step.
-# 'auto' routes the three 8x8 512->512 convs of layer4; under bn_fuse
-# 'auto' layer4.0.conv2 and layer4.1.conv2 take the chain and
-# layer4.1.conv1 stays on #5. 'on' routes every 3x3 stride-1 conv of the
-# blocks (15: all but layer2.0.conv1); the 8 conv2 take the chain.
+# 'auto' (the H100's set, PERF.md section 5) and 'on' route every 3x3
+# stride-1 conv of the blocks (15: all but layer2.0.conv1); under bn_fuse
+# 'auto' the 8 conv2 take the chain and the 7 others #5; without the fold
+# ('off') the 15 take #4. 'on' is 'auto' today, so each bn_fuse runs once.
 ARMS = ((("off", "stats"), _launches()),
-        (("auto", "stats"), _launches(fwd_stats=3, dx=3, dw=3)),
-        (("auto", "auto"), _launches(fwd_stats=1, dx=1, dw=1, bnin=2)),
-        (("on", "stats"), _launches(fwd_stats=15, dx=15, dw=15)),
-        (("on", "auto"), _launches(fwd_stats=7, dx=7, dw=7, bnin=8)),
+        (("auto", "stats"), _launches(fwd_stats=15, dx=15, dw=15)),
+        (("auto", "auto"), _launches(fwd_stats=7, dx=7, dw=7, bnin=8)),
         (("on", "off"), _launches(fwd=15, dx=15, dw=15)))
 
 
@@ -209,59 +213,161 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def kernel_vs_plain(n_targets: int = 4) -> dict:
-    """Phase 2: kernel and plain version on the same label buffer."""
+def lowfreq_features(rng: np.random.RandomState, h: int, w: int, c: int,
+                     cell: int = 8) -> np.ndarray:
+    """A low-frequency random field ``(h, w, c)``: a coarse grid of uniform
+    values, one a ``cell`` cells, interpolated bilinearly (what
+    ``tools/sweep_synth_davis.py``'s ``lowfreq_texture`` makes for pixels,
+    here for feature channels, in numpy alone)."""
+    base = rng.rand(h // cell + 2, w // cell + 2, c).astype(np.float32) - 0.5
+    ys, xs = np.arange(h) / cell, np.arange(w) / cell
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy = (ys - y0).astype(np.float32)[:, None, None]
+    fx = (xs - x0).astype(np.float32)[None, :, None]
+    return np.ascontiguousarray(
+        (base[y0][:, x0] * (1 - fx) + base[y0][:, x0 + 1] * fx) * (1 - fy)
+        + (base[y0 + 1][:, x0] * (1 - fx) + base[y0 + 1][:, x0 + 1] * fx) * fy)
+
+
+def prop_inputs(kind: str, n_targets: int):
+    """Features ``(N, H, W, C)`` (unit rows) and the label buffer ``(N, H,
+    W, NL)`` with frames 0..N_CONTEXT given. ``random``: independent unit
+    vectors and one-hot labels of random cells (near-ties rare). ``near_tie``:
+    every frame a copy of one smooth texture rolled by one cell every two
+    frames (the DAVIS objects ride the roll), plus noise of 1e-7 a
+    channel, so a query's copies in its context frames tie to within ~1e-5
+    in logit; the labels are one-hot regions of a smooth field that ride the
+    same roll."""
     rng = np.random.RandomState(0)
     N = N_CONTEXT + n_targets
-    f = rng.randn(N, H, W, C).astype(np.float32)
-    f /= np.linalg.norm(f, axis=-1, keepdims=True)
     lab = np.zeros((N, H, W, NL), np.float32)
-    lab[:N_CONTEXT + 1] = np.eye(NL, dtype=np.float32)[
-        rng.randint(0, NL, (H, W))]
-    feats = torch.from_numpy(f).cuda()
-    buf = torch.from_numpy(lab).cuda()
+    if kind == "random":
+        f = rng.randn(N, H, W, C).astype(np.float32)
+        lab[:N_CONTEXT + 1] = np.eye(NL, dtype=np.float32)[
+            rng.randint(0, NL, (H, W))]
+    else:
+        tex = lowfreq_features(rng, H, W, C)
+        regions = np.eye(NL, dtype=np.float32)[
+            lowfreq_features(rng, H, W, NL).argmax(-1)]
+        f = np.stack([np.roll(tex, t // 2, axis=1) for t in range(N)])
+        f += 1e-7 * rng.randn(*f.shape).astype(np.float32)
+        lab[:N_CONTEXT + 1] = np.stack(
+            [np.roll(regions, t // 2, axis=1) for t in range(N_CONTEXT + 1)])
+    f = np.ascontiguousarray(f / np.linalg.norm(f, axis=-1, keepdims=True))
+    return torch.from_numpy(f).cuda(), torch.from_numpy(lab).cuda()
+
+
+def topk_set_differs(feats, rows, kw) -> float:
+    """The share of queries whose kept top-k ids differ between the kernel
+    and the plain version, on the same features: each target once, with
+    every (frame, cell) labelled one-hot by its id modulo 128 and then 127,
+    so a different id set moves the prediction of the buckets of the ids
+    swapped by their weights (the kept ids' weights are equal only up to
+    the logits' rounding). A query counts where either probe differs by
+    more than 1e-5."""
+    N, HW = feats.shape[0], H * W
+    cand = torch.arange(N * HW, device="cuda")
+    differs = torch.zeros((len(rows), HW), dtype=torch.bool, device="cuda")
+    for mod in (128, 127):
+        buf = torch.nn.functional.one_hot(cand % mod, mod).float().reshape(
+            N, H, W, mod)
+        for i in range(len(rows)):
+            t = int(rows[i, -1]) + 1
+            idx = torch.from_numpy(rows[i]).cuda()
+            got = ps.prop_sparse(feats, buf, idx, t, **kw)
+            want = ps.prop_sparse_plain(feats, buf, idx, t, **kw)
+            differs[i] |= (got - want).abs().amax(-1) > 1e-5
+        del buf
+    return float(differs.float().mean())
+
+
+def kernel_vs_plain(n_targets: int = 4) -> dict:
+    """Phase 2: kernel and plain version target by target on one shared
+    label buffer (each target's kernel prediction written back, as the
+    eval writes it), on the random and the near-tie feature sets; the share
+    of queries whose top-k ids differ; times on the random set."""
     rows = context_index_bank(N_CONTEXT, LONG_MEM, n_targets)
-    idx = torch.from_numpy(rows).cuda()
     kw = dict(n_long=len(LONG_MEM), topk=TOPK, temperature=TEMP,
               radius=RADIUS)
-    errs = []
-    for i in range(n_targets):
-        t = int(rows[i, -1]) + 1
-        got = ps.prop_sparse(feats, buf, idx[i], t, **kw)
-        want = ps.prop_sparse_plain(feats, buf, idx[i], t, **kw)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f"kernel output not finite at target {i}")
-        errs.append((got - want).abs().max(-1).values.cpu().numpy())
-        buf[t] = got.view(H, W, NL)     # both read the same buffer next step
-    err = np.concatenate(errs)
-    t_last = int(rows[-1, -1]) + 1
-    ms = cuda_ms(lambda: ps.prop_sparse(feats, buf, idx[-1], t_last, **kw), 20)
-    plain_ms = cuda_ms(
-        lambda: ps.prop_sparse_plain(feats, buf, idx[-1], t_last, **kw), 3, 1)
+    for c, k, r in ((C, TOPK, RADIUS), (512, 32, RADIUS), (576, 10, RADIUS),
+                    (20, 32, 12.5), (256, 10, 40.0)):
+        src = int(ps._lib().prop_sparse_smem_bytes(c, k, ps.sparse_halo(r)))
+        if src != ps.smem_bytes(c, k, r):
+            fail(f"prop_sparse.smem_bytes({c}, {k}, {r}) = "
+                 f"{ps.smem_bytes(c, k, r)}, the source's {src}")
+    res = {}
+    for kind in ("random", "near_tie"):
+        feats, buf = prop_inputs(kind, n_targets)
+        errs = []
+        for i in range(n_targets):
+            t = int(rows[i, -1]) + 1
+            idx = torch.from_numpy(rows[i]).cuda()
+            got = ps.prop_sparse(feats, buf, idx, t, **kw)
+            want = ps.prop_sparse_plain(feats, buf, idx, t, **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail(f"kernel output not finite at target {i} ({kind})")
+            errs.append((got - want).abs().max(-1).values.cpu().numpy())
+            buf[t] = got.view(H, W, NL)     # both read the same buffer next
+        err = np.concatenate(errs)
+        r = dict(max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
+                 frac_over_1e4=float((err > 1e-4).mean()),
+                 topk_differs=topk_set_differs(feats, rows, kw))
+        print(f"prop_sparse vs plain at DAVIS-480p, {kind} features "
+              f"({n_targets} targets, autoregressive): max|d| "
+              f"{r['max_abs_err']:.3e} mean|d| {r['mean_abs_err']:.3e} cells "
+              f"|d|>1e-4 {r['frac_over_1e4']:.5f} (tolerance: |d| <= 1e-4 on "
+              f">= 99.9% of cells); queries whose top-k ids differ "
+              f"{r['topk_differs']:.5f}", flush=True)
+        if r["frac_over_1e4"] > 1e-3:
+            fail(f"kernel disagrees with its plain version on more than 0.1% "
+                 f"of cells by more than 1e-4 ({kind} features)")
+        if kind == "random":
+            idx = torch.from_numpy(rows[-1]).cuda()
+            t_last = int(rows[-1, -1]) + 1
+            r["ms"] = cuda_ms(
+                lambda: ps.prop_sparse(feats, buf, idx, t_last, **kw), 20)
+            r["plain_ms"] = cuda_ms(lambda: ps.prop_sparse_plain(
+                feats, buf, idx, t_last, **kw), 3, 1)
+            print(f"prop_sparse {r['ms']:.3f} ms/target (median of 20), "
+                  f"plain {r['plain_ms']:.3f} ms/target", flush=True)
+        res[kind] = r
+        del feats, buf
     L = rows.shape[1]
     pairs = ps.valid_pairs(H, W, RADIUS, len(LONG_MEM), L - len(LONG_MEM))
+    scored = scored_pairs(L)
     flops = 2.0 * C * pairs
     nbytes = 4.0 * ((L + 1) * H * W * C + L * H * W * NL + H * W * NL) + 4 * L
-    res = dict(max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
-               frac_over_1e4=float((err > 1e-4).mean()), ms=ms,
-               plain_ms=plain_ms, pairs=pairs, gflop=flops / 1e9,
-               ops_ms=flops / FP32_PEAK * 1e3, bytes_ms=nbytes / HBM_RATE * 1e3)
+    res.update(res.pop("random"))
+    res.update(pairs=pairs, scored_pairs=scored, gflop=flops / 1e9,
+               ops_ms=flops / FP32_PEAK * 1e3,
+               tf32_ms=3 * flops / TF32_PEAK * 1e3,
+               bytes_ms=nbytes / HBM_RATE * 1e3)
     res["bound_ms"] = max(res["ops_ms"], res["bytes_ms"])
     res["bound_by"] = "operations" if res["ops_ms"] >= res["bytes_ms"] \
         else "bytes"
-    print(f"prop_sparse vs plain at DAVIS-480p ({n_targets} targets): "
-          f"max|d| {res['max_abs_err']:.3e} mean|d| {res['mean_abs_err']:.3e} "
-          f"cells |d|>1e-4 {res['frac_over_1e4']:.5f} (tolerance: |d| <= "
-          f"1e-4 on >= 99.9% of cells)", flush=True)
-    print(f"prop_sparse {ms:.3f} ms/target (median of 20), plain "
-          f"{plain_ms:.3f} ms/target; bound {res['bound_ms']:.3f} ms "
-          f"({res['gflop']:.1f} GFLOP f32 over {pairs} valid pairs)",
-          flush=True)
-    if res["frac_over_1e4"] > 1e-3:
-        fail("kernel disagrees with its plain version on more than 0.1% "
-             "of cells by more than 1e-4")
+    print(f"prop_sparse bound {res['bound_ms']:.3f} ms "
+          f"({res['gflop']:.1f} GFLOP f32 over {pairs} valid pairs; "
+          f"{res['tf32_ms']:.3f} ms for the same as 3xTF32 on the tensor "
+          f"cores); "
+          f"{scored / (H * W):.0f} candidates scored a query, "
+          f"{pairs / (H * W):.0f} valid", flush=True)
     return res
+
+
+def scored_pairs(L: int) -> int:
+    """(query, candidate) pairs the kernel scores for one target: per 8x8
+    tile, its 64 query slots against every cell of the long frames and, in
+    each short frame, the tile's disk union cut to the frame."""
+    off = ps.disk_union_offsets(RADIUS)
+    n_long = len(LONG_MEM)
+    total = 0
+    for ty in range(0, H, ps.TQ):
+        for tx in range(0, W, ps.TQ):
+            y, x = off[:, 0] + ty, off[:, 1] + tx
+            inside = int(((y >= 0) & (y < H) & (x >= 0) & (x < W)).sum())
+            total += ps.TQ * ps.TQ * (n_long * H * W + (L - n_long) * inside)
+    return total
 
 
 def synthetic_video(n_frames: int, h: int, w: int, seed: int):
@@ -591,76 +697,6 @@ def moment_err(s1, s2, y) -> float:
                                (s2 - m2).abs() / m2).max())
 
 
-def prev_fwd_stats(x, w, ab=None):
-    """#5 (with ``ab``, the (2, Cin) f32 [a; b]: #6) by the previous design
-    (``rconv.cu``'s ``rconv_gemm<FWD_STATS>`` or ``<FWD_BNIN_STATS>`` +
-    ``reduce_rows``) through its C entry: a same-call yardstick, called by
-    no route and counted by no wrapper. ``(y, s1, s2)``."""
-    N, cin, H, W = x.shape
-    cout = w.shape[0]
-    lib, dt = rc._lib(), rc._DTYPES[x.dtype]
-    w9 = w.permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
-    y = torch.empty((N, cout, H, W), dtype=x.dtype, device=x.device,
-                    memory_format=torch.channels_last)
-    part = torch.empty((-(-N * H * W // int(lib.rconv_conv_bm(dt))), 2, cout),
-                       dtype=torch.float32, device=x.device)
-    s12 = torch.empty((2, cout), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    if ab is None:
-        err = lib.rconv_fwd_launch(x.data_ptr(), w9.data_ptr(), y.data_ptr(),
-                                   part.data_ptr(), s12.data_ptr(), dt, N, H,
-                                   W, cin, cout, 1, stream)
-    else:
-        err = lib.rconv_fwd_bnin_launch(
-            x.data_ptr(), ab.data_ptr(), w9.data_ptr(), y.data_ptr(),
-            part.data_ptr(), s12.data_ptr(), dt, N, H, W, cin, cout, stream)
-    if err:
-        fail(f"previous #{5 if ab is None else 6} launch failed: cudaError {err}")
-    return y, s12[0], s12[1]
-
-
-def prev_dx_bnin(gy, w, x, ab):
-    """#7 by the previous design (``rconv.cu``'s ``rconv_gemm<DX_BNIN>`` +
-    ``reduce_rows``) through its C entry: a same-call yardstick, called by
-    no route and counted by no wrapper. ``ab``: the (2, Cin) f32 [a; b].
-    ``(dx, da, db)``."""
-    N, cout, H, W = gy.shape
-    cin = w.shape[1]
-    lib, dt = rc._lib(), rc._DTYPES[gy.dtype]
-    w9t = w.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
-    dx = torch.empty((N, cin, H, W), dtype=gy.dtype, device=gy.device,
-                     memory_format=torch.channels_last)
-    part = torch.empty((-(-N * H * W // int(lib.rconv_conv_bm(dt))), 2, cin),
-                       dtype=torch.float32, device=gy.device)
-    dab = torch.empty((2, cin), dtype=torch.float32, device=gy.device)
-    err = lib.rconv_dx_bnin_launch(
-        gy.data_ptr(), w9t.data_ptr(), x.data_ptr(), ab.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), dab.data_ptr(), dt, N, H, W, cin, cout,
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        fail(f"previous #7 launch failed: cudaError {err}")
-    return dx, dab[0], dab[1]
-
-
-def prev_dw_bnin(x, ab, gy, w):
-    """#8 by the previous design (``rconv_gemm<DW_BNIN>`` + ``reduce_rows``),
-    as ``prev_dx_bnin``: ``(Cout, Cin, 3, 3)`` in w's dtype."""
-    N, cin, H, W = x.shape
-    cout = w.shape[0]
-    lib, dt = rc._lib(), rc._DTYPES[x.dtype]
-    splits = int(lib.rconv_dw_splits(dt, N, H, W, cin, cout))
-    part = torch.empty((splits, 9, cin, cout), dtype=torch.float32,
-                       device=x.device)
-    dw9 = torch.empty((9, cin, cout), dtype=torch.float32, device=x.device)
-    err = lib.rconv_dw_bnin_launch(
-        x.data_ptr(), ab.data_ptr(), gy.data_ptr(), part.data_ptr(),
-        dw9.data_ptr(), dt, N, H, W, cin, cout, splits,
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        fail(f"previous #8 launch failed: cudaError {err}")
-    return dw9.to(w.dtype).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
-
-
 def fold_leg_of_row1(x, w, gy) -> torch.Tensor:
     """What the row-1 fold leg of the dy = 0 taps adds to dx (f32): output
     row 0's dy = 0 taps read pad row -1, the mirror of input row 1, so the
@@ -681,12 +717,11 @@ def rconv_kernels_vs_plain() -> dict:
     padded gradient before folding the pad back); moments per channel, as
     ``MOM_TOL`` states, against the kernel's own cast y and the plain y.
     Two planted faults (s1 zeroed; one forward tile of rows left out of
-    both sums) must fail that check, #5's y with the border of a
+    both sums) must fail that check, #4's and #5's y with the border of a
     zero-padded conv in place of the reflection must fail the y check, and
     dx without the row-1 fold leg of the dy=0 taps must fail the dx check;
-    two runs of #5 (y, s1, s2) and of dW must be bitwise equal.
-    ``ms["prev_fwd_stats"]``: #5 by the previous design (``rconv.cu``) on
-    the same inputs. ``plain_ms`` is the plain version as the
+    two runs of #4, of #5 (y, s1, s2) and of dW must be bitwise equal.
+    ``plain_ms`` is the plain version as the
     wrapper would call it (forward: ``F.pad`` + ``conv2d``, + its f32 sums
     for the moments; backward: autograd of the same, dx and dW together);
     ``library_ms`` is the PyTorch calls of the same function: ``F.pad`` +
@@ -711,13 +746,13 @@ def rconv_kernels_vs_plain() -> dict:
                    dw=rc.reflect_conv_dw(x, gy, w))
         dw_again = rc.reflect_conv_dw(x, gy, w)
         stats_again = rc.reflect_conv_fwd_stats(x, w)
-        prev = prev_fwd_stats(x, w)
+        fwd_again = rc.reflect_conv_fwd(x, w)
         y_ref = rc.reflect_conv_plain(x, w)
         dx_ref, dw_ref = rc.reflect_conv_plain_bwd(x, w, gy)
         ys, s1, s2 = got["fwd_stats"]
-        # the kernel's y with the border of a zero-padded conv
-        y_zero_pad = ys.float() + (torch.nn.functional.conv2d(
-            x, w, padding=1).float() - y_ref.float())
+        # a y with the border of a zero-padded conv in place of the reflection
+        zero_pad = (torch.nn.functional.conv2d(x, w, padding=1).float()
+                    - y_ref.float())
         tile = ys.permute(0, 2, 3, 1).reshape(-1, cout)[
             :rc._slab_lib().rconv_slab_bm()].float()
         faults = dict(s1_zeroed=(torch.zeros_like(s1), s2),
@@ -739,11 +774,12 @@ def rconv_kernels_vs_plain() -> dict:
                    planted={k: dict(own=moment_err(*f, ys),
                                     ref=moment_err(*f, y_ref))
                             for k, f in faults.items()},
-                   planted_y_zero_pad=rel(y_zero_pad, y_ref),
+                   planted_y_zero_pad=rel(ys.float() + zero_pad, y_ref),
+                   planted_fwd_zero_pad=rel(got["fwd"].float() + zero_pad,
+                                            y_ref),
                    stats_repeat_equal=all(torch.equal(p, q) for p, q in
                                           zip(got["fwd_stats"], stats_again)),
-                   prev_fwd_stats=rel(prev[0], y_ref),
-                   prev_moments_ref=moment_err(prev[1], prev[2], y_ref),
+                   fwd_repeat_equal=bool(torch.equal(got["fwd"], fwd_again)),
                    y_stats_close=rel(ys, got["fwd"]))
         m1, m2 = rc.moments_plain(y_ref)
         abs_err = dict(fwd=float((got["fwd"].float() - y_ref.float()).abs().max()),
@@ -755,18 +791,17 @@ def rconv_kernels_vs_plain() -> dict:
               and err["moments_own"] <= MOM_TOL["own"]
               and err["moments_ref"] <= MOM_TOL["ref"]
               and err["y_stats_close"] <= 1e-2 and err["dw_repeat_equal"]
-              and err["stats_repeat_equal"]
+              and err["stats_repeat_equal"] and err["fwd_repeat_equal"]
               and all(torch.isfinite(t).all() for t in
                       (got["fwd"], got["dx"], got["dw"], s1, s2)))
         print(f"reflect-conv kernels vs plain at {tag} (N,Cin,Cout,H,W)="
               f"{(N, cin, cout, H, W)} bf16: |d|/max y {err['fwd']:.2e}, dx "
               f"{err['dx']:.2e}, dW {err['dw']:.2e}, #5's y against #4's "
-              f"{err['y_stats_close']:.2e} (two runs bitwise equal: #5 "
-              f"{err['stats_repeat_equal']}, dW {err['dw_repeat_equal']}); "
-              f"#5's y with a zero-padded border (planted fault) "
-              f"{err['planted_y_zero_pad']:.2e}; previous design #5: y "
-              f"{err['prev_fwd_stats']:.2e}, moments "
-              f"{err['prev_moments_ref']:.2e}; dx without the row-1 fold leg of the "
+              f"{err['y_stats_close']:.2e} (two runs bitwise equal: #4 "
+              f"{err['fwd_repeat_equal']}, #5 {err['stats_repeat_equal']}, dW "
+              f"{err['dw_repeat_equal']}); y with a zero-padded border "
+              f"(planted faults) #4 {err['planted_fwd_zero_pad']:.2e}, #5 "
+              f"{err['planted_y_zero_pad']:.2e}; dx without the row-1 fold leg of the "
               f"dy=0 taps (planted fault) {err['planted_dx']:.2e}; moments per channel "
               f"{err['moments_own']:.2e} of the kernel's y, "
               f"{err['moments_ref']:.2e} of the plain y; planted faults "
@@ -783,11 +818,12 @@ def rconv_kernels_vs_plain() -> dict:
         if err["planted_dx"] <= 2e-2:
             fail(f"the dx check passes a planted fault at {tag}: "
                  f"{err['planted_dx']:.2e}")
-        if err["planted_y_zero_pad"] <= 1e-2:
+        if min(err["planted_y_zero_pad"], err["planted_fwd_zero_pad"]) <= 1e-2:
             fail(f"the y check passes a zero-padded border at {tag}: "
+                 f"#4 {err['planted_fwd_zero_pad']:.2e}, #5 "
                  f"{err['planted_y_zero_pad']:.2e}")
         del got, y_ref, dx_ref, dw_ref, tile, faults, dw_again, stats_again
-        del prev, y_zero_pad
+        del fwd_again, zero_pad
         xx = x.detach().requires_grad_()
         ww = w.detach().requires_grad_()
         yy = torch.nn.functional.conv2d(
@@ -796,7 +832,6 @@ def rconv_kernels_vs_plain() -> dict:
         times = dict(
             fwd=cuda_ms(lambda: rc.reflect_conv_fwd(x, w), reps),
             fwd_stats=cuda_ms(lambda: rc.reflect_conv_fwd_stats(x, w), reps),
-            prev_fwd_stats=cuda_ms(lambda: prev_fwd_stats(x, w), reps),
             dx=cuda_ms(lambda: rc.reflect_conv_dx(gy, w, x), reps),
             dw=cuda_ms(lambda: rc.reflect_conv_dw(x, gy, w), reps))
         plain = dict(
@@ -824,9 +859,7 @@ def rconv_kernels_vs_plain() -> dict:
                         bounds=bounds)
         for name in ("fwd", "fwd_stats", "dx", "dw"):
             p = plain.get(name, plain["bwd"])
-            was = (f", previous design {times['prev_fwd_stats']:8.3f}"
-                   if name == "fwd_stats" else "")
-            print(f"  {name:9s} {times[name]:8.3f} ms{was} (plain {p:8.3f}, "
+            print(f"  {name:9s} {times[name]:8.3f} ms (plain {p:8.3f}, "
                   f"library {library[name]:8.3f}, bound "
                   f"{bounds[name]['bound_ms']:.3f} by "
                   f"{bounds[name]['bound_by']})", flush=True)
@@ -891,9 +924,7 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
     ``RAGGED_MOM_TOL`` of the plain y, and the same moments with the 64
     empty rows counted as ``relu(b)`` (the conv of a constant ``relu(b)``
     image, as zero-filled slab vectors rebuilt as ``relu(b)`` would give)
-    must fail. ``ms["prev_fwd_bnin_stats"]``, ``ms["prev_dx_bnin"]``,
-    ``ms["prev_dw_bnin"]``: the previous design of #6, #7 and #8
-    (``rconv.cu``) on the same inputs. ``plain_ms``:
+    must fail. ``plain_ms``:
     the plain version as the wrappers call it (the f32 affine + ReLU pass,
     ``F.pad`` + ``conv2d`` and the sums; backward: the f32 conv's input
     gradient with the gate and sums, and autograd's dW of the rebuilt xn).
@@ -907,15 +938,12 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(cin)
     a = torch.randn((cin,), generator=g, device="cuda").abs() + 0.5
     b = torch.randn((cin,), generator=g, device="cuda") * 0.5
-    ab = torch.stack((a, b))
     y, s1, s2 = rc.reflect_conv_fwd_bnin_stats(x, a, b, w)
     dx, da, db = rc.reflect_conv_dx_bnin(gy, w, x, a, b)
     dw = rc.reflect_conv_dw_bnin(x, a, b, gy, w)
     again = (*rc.reflect_conv_fwd_bnin_stats(x, a, b, w),
              *rc.reflect_conv_dx_bnin(gy, w, x, a, b),
              rc.reflect_conv_dw_bnin(x, a, b, gy, w))
-    prev = (*prev_dx_bnin(gy, w, x, ab), prev_dw_bnin(x, ab, gy, w),
-            *prev_fwd_stats(x, w, ab))
     xn, gate = rc.bnin_plain(x, a, b)
     y_ref = rc.reflect_conv_plain(xn, w)
     dx_ref, da_ref, db_ref = rc.reflect_conv_dx_bnin_plain(gy, w, x, a, b)
@@ -976,13 +1004,8 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
                planted_dab_rows=dab_err(*left_out(pix >= 120)),
                planted_dab_tile=dab_err(*left_out(torch.arange(
                    N * H * W, device="cuda").reshape(N, 1, H, W) < 128)),
-               planted_dw_relu=rel(dw_fault, dw_ref),
-               prev_dx_bnin=rel(prev[0], dx_ref),
-               prev_dab=dab_err(prev[1], prev[2]),
-               prev_dw_bnin=rel(prev[3], dw_ref),
-               prev_fwd_bnin_stats=rel(prev[4], y_ref),
-               prev_bnin_moments_ref=moment_err(prev[5], prev[6], y_ref))
-    del dx_fault, dxg_k, pix, dw_fault, y_fault, xf, again, prev
+               planted_dw_relu=rel(dw_fault, dw_ref))
+    del dx_fault, dxg_k, pix, dw_fault, y_fault, xf, again
     m1, m2 = rc.moments_plain(y_ref)
     abs_err = dict(
         fwd_bnin_stats=float(max((y.float() - y_ref.float()).abs().max(),
@@ -1020,10 +1043,7 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
           f"on image 0's row 0 {err['planted_dx_gate']:.2e}, da/db without "
           f"the last 8 rows of every tile {err['planted_dab_rows']:.2e} "
           f"(without tile 0 alone {err['planted_dab_tile']:.2e}), dW without "
-          f"the ReLU on channels 0-7 {err['planted_dw_relu']:.2e}; previous "
-          f"design y {err['prev_fwd_bnin_stats']:.2e}, moments "
-          f"{err['prev_bnin_moments_ref']:.2e}, dx {err['prev_dx_bnin']:.2e}, "
-          f"da/db {err['prev_dab']:.2e}, dW {err['prev_dw_bnin']:.2e}",
+          f"the ReLU on channels 0-7 {err['planted_dw_relu']:.2e}",
           flush=True)
     if not ok:
         fail(f"BN-input kernels disagree with their plain version at {tag}: "
@@ -1046,10 +1066,7 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
         fwd_bnin_stats=cuda_ms(
             lambda: rc.reflect_conv_fwd_bnin_stats(x, a, b, w), reps),
         dx_bnin=cuda_ms(lambda: rc.reflect_conv_dx_bnin(gy, w, x, a, b), reps),
-        dw_bnin=cuda_ms(lambda: rc.reflect_conv_dw_bnin(x, a, b, gy, w), reps),
-        prev_fwd_bnin_stats=cuda_ms(lambda: prev_fwd_stats(x, w, ab), reps),
-        prev_dx_bnin=cuda_ms(lambda: prev_dx_bnin(gy, w, x, ab), reps),
-        prev_dw_bnin=cuda_ms(lambda: prev_dw_bnin(x, ab, gy, w), reps))
+        dw_bnin=cuda_ms(lambda: rc.reflect_conv_dw_bnin(x, a, b, gy, w), reps))
     plain = dict(
         fwd_bnin_stats=cuda_ms(lambda: rc.moments_plain(rc.reflect_conv_plain(
             rc.bnin_plain(x, a, b)[0], w)), reps),
@@ -1068,8 +1085,7 @@ def bnin_kernels_vs_plain(tag: str, x, w, gy, reps: int) -> dict:
     del yy, leaves
     bounds = rconv_bounds(x.shape[0], cin, w.shape[0], *x.shape[2:])
     for name in ("fwd_bnin_stats", "dx_bnin", "dw_bnin"):
-        was = f", previous design {times['prev_' + name]:8.3f}"
-        print(f"  {name:14s} {times[name]:8.3f} ms{was} (plain "
+        print(f"  {name:14s} {times[name]:8.3f} ms (plain "
               f"{plain[name]:8.3f}, library {library[name]:8.3f}, bound "
               f"{bounds[name]['bound_ms']:.3f} by {bounds[name]['bound_by']})",
               flush=True)
@@ -1225,13 +1241,12 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
 
 
 def train_step_phase(n_steps: int) -> dict:
-    """Phase 6: the flagship training step in six arms that differ only by
-    the reflect-conv route, one after another in this process: the cuDNN
+    """Phase 6: the flagship training step in four arms that differ only
+    by the reflect-conv route, one after another in this process: the cuDNN
     path (``rconv='off'``), the moment fold alone (``auto`` + ``stats``),
-    the default (``auto`` + ``auto``: the BN-input chain; profiled), every
-    supported conv with moments (``on`` + ``stats``), with the chain
-    (``on`` + ``auto``) and with neither (``on`` + ``off``). The default
-    takes ``n_steps`` timed steps, the others at most 5."""
+    the default (``auto`` + ``auto``: the BN-input chain; profiled) and
+    neither (``on`` + ``off``: #4). The default takes ``n_steps`` timed
+    steps, the others at most 5."""
     arms = {}
     for (rconv, bn_fuse), expect in ARMS:
         default = (rconv, bn_fuse) == DEFAULT_ARM
@@ -1248,8 +1263,8 @@ def train_step_phase(n_steps: int) -> dict:
 
 def small_step_card_vs_cpu() -> dict:
     """Phase 7: one f32 forward/backward with every supported reflect conv
-    routed and every block on the BN-input chain (``rconv='on'``,
-    ``bn_fuse='auto'``), card (kernels) vs CPU
+    routed and every block on the BN-input chain (the default routes),
+    card (kernels) vs CPU
     (plain versions), same weights, same 64 px clips, same edge-drop masks.
     Tolerances: loss rtol 1e-4 and q atol 1e-4 (f32 convolutions by
     different algorithms); gradients 2e-2 relative in L2 over all
@@ -1257,8 +1272,7 @@ def small_step_card_vs_cpu() -> dict:
     random weights; the CPU tests measure the same spread against JAX and
     f64)."""
     B, T, N = 2, 4, 4
-    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP, rconv="on",
-                    bn_fuse="auto")
+    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP)
     rng = np.random.RandomState(6)
     x = torch.from_numpy(rng.randn(B, T, N, PATCH, PATCH, 3).astype(np.float32))
     masks = [torch.from_numpy(rng.rand(B, T - 1, N, N) < EDGEDROP)
@@ -1284,13 +1298,13 @@ def small_step_card_vs_cpu() -> dict:
     res = dict(loss_cuda=lc, loss_cpu=lh, loss_rel=abs(lc - lh) / abs(lh),
                q_max_abs_err=float((qc - qh).abs().max()),
                grad_rel_l2=(num / den) ** 0.5, kernel_launches=launched)
-    print(f"small f32 step (B,T,N)=({B},{T},{N}) {PATCH}px, rconv='on', "
-          f"bn_fuse='auto', card "
+    print(f"small f32 step (B,T,N)=({B},{T},{N}) {PATCH}px, default "
+          f"routes, card "
           f"vs CPU: loss {lc:.6f} vs {lh:.6f} (rel {res['loss_rel']:.2e}), q "
           f"max|d| {res['q_max_abs_err']:.2e}, grads rel L2 "
           f"{res['grad_rel_l2']:.2e} (tolerance: loss rtol 1e-4, q 1e-4, "
           f"grads 2e-2); kernel launches on the card {launched}", flush=True)
-    if launched != dict(walk_fwd=1, walk_bwd=1, **dict(ARMS)[("on", "auto")]):
+    if launched != dict(walk_fwd=1, walk_bwd=1, **dict(ARMS)[DEFAULT_ARM]):
         fail("the card's small step did not go through the walk and the "
              "reflect-conv kernels")
     if not (res["loss_rel"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
@@ -1527,7 +1541,15 @@ def set_sp_counts(counts: dict) -> None:
 SP_ARMS = (("sp", ("superpixel", False, "auto")),
            ("sp_dil", ("superpixel", True, "auto")),
            ("sp_dil_rconv_off", ("superpixel", True, "off")),
+           ("sp_dil_rconv_on", ("superpixel", True, "on")),
            ("patch", ("patch", False, "auto")))
+# reflect-conv launches a step of the superpixel trunk (whole 256 px frames:
+# layer2-4 at 32x32, layer1 at 64x64 past the kernels' maps) under
+# bn_fuse 'auto', by route: 'auto' and 'on' the 11 stride-1 convs of
+# layer2-4 (all but layer2.0.conv1), the 6 conv2 on the chain
+SP_LAUNCHES = dict(auto=_launches(fwd_stats=5, dx=5, dw=5, bnin=6),
+                   on=_launches(fwd_stats=5, dx=5, dw=5, bnin=6),
+                   off=_launches())
 
 
 def sp_train_arm(name: str, nodes: str, dilate: bool, rconv: str,
@@ -1538,8 +1560,8 @@ def sp_train_arm(name: str, nodes: str, dilate: bool, rconv: str,
     ``slic_fused`` inside the timed step, as the deployed
     ``--sp-backend device`` path does. Per step: ``slic_fused`` 1,
     ``dilate_l1`` 1 with dilation, each walk kernel 1, and the reflect-conv
-    kernels of the default route (#5, #9, #10 once, #6, #7, #8 twice: the
-    three layer4 interiors, here on 32x32 maps; on 8x8 in the patch arm)."""
+    kernels as ``SP_LAUNCHES`` states for the route (the patch arm's 8x8
+    maps as the flagship's ``ARMS``)."""
     dev = torch.device("cuda")
     sp = nodes == "superpixel"
     cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
@@ -1570,8 +1592,7 @@ def sp_train_arm(name: str, nodes: str, dilate: bool, rconv: str,
     torch.cuda.reset_peak_memory_stats()
     expect = dict(dilate_l1=int(sp and dilate), slic_fused=int(sp),
                   walk_fwd=1, walk_bwd=1,
-                  **(dict(ARMS)[DEFAULT_ARM] if rconv == "auto"
-                     else _launches()))
+                  **(SP_LAUNCHES[rconv] if sp else dict(ARMS)[(rconv, "auto")]))
     set_sp_counts(dict.fromkeys(expect, 0))     # counts: this path only
     t0 = time.perf_counter()
     metrics = [run() for _ in range(n_steps)]
@@ -1628,7 +1649,8 @@ def sp_train_phase(n_steps: int) -> dict:
     """The superpixel training step of record and its comparisons, one
     after another in this process: ``sp`` (no dilation), ``sp_dil`` (L1
     k=55: the headline; ``n_steps`` timed steps, profiled), ``sp_dil`` with
-    the reflect convs on cuDNN, and the patch step at the same batch and
+    the reflect convs on cuDNN and with ``rconv='on'`` (the A/B that chose
+    ``auto``), and the patch step at the same batch and
     clip length (the reference's reduced-primitive comparison). The others
     take at most 5 timed steps."""
     saved = sp_counts()
@@ -1642,9 +1664,11 @@ def sp_train_phase(n_steps: int) -> dict:
     print("superpixel step vs patch step (same process, same seeds):",
           flush=True)
     for name, a in arms.items():
+        busy = (f"  device busy {a['profile']['device_ms_per_step']:6.2f} "
+                f"ms/step" if "profile" in a else "")
         print(f"  {name:17s} {a['step_ms']:8.2f} ms/step  "
               f"{a['clips_per_s']:6.2f} clips/s  {a['max_memory_gib']:6.2f} "
-              f"GiB", flush=True)
+              f"GiB{busy}", flush=True)
     return arms
 
 
@@ -1761,6 +1785,10 @@ def main() -> int:
               "kept build log", flush=True)
     for kernel, verdict in verdicts.items():
         print(f"  ptxas wgmma verdict {kernel}: {verdict}", flush=True)
+    if verdicts:
+        n_ser = sum(v.startswith("serialized") for v in verdicts.values())
+        print(f"  ptxas serializes the wgmma of {n_ser} of {len(verdicts)} "
+              f"slab kernels", flush=True)
 
     if only:
         for name in only:
@@ -1799,8 +1827,7 @@ def main() -> int:
             ms=flag[f"{d}_ms"], plain_ms=flag[f"plain_{d}_ms"],
             bound_ms=flag["bounds"][d]["bound_ms"],
             bound_by=flag["bounds"][d]["bound_by"], library_ms=None))
-    # #4 runs on the route-on, BN-unfused path; the other six on the default.
-    # #4 is rconv.cu's; the other six rconv_slab.cu's
+    # #4 runs on the route-on, BN-unfused path; the other six on the default
     rflag = rconv["flagship"]
     for name, line, arm in (("fwd", 224, "on+off"), ("fwd_stats", 291, "auto+auto"),
                             ("fwd_bnin_stats", 401, "auto+auto"),
@@ -1809,8 +1836,7 @@ def main() -> int:
                             ("dx", 607, "auto+auto"), ("dw", 660, "auto+auto")):
         kernels.append(dict(
             name=f"reflect_conv_{name}", route="cuda",
-            source="videowalk_tpu_torch/ops/csrc/"
-                   + ("rconv.cu" if name == "fwd" else "rconv_slab.cu"),
+            source="videowalk_tpu_torch/ops/csrc/rconv_slab.cu",
             replaces=f"videowalk_tpu/ops/rconv_kernel.py:{line}",
             launches=train[arm]["launches"][name],
             max_abs_err=rflag["abs_err"][name], ms=rflag["ms"][name],

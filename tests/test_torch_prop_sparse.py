@@ -119,11 +119,43 @@ def test_valid_pairs_counts_the_disk():
 
 
 def test_gate_follows_shared_memory():
-    assert ps.sparse_supported(256, 10, 4)      # DAVIS
-    assert ps.sparse_supported(512, 32, 4)      # layer4 kept
-    assert not ps.sparse_supported(1024, 10, 4)  # past one block's memory
-    assert ps.smem_bytes(256, 10) == 4 * ((64 + 128) * 260 + 64 * 65
-                                          + 2 * 10 * 64 + 64)  # 64-key chunks
-    assert not ps.sparse_supported(254, 10, 4)   # rows not float4
-    assert not ps.sparse_supported(256, 33, 4)   # k past the kernel's bound
-    assert ps.sparse_halo(12.0) == 12 and ps.sparse_halo(5.5) == 5
+    """The gate is the source's shared-memory budget (``smem_bytes`` mirrors
+    ``prop_sparse_smem_bytes``) and its halo is the disk's reach."""
+    assert ps.sparse_supported(256, 10, 4, 12.0)      # DAVIS
+    assert ps.sparse_supported(512, 10, 4, 12.0)      # layer4 kept
+    assert ps.sparse_supported(512, 32, 4, 12.0)
+    assert not ps.sparse_supported(1024, 10, 4, 12.0)  # past one block's memory
+    # DAVIS: the query tile, two stages of 256 keys x 32 channels, the
+    # lists of 10, two chunks' key cells, offsets and slots, eight warps'
+    # scratch, 8 + 2 * 11 union rows, two counters
+    assert ps.smem_bytes(256, 10, 12.0) == (4 * (64 * 256 + 2 * 256 * 32)
+                                            + 64 * 10 * 8 + 2 * 256 * 12
+                                            + 8 * 64 * 4 + 30 * 16 + 16)
+    assert ps.smem_bytes(20, 10, 12.0) == ps.smem_bytes(32, 10, 12.0)
+    assert ps.sparse_supported(576, 10, 4, 12.0)
+    assert not ps.sparse_supported(608, 10, 4, 12.0)
+    assert not ps.sparse_supported(254, 10, 4, 12.0)   # rows not 16 bytes
+    assert not ps.sparse_supported(256, 33, 4, 12.0)   # k past the kernel's bound
+    assert (ps.sparse_halo(12.0), ps.sparse_halo(12.5), ps.sparse_halo(5.5),
+            ps.sparse_halo(1.0), ps.sparse_halo(0.0)) == (11, 12, 5, 0, 0)
+    assert len(ps.disk_union_offsets(12.0)) == 808     # DAVIS's window: 30 x 30
+
+
+@pytest.mark.parametrize("radius", [5.5, 12.0, 12.5, 1.0, 0.5])
+@pytest.mark.parametrize("tile", [8, 4, 1])
+def test_disk_union_offsets_match_brute_force(radius, tile):
+    """The kernel's short-frame candidates of a query tile: every offset
+    that some query of the tile takes under the exact f32 disk, in row-major
+    order, each once, and no other; all inside the halo."""
+    reach = int(np.ceil(radius)) + 2
+    r2 = np.float32(radius * radius)
+    want = [(oy, ox)
+            for oy in range(-reach, tile + reach)
+            for ox in range(-reach, tile + reach)
+            if any(np.float32((oy - qy) ** 2 + (ox - qx) ** 2) < r2
+                   for qy in range(tile) for qx in range(tile))]
+    got = ps.disk_union_offsets(radius, tile)
+    assert got.shape == (len(want), 2)
+    assert [tuple(map(int, o)) for o in got] == want
+    rr = ps.sparse_halo(radius)
+    assert np.abs(got - (tile - 1) / 2).max() <= rr + (tile - 1) / 2

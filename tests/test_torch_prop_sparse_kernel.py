@@ -1,0 +1,135 @@
+"""The block-sparse top-k propagation CUDA kernel
+(``videowalk_tpu_torch/ops/csrc/prop_sparse.cu``, f32 FMAs) against its plain
+version (``prop_sparse_plain``) on the card
+(``-m cuda``; skipped where there is no card), and the wrapper's refusals.
+No JAX here, so the file runs with ``--noconftest`` where JAX is not
+installed.
+
+Tolerances: with exactly representable features (entries 0 or 1/2 in
+four of eight channels, so every dot product and every logit is exact)
+ties are exact on both sides and the kept candidates must be the same:
+predictions within 1e-6 (the softmax's f32 sums in another order). With
+random unit features the dots are f32 sums in another order than cuBLAS's:
+1e-4."""
+
+import numpy as np
+import pytest
+import torch
+
+from videowalk_tpu_torch.eval.propagation import context_index_bank
+from videowalk_tpu_torch.ops import prop_sparse as ps
+
+torch.set_num_threads(1)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _random(N, H, W, C, n_lbl, seed):
+    rng = np.random.RandomState(seed)
+    f = rng.randn(N, H, W, C).astype(np.float32)
+    f /= np.linalg.norm(f, axis=-1, keepdims=True)
+    lab = rng.rand(N, H, W, n_lbl).astype(np.float32)
+    return torch.from_numpy(f), torch.from_numpy(lab)
+
+
+def _tied(N, H, W, n_lbl, seed):
+    """Unit rows of 8 channels with exactly four set to 1/2: every dot is
+    a multiple of 1/4, exact in f32, so candidates tie exactly
+    and often; labels distinct per (frame, cell)."""
+    rng = np.random.RandomState(seed)
+    order = rng.rand(N, H, W, 8).argsort(-1)
+    f = (order < 4).astype(np.float32) * 0.5
+    lab = rng.rand(N, H, W, n_lbl).astype(np.float32)
+    return torch.from_numpy(f), torch.from_numpy(lab)
+
+
+def _run_targets(feats, lab, n_context, long_mem, n_targets, **kw):
+    """Kernel and plain version target by target, each reading the same
+    buffer with the kernel's earlier predictions written back; the largest
+    difference."""
+    feats, lab = feats.cuda(), lab.cuda()
+    rows = context_index_bank(n_context, long_mem, n_targets)
+    H, W, nl = lab.shape[1:]
+    worst = 0.0
+    for i in range(n_targets):
+        t = int(rows[i, -1]) + 1
+        ctx = torch.from_numpy(rows[i]).cuda()
+        got = ps.prop_sparse(feats, lab, ctx, t, n_long=len(long_mem), **kw)
+        want = ps.prop_sparse_plain(feats, lab, ctx, t, n_long=len(long_mem),
+                                    **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (H * W, nl) and torch.isfinite(got).all()
+        worst = max(worst, float((got - want).abs().max()))
+        lab[t] = got.view(H, W, nl)
+    return worst
+
+
+def test_wrapper_refuses_other_devices_and_shapes():
+    f = torch.zeros((3, 8, 8, 8), device="meta")
+    ctx = torch.zeros((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ps.prop_sparse(f, f[..., :2], ctx, 2, n_long=1, topk=3,
+                       temperature=0.1, radius=3.0)
+    assert not ps.sparse_supported(8, 0, 2, 3.0)
+    assert not ps.sparse_supported(6, 3, 2, 3.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,radius,topk,n_long,n_context", [
+    (8, 8, 32, 6.0, 3, 1, 3),       # one tile, the union past the frame
+    (17, 21, 20, 5.5, 5, 1, 4),     # ragged tiles; a channel tail in a step
+    (30, 45, 64, 12.0, 10, 1, 3),   # DAVIS's radius: unions of 808 cells;
+                                    # 256-key chunks across frames
+    (24, 40, 36, 12.5, 7, 2, 2),    # two long frames, halo 12
+    (16, 24, 256, 4.0, 32, 1, 3),   # k = 32
+    (16, 16, 512, 3.0, 10, 0, 3),   # C = 512, no long frame
+    (9, 12, 8, 0.5, 4, 1, 2),       # a disk of one cell
+])
+def test_kernel_matches_plain_on_card(H, W, C, radius, topk, n_long,
+                                      n_context):
+    _need_card()
+    N_targets = 3
+    feats, lab = _random(n_context + N_targets, H, W, C, 3, seed=C + H)
+    before = ps.prop_sparse.launches
+    err = _run_targets(feats, lab, n_context, list(range(n_long)), N_targets,
+                       topk=topk, temperature=0.07, radius=radius)
+    assert ps.prop_sparse.launches == before + N_targets
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,radius,topk", [
+    (8, 8, 3.0, 6), (13, 19, 5.5, 10), (24, 24, 12.0, 32)])
+def test_forced_ties_go_to_the_lowest_candidate_on_card(H, W, radius, topk):
+    """Exact ties everywhere: the kernel keeps the same candidates as the
+    plain version's stable sorts (earliest id first), whichever lane holds
+    a tied candidate."""
+    _need_card()
+    feats, lab = _tied(2 + 3, H, W, 5, seed=H * W)
+    err = _run_targets(feats, lab, 2, [0], 3, topk=topk, temperature=0.5,
+                       radius=radius)
+    assert err <= 1e-6, err
+    # one query whose every candidate ties: the first k of frame 0's raster
+    f = torch.full((3, 2, 2, 8), 0.5).cuda() * (torch.arange(8) < 4).cuda()
+    lab = torch.arange(12, dtype=torch.float32).reshape(3, 2, 2, 1).cuda()
+    ctx = torch.tensor([0, 1], dtype=torch.int32).cuda()
+    pred = ps.prop_sparse(f, lab, ctx, 2, n_long=1, topk=3, temperature=1.0,
+                          radius=2.0)
+    np.testing.assert_allclose(pred.cpu().numpy()[:, 0], np.full(4, 1.0),
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_repeats_bitwise_on_card():
+    """Fixed-order sums and insertions: two launches are bitwise equal."""
+    _need_card()
+    feats, lab = _random(6, 30, 45, 64, 4, seed=3)
+    feats, lab = feats.cuda(), lab.cuda()
+    ctx = torch.tensor([0, 3, 4], dtype=torch.int32).cuda()
+    kw = dict(n_long=1, topk=10, temperature=0.05, radius=12.0)
+    first = ps.prop_sparse(feats, lab, ctx, 5, **kw)
+    assert torch.equal(first, ps.prop_sparse(feats, lab, ctx, 5, **kw))

@@ -147,34 +147,46 @@ _GRID = [(H, W, C, F, k, s, p)
 
 
 def test_routes_match_jax(monkeypatch):
-    """``on``, ``off`` and ``auto`` over a grid of geometries, the JAX
-    package's shape knobs at their defaults (its backend pinned to 'tpu':
-    the port's gate has no backend term)."""
+    """``on`` and ``off`` over a grid of geometries equal the JAX package's
+    (its shape knobs at their defaults, its backend pinned to 'tpu': the
+    port's gate has no backend term); ``auto`` is the port's own H100 set,
+    every shape ``rconv_supported`` takes, so ``auto`` is within ``on``
+    and routes shapes JAX's TPU ``auto`` leaves out."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    n_true = 0
+    n_true = n_past_tpu = 0
     for H, W, C, F, k, s, p in _GRID:
-        for mode in ("on", "off", "auto"):
+        for mode in ("on", "off"):
             want = _jax_routes(monkeypatch, H, W, C, F, k, s, p,
                                VIDEOWALK_RCONV=mode)
             assert rconv_kernel_routes(H, W, C, F, mode, kernel=k, stride=s,
                                        pad=p) == want
-            n_true += want and mode == "auto"
-    assert n_true > 0
+        auto = rconv_kernel_routes(H, W, C, F, "auto", kernel=k, stride=s,
+                                   pad=p)
+        assert auto == rc.rconv_supported(H, W, k, s, p)
+        assert not auto or rconv_kernel_routes(H, W, C, F, "on", kernel=k,
+                                               stride=s, pad=p)
+        n_true += auto
+        n_past_tpu += auto and not _jax_routes(
+            monkeypatch, H, W, C, F, k, s, p, VIDEOWALK_RCONV="auto")
+    assert n_true > 0 and n_past_tpu > 0
     with pytest.raises(ValueError, match="auto | on | off"):
         rconv_kernel_routes(8, 8, 512, 512, "maybe")
 
 
-def test_default_route_is_the_layer4_interiors():
-    """The port's default (``auto``) on the flagship's 64 px patches: the
-    three 8x8 512->512 convs of layer4, and nothing at 16x16 or below 512
-    channels."""
+def test_default_route_is_every_supported_conv():
+    """The port's default (``auto``) on the flagship's 64 px patches: every
+    3x3 stride-1 reflect conv of the blocks, layer1's 16x16 maps and the
+    8x8 maps of layer2-4 at every width, and nothing strided, past 32x32 or
+    off the powers of two."""
     assert rconv_kernel_routes(8, 8, 512, 512)
-    assert not rconv_kernel_routes(8, 8, 256, 512)     # layer4.0.conv1
-    assert not rconv_kernel_routes(8, 8, 256, 256)     # layer3
-    assert not rconv_kernel_routes(16, 16, 64, 64)     # layer1
-    assert rconv_kernel_routes(16, 16, 64, 64, "on")
-    assert rconv_kernel_routes(8, 8, 128, 256, "on")
-    assert not rconv_kernel_routes(16, 16, 64, 128, "on", stride=2)
+    assert rconv_kernel_routes(8, 8, 256, 512)         # layer4.0.conv1
+    assert rconv_kernel_routes(8, 8, 256, 256)         # layer3
+    assert rconv_kernel_routes(16, 16, 64, 64)         # layer1
+    assert rconv_kernel_routes(32, 32, 128, 128)       # 256 px frames' layer2
+    assert not rconv_kernel_routes(16, 16, 64, 128, stride=2)
+    assert not rconv_kernel_routes(64, 64, 64, 64)     # 256 px frames' layer1
+    assert not rconv_kernel_routes(60, 107, 256, 256)  # DAVIS-480p eval
+    assert not rconv_kernel_routes(8, 8, 512, 512, "off")
 
 
 def _spy(monkeypatch, name):

@@ -1,6 +1,6 @@
 """The reflect-conv kernels (``videowalk_tpu_torch/ops/rconv.py`` →
-``ops/csrc/rconv.cu``, and ``ops/csrc/rconv_slab.cu`` for bf16 forward
-with moments, dx and dW of the plain conv and of the BN-input chain): on
+``ops/csrc/rconv_slab.cu`` for every bf16 kernel, ``ops/csrc/rconv.cu``
+for every f32 one): on
 the card (``-m cuda``, skipped without one) each of forward (#4), forward
 with moments (#5), dx (#9), dW (#10) and the BN-input chain's forward (#6),
 dx with da/db (#7) and dW (#8) against the plain PyTorch version on the same
@@ -145,7 +145,8 @@ def test_wgmma_verdicts_read_a_ptxas_log():
         "rconv_slab_dwILb1EEEvPK13__nv_bfloat16' for 'sm_90a'",
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111"
         "reduce_rowsILi8EEEvPKfPfix' for 'sm_90a'"))
-    assert smoke.px_modes() == ["DX", "DX_BNIN", "FWD_STATS", "FWD_BNIN_STATS"]
+    assert smoke.px_modes() == ["DX", "DX_BNIN", "FWD_STATS", "FWD_BNIN_STATS",
+                                "FWD"]
     got = smoke.wgmma_verdicts(log)
     assert set(got) == {"rconv_slab_px<128, FWD_STATS>", "rconv_slab_px<64, DX>",
                         "rconv_slab_dw<true>"}
@@ -188,8 +189,7 @@ def test_kernels_match_plain_on_card(N, cin, cout, H, W, dtype):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
     assert y.dtype == ys.dtype == dx.dtype == dw.dtype == dtype
     assert y.is_contiguous(memory_format=torch.channels_last)
-    if dtype == torch.float32:
-        assert torch.equal(y, ys)        # one engine: the same sums
+    assert torch.equal(y, ys)            # one main loop: the same sums
     _close("y", y, y_ref, tol["y"])
     _close("ys", ys, y_ref, tol["y"])
     _close("dx", dx, dx_ref, tol["dx"])
@@ -202,6 +202,7 @@ def test_kernels_match_plain_on_card(N, cin, cout, H, W, dtype):
     assert torch.equal(ys, ysb)
     assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
     assert torch.equal(dw, rc.reflect_conv_dw(x, gy, w))
+    assert torch.equal(y, rc.reflect_conv_fwd(x, w))
 
 
 @pytest.mark.cuda
@@ -275,31 +276,31 @@ class _Spy:
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,W", [(33, 8, 8), (6, 32, 32)])
 def test_forward_stats_repeat_bitwise_on_card(N, H, W):
-    """bf16 #5 and #6 over many 128-pixel tiles: two runs of y, s1 and s2
-    are bitwise equal (fixed-order row-group and per-tile sums, no float
+    """bf16 #4, #5 and #6 over many 128-pixel tiles: two runs of y, s1 and
+    s2 are bitwise equal (fixed-order row-group and per-tile sums, no float
     atomics)."""
     _need_card()
     x, w, _ = _inputs(N, 512, 512, H, W, torch.bfloat16, seed=24)
     a, b = _affine(512, seed=25)
-    first = (*rc.reflect_conv_fwd_stats(x, w),
+    first = (rc.reflect_conv_fwd(x, w), *rc.reflect_conv_fwd_stats(x, w),
              *rc.reflect_conv_fwd_bnin_stats(x, a, b, w))
     for _ in range(2):
-        again = (*rc.reflect_conv_fwd_stats(x, w),
+        again = (rc.reflect_conv_fwd(x, w), *rc.reflect_conv_fwd_stats(x, w),
                  *rc.reflect_conv_fwd_bnin_stats(x, a, b, w))
         assert all(torch.equal(p, q) for p, q in zip(first, again))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,entries", [
-    (torch.bfloat16, ("rconv_fwd_launch", "rconv_slab_fwd_stats_launch",
+    (torch.bfloat16, ("rconv_slab_fwd_launch", "rconv_slab_fwd_stats_launch",
                       "rconv_slab_fwd_bnin_stats_launch")),
     (torch.float32, ("rconv_fwd_launch", "rconv_fwd_launch",
                      "rconv_fwd_bnin_launch")),
 ])
 def test_forward_engine_by_dtype_on_card(dtype, entries, monkeypatch):
-    """bf16 forwards with moments, of the plain conv (#5) and of the
-    BN-input chain (#6), launch ``rconv_slab.cu``'s kernels; bf16 #4 and
-    every f32 forward stay on ``rconv.cu``'s engine; each wrapper counts
+    """bf16 forwards, alone (#4) and with moments, of the plain conv (#5)
+    and of the BN-input chain (#6), launch ``rconv_slab.cu``'s kernels;
+    every f32 forward stays on ``rconv.cu``'s engine; each wrapper counts
     one launch either way."""
     _need_card()
     log = []

@@ -71,9 +71,10 @@ class CRWConfig:
     # fused_walk_wins); 'on' forces them and raises where they do not
     # apply; 'off' never
     fused_walk: str = "auto"
-    # reflect-conv kernels (ops/rconv.py): 'auto' routes the JAX package's
-    # shape set (the 8x8 and 32x32 interiors with C >= 512), 'on' every
-    # supported shape, 'off' none (ops/reflect_conv.py::rconv_kernel_routes)
+    # reflect-conv kernels (ops/rconv.py): 'auto' routes the shapes the
+    # H100 chose (today every supported shape: 3x3 stride-1 convs on 8-32
+    # power-of-two maps), 'on' every supported shape, 'off' none
+    # (ops/reflect_conv.py::rconv_kernel_routes)
     rconv: str = "auto"
     # BN fused into routed convs (train mode): 'stats' takes the moments
     # from the conv's epilogue; 'auto' also folds bn1's affine and ReLU into

@@ -22,9 +22,10 @@ reference ``state_dict`` names (``layer1.0.conv1.weight``,
 ``layer2.0.downsample.0.weight``, ...).
 
 Reflect convs that pass ``ops/reflect_conv.py::rconv_kernel_routes`` under
-the ``rconv`` mode (``auto``: the layer4 interiors at 8x8; ``on``: every 3x3
-stride-1 conv on 8-32 power-of-two maps) go through ``ops/rconv.py``: the
-CUDA kernels on the card, their plain versions on the CPU. ``bn_fuse``
+the ``rconv`` mode (``on``: every 3x3 stride-1 conv on 8-32 power-of-two
+maps; ``auto``, the default: the H100's set, today the same) go through
+``ops/rconv.py``: the CUDA kernels on the card, their plain versions on
+the CPU. ``bn_fuse``
 is the JAX package's ``VIDEOWALK_BN_FUSE``:
 
 - ``"stats"``: a routed conv in train mode emits the following BN's
@@ -110,7 +111,8 @@ class BatchNorm(nn.BatchNorm2d):
         """Train-mode BN of ``x`` as its per-channel f32 affine ``(a, b)``:
         ``a = rsqrt(var + eps)·weight``, ``b = bias − mean·a``. Gradients
         reach weight, bias and (through the moments) ``x``."""
-        xf = None if moments is not None else x.float()
+        xf = (None if moments is not None
+              else x.to(torch.promote_types(x.dtype, torch.float32)))
         mean, var = self._batch_stats(x, xf, moments)
         a = torch.rsqrt(var + self.eps) * self.weight
         return a, self.bias - mean * a

@@ -1,39 +1,67 @@
 // Block-sparse top-k label propagation, one launch per target frame.
 //
 // Replaces the Pallas TPU kernel videowalk_tpu/ops/prop_sparse_kernel.py::_kernel
-// (built from what it computes, not from its layout). For every valid query
-// cell of the target frame:
+// (reached through sparse_band_propagate :271; built from what it computes,
+// not from its layout). For every valid query cell of the target frame:
 //   candidates  every in-frame cell of each long-term context frame (raster
 //               order), then for each short-term frame in context-slot order
-//               the in-frame cells with dy^2 + dx^2 < radius^2 (window
-//               row-major);
-//   logit       dot_f32(q, k) / T  (full f32 FMAs, no TF32: near-tie flips
-//               drift the autoregressive propagation);
-//   selection   the top-k logits; a tie goes to the earlier candidate;
+//               the in-frame cells with dy^2 + dx^2 < radius^2 (row-major,
+//               which is raster order);
+//   logit       dot_f32(q, k) / T: f32 FMAs in channel order, no TF32;
+//   selection   the top-k logits; a tie goes to the earlier candidate, id
+//               l*HW + cell;
 //   output      sum_j exp(a_j - a_max) label_j / sum_j exp(a_j - a_max).
 //
 // Bound (DAVIS-480p: C=256, 60x107, 1 long + 20 short frames, r=12): about
-// 6420 queries x ~15.5k valid candidates x 256 channels of f32 FMA per target,
-// ~51 GFLOP; key bytes are reused from L2, so the kernel is bound by f32
-// operations, not bytes.
+// 6420 queries x ~15.5k valid candidates x 256 channels per target, 51 GFLOP
+// of f32 products, 0.76 ms at 67 TFLOP/s. Key bytes are reused from L2, so
+// the kernel is bound by operations, not bytes.
 //
-// Design. One block per 8x8 query tile. The tile's 64 query vectors stay in
-// shared memory; the candidate keys stream through a two-stage ring of
-// shared-memory chunks filled by cp.async, so the next chunk's load overlaps
-// this chunk's dot products (64 keys a chunk at C=256; 32 or 16 where 64 do
-// not fit). The TPU kernel's VMEM-resident candidate row, ~8 MB at DAVIS,
-// does not fit a Hopper block. Each of 256 threads computes a 4-query x (chunk/16)-key
-// register tile of dot products per chunk; rows are padded by 4 floats so the
-// float4 reads of 8 consecutive key rows hit distinct banks. A score is kept
-// only if it beats its query's current k-th value; then one thread per query
-// that has such a score updates its running top-k (value, candidate id) list
-// in shared memory, sorted descending, inserting only on strict '>' and
-// behind equal values, so ties stay with the earlier candidate, while the
-// other warps load the next chunk. Two barriers per chunk. Window chunks
-// whose rows all lie outside the frame are skipped. At the end the k label
-// rows are gathered from the label buffer as it stands in stream order, so
-// the prediction of an earlier target (written between launches) is read,
-// never cached.
+// Why f32 FMAs and not the tensor cores: 3xTF32 (mma.sync m16n8k8, each
+// operand split into two TF32 parts, three products) was built and measured
+// first. On random features it kept the plain version's top-k on all but
+// 4e-5 of the queries, but on features whose candidates tie to within
+// ~1e-5 in logit (rolled copies of one texture) it moved 0.3% of the label
+// cells by more than 1e-4, where f32 FMAs move none (PERF.md): near-tie
+// flips drift the autoregressive propagation.
+//
+// Design. One block per 8x8 query tile (112 blocks at DAVIS-480p on 132
+// SMs: the rest stay idle; any even split of a tile's candidates over more
+// blocks leaves the busiest SMs as much work, PERF.md). The tile's 64 query
+// vectors stay in shared memory; the candidates stream as one list through
+// all context frames in chunks of 256 keys, each chunk in steps of 32
+// channels through two shared-memory stages filled by cp.async (the next
+// step's copies overlap this step's FMAs; one barrier a step).
+//
+//   Candidates. Short-frame candidates are only those some query of the
+//   tile can take: the union of the 64 queries' disks, offsets (oy, ox)
+//   from the tile's corner whose distance to the tile's nearest query is
+//   under the radius (|d| <= ceil(r) - 1), in row-major order. Each row of
+//   the union is one interval of columns, so a block keeps one table row a
+//   union row (its first list index, oy, the first ox and the count, cut to
+//   the frame) and finds a candidate's row by binary search. At DAVIS the
+//   union holds 808 cells (the previous window 1024): the block scores
+//   22.6k candidates a query where 15.2k are valid.
+//
+//   Register tile. Warp w owns queries 8w .. 8w+7 against all 256 keys of
+//   a chunk: a thread holds 8 queries x 8 keys (lane + 32j), 64 f32
+//   accumulators. Per 4 channels it reads 8 query float4s (the same for
+//   every lane: broadcast) and 8 key float4s (its own; rows XOR-swizzled so
+//   a quarter-warp's reads hit distinct banks) for 256 FMAs, half the
+//   shared-memory loads per FMA of the previous 4 x 4 tile, so the loop is
+//   bound by the FMAs, not by shared memory. Each pair's dot is summed in
+//   channel order, as before.
+//
+//   Selection without a serial pass over the chunk. A score is filtered
+//   where its accumulator sits, against its query's current k-th value
+//   (exact: every earlier candidate has a smaller id); only lanes with a hit
+//   take part: one at a time (by ballot) it stages its 8 x 8 hits in the
+//   warp's scratch and lanes 0-7 insert them, each into its own query's
+//   top-k list, sorted by (value descending, id ascending). The lists are
+//   the warp's own, so no block barrier is spent on the selection. At the
+//   end the k label rows are gathered from the label buffer as it stands in
+//   stream order, so the prediction of an earlier target (written between
+//   launches) is read, never cached.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (videowalk_tpu_torch/ops/_build.py); plain C interface, loaded with ctypes.
@@ -45,17 +73,21 @@ namespace {
 
 constexpr int TQ = 8;            // query tile side
 constexpr int NQ = TQ * TQ;      // queries per block
-constexpr int NT = 256;          // threads per block
-constexpr int QR = 4;            // queries per thread in the dot tile
+constexpr int NT = 256;          // threads per block: 8 warps of 8 queries
+constexpr int KC = 256;          // keys a chunk: one a thread to copy
+constexpr int CS = 32;           // channels a step
 constexpr int SMEM_OPTIN = 232448;  // shared memory one Hopper block may use
-static_assert(NQ == QR * (NT / 16), "dot tile mapping");
 
-template <int KC>
-constexpr size_t smem_bytes(int C, int topk) {
-  // query tile + two key chunks (rows padded by 4 floats), chunk scores,
-  // running top-k values and ids, per-query insert flags
-  return sizeof(float) * ((size_t)(NQ + 2 * KC) * (C + 4) + NQ * (KC + 1)
-                          + 2 * (size_t)topk * NQ + NQ);
+__host__ __device__ constexpr int padded(int C) { return (C + CS - 1) / CS * CS; }
+
+// Dynamic shared memory of a launch (bytes): the query tile (C rounded up
+// to a step), two key stages of KC x CS, the top-k lists (values, then
+// ids), two chunks' key cells, offsets and slots, the warps' scratch, the
+// union's row table, two counters.
+__host__ __device__ constexpr size_t smem_bytes(int C, int topk, int rr) {
+  return 4 * ((size_t)NQ * padded(C) + 2 * KC * CS) + (size_t)NQ * topk * 8
+         + (size_t)2 * KC * 12 + (size_t)(NT / 32) * 64 * 4
+         + (size_t)(TQ + 2 * rr) * 16 + 16;
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -65,136 +97,177 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-// Geometry of one launch: the tile, the context list and its windows.
-struct Geo {
-  int H, W, HW, C, L, n_long, rr, WIN, ty0, tx0;
+// (v, id) ranks above (w, jd): higher value, or the same and an earlier id
+__device__ __forceinline__ bool above(float v, int id, float w, int jd) {
+  return v > w || (v == w && id < jd);
+}
 
-  __device__ int ncand(int l) const { return l < n_long ? HW : WIN * WIN; }
-
-  // Cell index (raster) of candidate w of context slot l, -1 when w is
-  // past the list or the window cell lies outside the frame.
-  __device__ int cell(int l, int w) const {
-    if (w >= ncand(l)) return -1;
-    if (l < n_long) return w;
-    const int ky = ty0 - rr + w / WIN, kx = tx0 - rr + w % WIN;
-    return (ky >= 0 && ky < H && kx >= 0 && kx < W) ? ky * W + kx : -1;
-  }
-
-  // Step (l, base) to the next chunk of KC candidates, skipping window
-  // chunks whose rows all lie above or below the frame; l == L at the end.
-  // Every thread computes the same sequence.
-  template <int KC>
-  __device__ void advance(int& l, int& base) const {
-    base += KC;
-    while (l < L) {
-      const int n = ncand(l);
-      if (base >= n) {
-        ++l;
-        base = 0;
-        continue;
-      }
-      if (l < n_long) return;
-      const int r0 = base / WIN, r1 = (min(base + KC, n) - 1) / WIN;
-      if (ty0 - rr + r1 >= 0 && ty0 - rr + r0 < H) return;
-      base += KC;
-    }
-  }
-};
-
-template <int KC>
-__global__ void __launch_bounds__(NT) prop_sparse_kernel(
+__global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
     const float* __restrict__ feats,    // (N, HW, C) L2-normalized features
     const float* __restrict__ labels,   // (N, HW, NL) label buffer
     const int* __restrict__ ctx,        // (L,) context frame indices
     float* __restrict__ out,            // (HW, NL) predictions
     int H, int W, int C, int NL, int L, int n_long, int t_query, int topk,
     float inv_t, float r2, int rr) {
-  constexpr int KR = KC / 16;                        // keys per thread
   extern __shared__ float4 smem4[];
-  const int CP = C + 4;                              // padded row stride
-  float* q_s = reinterpret_cast<float*>(smem4);      // NQ x CP
-  float* k_s = q_s + NQ * CP;                        // 2 x KC x CP
-  float* sc_s = k_s + 2 * KC * CP;                   // NQ x (KC + 1)
-  float* tv_s = sc_s + NQ * (KC + 1);                // topk x NQ values
-  int* ti_s = reinterpret_cast<int*>(tv_s + topk * NQ);  // topk x NQ ids
-  int* flag_s = ti_s + topk * NQ;                    // NQ: chunk has a hit
+  const int CQ = padded(C);             // query row stride, floats
+  const int C4 = C / 4;                 // 16-byte chunks of a feature row
+  const int HW = H * W;
+  float* q_s = reinterpret_cast<float*>(smem4);        // NQ x CQ
+  float* k_s = q_s + NQ * CQ;                           // 2 x KC x CS
+  float* lv = k_s + 2 * KC * CS;                        // NQ x topk values
+  int* li = reinterpret_cast<int*>(lv + NQ * topk);     // ... and ids
+  int* kcell = li + NQ * topk;                          // [2][KC]: -1 none
+  int* koff = kcell + 2 * KC;                           // [2][KC]: oy<<16|ox
+  int* kslot = koff + 2 * KC;                           // [2][KC]: slot l
+  float* scratch = reinterpret_cast<float*>(kslot + 2 * KC);  // [8][64]
+  int4* rowt = reinterpret_cast<int4*>(scratch + (NT / 32) * 64);
+  int* counts = reinterpret_cast<int*>(rowt + TQ + 2 * rr);   // rows, cells
 
-  const int tid = threadIdx.x;
-  const Geo g{H, W, H * W, C, L, n_long, rr, TQ + 2 * rr,
-              (int)blockIdx.y * TQ, (int)blockIdx.x * TQ};
-  const int C4 = C / 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty0 = (int)blockIdx.y * TQ, tx0 = (int)blockIdx.x * TQ;
 
-  // query tile; cells past the frame's edge load zeros, never insert (their
-  // threshold is +inf) and are never written
-  const float* qf = feats + (size_t)t_query * g.HW * C;
-  for (int i = tid; i < NQ * C4; i += NT) {
-    const int q = i / C4, c4 = i - (i / C4) * C4;
-    const int y = g.ty0 + q / TQ, x = g.tx0 + q % TQ;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (y < H && x < W)
-      v = reinterpret_cast<const float4*>(qf + ((size_t)y * W + x) * C)[c4];
-    reinterpret_cast<float4*>(q_s + q * CP)[c4] = v;
-  }
-  for (int i = tid; i < topk * NQ; i += NT) {
-    const int q = i % NQ;
-    const bool dead = g.ty0 + q / TQ >= H || g.tx0 + q % TQ >= W;
-    tv_s[i] = (dead && i >= (topk - 1) * NQ) ? CUDART_INF_F : -CUDART_INF_F;
-    ti_s[i] = 0;
-  }
-  if (tid < NQ) flag_s[tid] = 0;
-
-  // start the cp.async copies of chunk (l, base) into stage `st`
-  auto load = [&](int l, int base, int st) {
-    const float* kf = feats + (size_t)ctx[l] * g.HW * C;
-    float* dst = k_s + st * KC * CP;
-    for (int i = tid; i < KC * C4; i += NT) {
-      const int k = i / C4, c4 = i - (i / C4) * C4;
-      const int kc = g.cell(l, base + k);
-      cp_async16(dst + k * CP + 4 * c4,
-                 kc >= 0 ? kf + (size_t)kc * C + 4 * c4 : kf, kc >= 0);
+  // ---- the union of the tile's disks, in frame: one interval a row
+  const int nwin = TQ + 2 * rr;
+  for (int i = tid; i < nwin; i += NT) {
+    const int oy = i - rr, y = ty0 + oy;
+    const int dyc = oy < 0 ? -oy : (oy > TQ - 1 ? oy - (TQ - 1) : 0);
+    int lo = 0, cnt = 0;
+    if (y >= 0 && y < H && (float)(dyc * dyc) < r2) {
+      int m = rr;
+      while (m > 0 && !((float)(dyc * dyc + m * m) < r2)) --m;
+      lo = max(-m, -tx0);
+      const int hi = min(TQ - 1 + m, W - 1 - tx0);
+      cnt = max(hi - lo + 1, 0);
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    rowt[i] = make_int4(0, oy, lo, cnt);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0, start = 0;
+    for (int i = 0; i < nwin; ++i) {
+      int4 e = rowt[i];
+      if (e.w > 0) {
+        e.x = start;
+        start += e.w;
+        rowt[n++] = e;
+      }
+    }
+    counts[0] = n;
+    counts[1] = start;
+  }
+  __syncthreads();
+  const int nrows = counts[0], nsc = counts[1];
+
+  // ---- the query tile (cells past the frame load zeros; their threshold
+  // is +inf, so they never insert, and they are never written; channels
+  // past C are zero, so the last step adds exact zeros) and the lists
+  const float* qf = feats + (size_t)t_query * HW * C;
+  for (int i = tid; i < NQ * (CQ / 4); i += NT) {
+    const int q = i / (CQ / 4), c4 = i % (CQ / 4);
+    const int y = ty0 + q / TQ, x = tx0 + q % TQ;
+    const bool ok = y < H && x < W && c4 < C4;
+    cp_async16(q_s + q * CQ + 4 * c4,
+               ok ? qf + ((size_t)y * W + x) * C + 4 * c4 : feats, ok);
+  }
+  for (int i = tid; i < NQ * topk; i += NT) {
+    const int q = i / topk, j = i % topk;
+    const bool dead = ty0 + q / TQ >= H || tx0 + q % TQ >= W;
+    lv[i] = (dead && j == topk - 1) ? CUDART_INF_F : -CUDART_INF_F;
+    li[i] = 0x7fffffff;
+  }
+
+  // the candidate list: n_long whole frames, then L - n_long unions
+  const int n_longc = n_long * HW;
+  const int total = n_longc + (L - n_long) * nsc;
+  const int nchunks = (total + KC - 1) / KC;
+  const int steps_a_chunk = CQ / CS;
+  const int nsteps = nchunks * steps_a_chunk;
+
+  // this thread's key of the chunk being copied: its cell (-1: none), slot
+  // and tile offset
+  int my_cell = -1, my_slot = 0, my_off = 0;
+  auto locate = [&](int chunk) {
+    const int w = chunk * KC + tid;
+    my_cell = -1;
+    my_slot = 0;
+    my_off = 0;
+    if (w < n_longc) {
+      my_slot = w / HW;
+      my_cell = w - my_slot * HW;
+    } else if (w < total) {
+      const int w2 = w - n_longc;
+      my_slot = n_long + w2 / nsc;
+      const int j = w2 - (my_slot - n_long) * nsc;
+      int lo = 0, hi = nrows - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (rowt[mid].x <= j) lo = mid; else hi = mid - 1;
+      }
+      const int4 e = rowt[lo];
+      const int oy = e.y, ox = e.z + (j - e.x);
+      my_cell = (ty0 + oy) * W + tx0 + ox;
+      my_off = (int)(((unsigned)oy << 16) | ((unsigned)ox & 0xffffu));
+    }
+    const int p = chunk & 1;
+    kcell[p * KC + tid] = my_cell;
+    koff[p * KC + tid] = my_off;
+    kslot[p * KC + tid] = my_slot;
+  };
+  // step s's copies into stage s & 1: this thread's key, CS channels,
+  // 16-byte chunk c4 of row tid at c4 ^ (tid & 7)
+  auto issue = [&](int s) {
+    const int chunk = s / steps_a_chunk, c0 = (s % steps_a_chunk) * CS;
+    if (c0 == 0) locate(chunk);
+    const float* src = feats + ((size_t)ctx[my_slot] * HW
+                                + (my_cell < 0 ? 0 : my_cell)) * C + c0;
+    float* dst = k_s + ((s & 1) * KC + tid) * CS;
+#pragma unroll
+    for (int c4 = 0; c4 < CS / 4; ++c4) {
+      const bool ok = my_cell >= 0 && c0 / 4 + c4 < C4;
+      cp_async16(dst + 4 * (c4 ^ (tid & 7)), ok ? src + 4 * c4 : feats, ok);
+    }
+    cp_async_commit();
   };
 
-  const int qa = tid / 16;   // this thread's queries: qa + 16 * i
-  const int kb = tid % 16;   // this thread's chunk keys: kb + 16 * j
-
-  int l = 0, base = -KC, st = 0;
-  g.advance<KC>(l, base);
-  if (l < L) load(l, base, 0);
-  while (l < L) {
-    // prefetch the next chunk into the other stage: its last readers (the
-    // dot products two chunks back) passed the barrier after them
-    int nl = l, nbase = base;
-    g.advance<KC>(nl, nbase);
-    if (nl < L) {
-      load(nl, nbase, st ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  const int q0 = warp * 8;              // this warp's queries q0 .. q0+7
+  float acc[8][8];
+  if (nsteps > 0) issue(0);
+  else cp_async_commit();
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait_all();
+    __syncthreads();   // step s landed; the other stage is free
+    if (s + 1 < nsteps) issue(s + 1);
+    const int chunk = s / steps_a_chunk, cs = s % steps_a_chunk;
+    if (cs == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     }
-    __syncthreads();   // chunk ready in every thread's view; top-k updated
-
-    const float* ks = k_s + st * KC * CP;
-    float acc[QR][KR];
+    // ---- CS channels of 8 queries x 8 keys, f32 FMAs in channel order
+    const float* ks = k_s + ((s & 1) * KC + lane) * CS;
+    const float* qs = q_s + q0 * CQ + cs * CS;
 #pragma unroll
-    for (int i = 0; i < QR; ++i)
+    for (int c4 = 0; c4 < CS / 4; ++c4) {
+      float4 qv[8], kv[8];
 #pragma unroll
-      for (int j = 0; j < KR; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int c4 = 0; c4 < C4; ++c4) {
-      float4 qv[QR], kv[KR];
+      for (int i = 0; i < 8; ++i)
+        qv[i] = reinterpret_cast<const float4*>(qs + i * CQ)[c4];
 #pragma unroll
-      for (int i = 0; i < QR; ++i)
-        qv[i] = reinterpret_cast<const float4*>(q_s + (qa + 16 * i) * CP)[c4];
+      for (int j = 0; j < 8; ++j)
+        kv[j] = reinterpret_cast<const float4*>(ks + j * 32 * CS)[c4 ^ (lane & 7)];
 #pragma unroll
-      for (int j = 0; j < KR; ++j)
-        kv[j] = reinterpret_cast<const float4*>(ks + (kb + 16 * j) * CP)[c4];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < QR; ++i)
-#pragma unroll
-        for (int j = 0; j < KR; ++j) {
+        for (int j = 0; j < 8; ++j) {
           float a = acc[i][j];
           a = fmaf(qv[i].x, kv[j].x, a);
           a = fmaf(qv[i].y, kv[j].y, a);
@@ -203,108 +276,107 @@ __global__ void __launch_bounds__(NT) prop_sparse_kernel(
           acc[i][j] = a;
         }
     }
-    // scores; only those above the query's current k-th value can enter its
-    // top-k, the rest are written as -inf
-    const bool is_long = l < n_long;
+    if (cs != steps_a_chunk - 1) continue;
+
+    // ---- the chunk's scores: hits above their query's k-th value
+    const int p = chunk & 1;
+    float thr[8];
 #pragma unroll
-    for (int i = 0; i < QR; ++i) {
-      const int q = qa + 16 * i;
-      const float thr = tv_s[(topk - 1) * NQ + q];
-      bool hit = false;
+    for (int i = 0; i < 8; ++i) thr[i] = lv[(q0 + i) * topk + topk - 1];
+    unsigned long long hits = 0;
 #pragma unroll
-      for (int j = 0; j < KR; ++j) {
-        const int k = kb + 16 * j, w = base + k;
-        bool ok = g.cell(l, w) >= 0;
-        if (ok && !is_long) {
-          const int dy = w / g.WIN - rr - q / TQ, dx = w % g.WIN - rr - q % TQ;
+    for (int j = 0; j < 8; ++j) {
+      const int kk = lane + 32 * j;
+      const int cell = kcell[p * KC + kk];
+      const bool is_short = kslot[p * KC + kk] >= n_long;
+      const int off = koff[p * KC + kk];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = q0 + i;
+        bool ok = cell >= 0;
+        if (ok && is_short) {
+          const int dy = (off >> 16) - q / TQ;
+          const int dx = (int)(short)(off & 0xffff) - q % TQ;
           ok = (float)(dy * dy + dx * dx) < r2;
         }
-        const float s = acc[i][j] * inv_t;
-        ok = ok && s > thr;
-        sc_s[q * (KC + 1) + k] = ok ? s : -CUDART_INF_F;
-        hit |= ok;
+        const float sc = acc[i][j] * inv_t;
+        acc[i][j] = sc;
+        if (ok && sc > thr[i]) hits |= 1ull << (i * 8 + j);
       }
-      if (hit) flag_s[q] = 1;
     }
-    __syncthreads();   // scores ready
-
-    // running top-k, one thread per query with a hit, candidates in list
-    // order; the other warps go on to the next chunk meanwhile
-    if (tid < NQ && flag_s[tid]) {
-      const int q = tid;
-      flag_s[q] = 0;
-      float thr = tv_s[(topk - 1) * NQ + q];
-      for (int k = 0; k < KC; ++k) {
-        const float v = sc_s[q * (KC + 1) + k];
-        if (!(v > thr)) continue;
-        int p = topk - 1;
-        while (p > 0 && tv_s[(p - 1) * NQ + q] < v) {
-          tv_s[p * NQ + q] = tv_s[(p - 1) * NQ + q];
-          ti_s[p * NQ + q] = ti_s[(p - 1) * NQ + q];
-          --p;
+    // ---- inserted: each lane with a hit, in turn, stages its 8 x 8 scores
+    // (-inf where none) and lanes 0-7 insert them into their query's list
+    unsigned who = __ballot_sync(0xffffffffu, hits != 0);
+    float* sw = scratch + warp * 64;
+    while (who) {
+      const int r = __ffs(who) - 1;
+      who &= who - 1;
+      if (lane == r) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            sw[i * 8 + j] = (hits >> (i * 8 + j) & 1ull) ? acc[i][j]
+                                                          : -CUDART_INF_F;
+      }
+      __syncwarp();
+      if (lane < 8) {
+        const int q = q0 + lane;
+        float* v = lv + q * topk;
+        int* ix = li + q * topk;
+        for (int j = 0; j < 8; ++j) {
+          const float sc = sw[lane * 8 + j];
+          if (!(sc > -CUDART_INF_F)) continue;
+          const int kk = r + 32 * j;
+          const int id = kslot[p * KC + kk] * HW + kcell[p * KC + kk];
+          if (!above(sc, id, v[topk - 1], ix[topk - 1])) continue;
+          int pos = topk - 1;
+          while (pos > 0 && above(sc, id, v[pos - 1], ix[pos - 1])) {
+            v[pos] = v[pos - 1];
+            ix[pos] = ix[pos - 1];
+            --pos;
+          }
+          v[pos] = sc;
+          ix[pos] = id;
         }
-        tv_s[p * NQ + q] = v;
-        ti_s[p * NQ + q] = l * g.HW + g.cell(l, base + k);
-        thr = tv_s[(topk - 1) * NQ + q];
       }
+      __syncwarp();
     }
-    l = nl;
-    base = nbase;
-    st ^= 1;
   }
+  cp_async_wait_all();
   __syncthreads();
 
-  // softmax over the kept k and the label mix; 4 threads per query split
-  // the label channels
+  // ---- softmax over the kept k and the label mix; 4 threads per query
+  // split the label channels
   const int q = tid % NQ;
-  const int y = g.ty0 + q / TQ, x = g.tx0 + q % TQ;
+  const int y = ty0 + q / TQ, x = tx0 + q % TQ;
   if (y >= H || x >= W) return;
-  const float m = tv_s[q];
+  const float m = lv[q * topk];
   for (int c = tid / NQ; c < NL; c += NT / NQ) {
     float z = 0.f, s = 0.f;
     if (m > -CUDART_INF_F) {
       for (int j = 0; j < topk; ++j) {
-        const float v = tv_s[j * NQ + q];
+        const float v = lv[q * topk + j];
         if (!(v > -CUDART_INF_F)) break;
         const float e = expf(v - m);
-        const int id = ti_s[j * NQ + q];
-        const int fl = id / g.HW;
+        const int id = li[q * topk + j];
+        const int fl = id / HW;
         z += e;
-        s = fmaf(e, labels[((size_t)ctx[fl] * g.HW + (id - fl * g.HW)) * NL + c],
-                 s);
+        s = fmaf(e, labels[((size_t)ctx[fl] * HW + (id - fl * HW)) * NL + c], s);
       }
     }
     out[((size_t)y * W + x) * NL + c] = z > 0.f ? s / z : 0.f;
   }
 }
 
-template <int KC>
-int launch(const float* feats, const float* labels, const int* ctx,
-           float* out, int H, int W, int C, int NL, int L, int n_long,
-           int t_query, int topk, float inv_t, float r2, int rr,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes<KC>(C, topk);
-  cudaError_t err = cudaFuncSetAttribute(
-      prop_sparse_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TQ - 1) / TQ, (H + TQ - 1) / TQ);
-  prop_sparse_kernel<KC><<<grid, NT, smem, stream>>>(
-      feats, labels, ctx, out, H, W, C, NL, L, n_long, t_query, topk, inv_t,
-      r2, rr);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one launch needs, in bytes: chunks of 64 keys where
-// two of them fit one block, else of 32, else of 16.
-size_t prop_sparse_smem_bytes(int C, int topk) {
-  if (smem_bytes<64>(C, topk) <= SMEM_OPTIN) return smem_bytes<64>(C, topk);
-  if (smem_bytes<32>(C, topk) <= SMEM_OPTIN) return smem_bytes<32>(C, topk);
-  return smem_bytes<16>(C, topk);
+// Dynamic shared memory one launch needs, in bytes, at C channels, k kept
+// and a short-frame halo rr.
+size_t prop_sparse_smem_bytes(int C, int topk, int rr) {
+  return smem_bytes(C, topk, rr);
 }
 
 // Launches the kernel for one target frame on `stream`; returns the
@@ -313,15 +385,17 @@ int prop_sparse_launch(const float* feats, const float* labels, const int* ctx,
                        float* out, int H, int W, int C, int NL, int L,
                        int n_long, int t_query, int topk, float inv_t, float r2,
                        int rr, void* stream) {
-  auto s = (cudaStream_t)stream;
-  if (smem_bytes<64>(C, topk) <= SMEM_OPTIN)
-    return launch<64>(feats, labels, ctx, out, H, W, C, NL, L, n_long, t_query,
-                      topk, inv_t, r2, rr, s);
-  if (smem_bytes<32>(C, topk) <= SMEM_OPTIN)
-    return launch<32>(feats, labels, ctx, out, H, W, C, NL, L, n_long, t_query,
-                      topk, inv_t, r2, rr, s);
-  return launch<16>(feats, labels, ctx, out, H, W, C, NL, L, n_long, t_query,
-                    topk, inv_t, r2, rr, s);
+  const size_t smem = smem_bytes(C, topk, rr);
+  if (smem > SMEM_OPTIN) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      prop_sparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + TQ - 1) / TQ, (H + TQ - 1) / TQ);
+  prop_sparse_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      feats, labels, ctx, out, H, W, C, NL, L, n_long, t_query, topk, inv_t,
+      r2, rr);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

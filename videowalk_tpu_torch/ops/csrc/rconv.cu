@@ -1,29 +1,21 @@
-// 3x3 stride-1 reflect-padded convolution: forward (with or without the
-// following BatchNorm's batch moments), input gradient and weight gradient,
-// each also with the preceding BatchNorm's affine and ReLU folded into the
-// operand (the BN-input chain).
+// 3x3 stride-1 reflect-padded convolution in f32: forward (with or without
+// the following BatchNorm's batch moments), input gradient and weight
+// gradient, each also with the preceding BatchNorm's affine and ReLU folded
+// into the operand (the BN-input chain).
 //
-// Replaces the Pallas TPU kernels of videowalk_tpu/ops/rconv_kernel.py:
-//   #4  _fwd_call    :240 -> _fwd_kernel     :224   (rconv_gemm<.., FWD>)
-// and, for f32 operands only, the kernels whose bf16 versions are
-// rconv_slab.cu's:
-//   #5  _fwd_call_st :319 -> _fwd_kernel_st  :291   (rconv_gemm<float, FWD_STATS>
+// f32 only: every bf16 kernel is rconv_slab.cu's. For f32 operands this
+// engine replaces the Pallas TPU kernels of videowalk_tpu/ops/rconv_kernel.py:
+//   #4  _fwd_call    :240 -> _fwd_kernel     :224   (rconv_gemm<FWD>)
+//   #5  _fwd_call_st :319 -> _fwd_kernel_st  :291   (rconv_gemm<FWD_STATS>
 //                                                     + reduce_rows)
 //   #6  _fwd_call_bnin_st :440 -> _fwd_kernel_bnin_st :401
-//                                   (rconv_gemm<float, FWD_BNIN_STATS> + reduce_rows)
-//   #9  _dx_call     :633 -> _dx_kernel      :607   (rconv_gemm<float, DX>)
-//   #10 _dw_call     :682 -> _dw_kernel      :660   (rconv_gemm<float, DW>
-//                                                     + reduce_rows)
+//                                   (rconv_gemm<FWD_BNIN_STATS> + reduce_rows)
+//   #9  _dx_call     :633 -> _dx_kernel      :607   (rconv_gemm<DX>)
+//   #10 _dw_call     :682 -> _dw_kernel      :660   (rconv_gemm<DW> + reduce_rows)
 //   #7  _dx_call_bnin :514 -> _dx_kernel_bnin :474
-//                                   (rconv_gemm<float, DX_BNIN> + reduce_rows)
+//                                   (rconv_gemm<DX_BNIN> + reduce_rows)
 //   #8  _dw_call_bnin :573 -> _dw_kernel_bnin :553
-//                                   (rconv_gemm<float, DW_BNIN> + reduce_rows)
-// rconv_dx_launch / rconv_dw_launch take f32 only (a bf16 call returns
-// cudaErrorNotSupported). The bf16 FWD_STATS, FWD_BNIN_STATS, DX_BNIN and
-// DW_BNIN modes are no route's: ops/rconv.py sends bf16 #5-#8 to
-// rconv_slab.cu; they stay only as chip_smoke.py's same-call yardstick of
-// the previous design, and go, with this engine's bf16 paths, when #4
-// leaves it.
+//                                   (rconv_gemm<DW_BNIN> + reduce_rows)
 // Built from what they compute, not from the TPU's flat-roll/select chain
 // (which exists for the sublane layout). y = conv_valid(reflect_pad(x, 1), w)
 // with torch 'reflect' semantics: pad row -1 mirrors row 1, row H mirrors
@@ -33,7 +25,7 @@
 // as (9, K, Nout) with tap t = 3*dy + dx.
 //
 // All seven are one implicit GEMM engine (rconv_gemm): a block computes a
-// BM x BN output tile, looping over K in BK-deep steps through a ring of 4
+// 64 x 64 output tile, looping over K in 16-deep steps through a ring of 4
 // shared-memory stages (3 steps in flight while one is multiplied, one
 // barrier a step). Each step's A tile is gathered through the reflection:
 // by cp.async for the forward and dW (one source row per tile row), through
@@ -51,150 +43,92 @@
 //            (pad row H mirrors row H-2); the same for columns, so a
 //            boundary pixel sums up to 4 legs per tap, the legs of
 //            _leg_masks/_leg_offsets. The legs share W[t], so the loader sums
-//            their gy rows in f32 and rounds once to the operand type.
+//            their gy rows in f32.
 //   dW       dW[t] = sum_p tap_t(x)[p]^T gy[p]: M = Cin (per tap), N = Cout,
-//            K = N*H*W pixels (200,704 at the flagship). The K range is split
-//            over blocks into f32 partials (enough blocks to fill the 132 SMs
-//            at layer1's 576 x 64 output as at layer4's 4608 x 512), reduced
-//            by a second pass in a fixed order: no float atomics, so dW
-//            repeats from run to run.
-// bf16 operands run on the tensor cores (nvcuda::wmma 16x16x16, f32
-// accumulation); f32 operands take a plain f32 FMA path, no TF32 (the JAX
-// reference computes f32 in f32). The epilogue stages the f32 tile in shared
-// memory and casts to the operand type; with FWD_STATS it also sums the CAST
+//            K = N*H*W pixels. The K range is split over blocks into f32
+//            partials (enough blocks to fill the 132 SMs), reduced by a
+//            second pass in a fixed order: no float atomics, so dW repeats
+//            from run to run.
+// The products are plain f32 FMAs on the CUDA cores, no TF32 (the JAX
+// reference computes f32 in f32), a 4 x 4 register tile a thread. The
+// epilogue stages the f32 tile in shared memory; with FWD_STATS it also sums
 // y and y^2 per channel in f32 over the tile's rows into per-block partials,
 // which reduce_rows sums in a fixed order, so the moments repeat from run to
 // run as the TPU's sequential grid made them.
 //
 // The BN-input modes take the previous conv's raw output x and the
 // per-channel f32 affine (a, b) of its train-mode BatchNorm, packed (2, Cin),
-// and never write xn = cast(relu(a*x + b)) to device memory:
+// and never write xn = relu(a*x + b) to device memory:
 //   FWD_BNIN_STATS, DW_BNIN  the gathered x tile lands in its stage by
 //            cp.async as before; after cp.async.wait_group each thread
 //            rewrites the vectors it copied itself (visible to it without a
-//            barrier) as xn, f32 math rounded once to the operand type, and
-//            the step's one barrier then publishes them: no extra barrier or
-//            pass. A thread's vectors share their channels, so one load of
-//            a and b a step serves them. Zero-filled vectors (rows past M, channel tails) are left
-//            zero, not relu(b), so they reach neither the moments nor dW.
-//            (a, b) sit in shared memory behind the stage ring.
+//            barrier) as xn, and the step's one barrier then publishes them:
+//            no extra barrier or pass. A thread's vectors share their
+//            channels, so one load of a and b a step serves them. Zero-filled
+//            vectors (rows past M, channel tails) are left zero, not relu(b),
+//            so they reach neither the moments nor dW. (a, b) sit in shared
+//            memory behind the stage ring.
 //   DX_BNIN  the main loop is DX's; the epilogue reads x at the output
 //            pixels, gates the f32 tile dxn by g = (a*x + b > 0), writes
-//            dx = cast(dxn*g*a), and sums da = sum_p dxn*g*x and
-//            db = sum_p dxn*g per channel from the f32 dxn: each thread over
-//            its rows, then 16 or 32 row groups through shared memory in a
-//            fixed order into per-block partials for reduce_rows.
+//            dx = dxn*g*a, and sums da = sum_p dxn*g*x and db = sum_p dxn*g
+//            per channel: each thread over its rows, then 16 row groups
+//            through shared memory in a fixed order into per-block partials
+//            for reduce_rows.
 // The ReLU gate is fmaf(x, a, b) > 0 in all three, so a pixel kept in the
 // forward is kept in the backward.
 //
-// Bound at the flagship's routed shape (layer4 interior, N = 3136 images,
-// 8x8, Cin = Cout = 512, bf16): each pass (forward, dx or dW) is
-// 2*3136*64*9*512*512 = 0.947 TFLOP, 0.96 ms at 989 TFLOP/s dense bf16; its
-// bytes (~205 MB in, ~205 MB out) take 0.12 ms at 3.35 TB/s. So the passes
-// are bound by the tensor cores, and the design keeps the gathered operand
-// tiles reused across a 128 x 128 output tile (64 multiply-adds per loaded
-// element), and keeps 4 stages in flight at two blocks an SM to cover the
-// gather's latency. It issues wmma (mma.sync); wgmma with TMA loads is
-// later work.
+// Bound: at an f32 layer4 interior (3136 images of 8x8, 512 -> 512) each
+// pass is 0.947 TFLOP, 14 ms at 67 TFLOP/s f32; f32 is the small card
+// checks' and the CPU-parity configurations' type, not the training path's.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (videowalk_tpu_torch/ops/_build.py); plain C interface, loaded with ctypes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int NT = 256;     // threads per block (8 warps)
+constexpr int E = 4;        // f32 values of a 16-byte vector
 enum Mode { FWD = 0, FWD_STATS = 1, DX = 2, DW = 3,
             FWD_BNIN_STATS = 4, DX_BNIN = 5, DW_BNIN = 6 };
 
-// 16-byte vectors of the operand type, summed and rounded in f32
-template <typename T> struct Pack;
-
-template <> struct Pack<float> {
-  static constexpr int E = 4;
-  __device__ static void add(float* a, const uint4& v) {
-    a[0] += __uint_as_float(v.x);
-    a[1] += __uint_as_float(v.y);
-    a[2] += __uint_as_float(v.z);
-    a[3] += __uint_as_float(v.w);
-  }
-  __device__ static void get(float* a, const uint4& v) {
-    a[0] = __uint_as_float(v.x);
-    a[1] = __uint_as_float(v.y);
-    a[2] = __uint_as_float(v.z);
-    a[3] = __uint_as_float(v.w);
-  }
-  __device__ static float round(float v) { return v; }
-  __device__ static uint4 make(const float* a) {
-    return make_uint4(__float_as_uint(a[0]), __float_as_uint(a[1]),
-                      __float_as_uint(a[2]), __float_as_uint(a[3]));
-  }
-};
-
-template <> struct Pack<__nv_bfloat16> {
-  static constexpr int E = 8;
-  __device__ static void add(float* a, const uint4& v) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      a[2 * i] += f.x;
-      a[2 * i + 1] += f.y;
-    }
-  }
-  __device__ static void get(float* a, const uint4& v) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      a[2 * i] = f.x;
-      a[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  __device__ static uint4 make(const float* a) {
-    uint4 v;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
-    return v;
-  }
-};
-
-// E consecutive f32 from a 16-byte aligned address
-template <int E>
-__device__ __forceinline__ void load_f32(float* d, const float* src) {
-#pragma unroll
-  for (int i = 0; i < E / 4; ++i) {
-    const float4 f = reinterpret_cast<const float4*>(src)[i];
-    d[4 * i] = f.x;
-    d[4 * i + 1] = f.y;
-    d[4 * i + 2] = f.z;
-    d[4 * i + 3] = f.w;
-  }
+// the 4 f32 of a 16-byte vector: added to a, read into a; a made a vector
+__device__ __forceinline__ void vec_add(float* a, const uint4& v) {
+  a[0] += __uint_as_float(v.x);
+  a[1] += __uint_as_float(v.y);
+  a[2] += __uint_as_float(v.z);
+  a[3] += __uint_as_float(v.w);
+}
+__device__ __forceinline__ void vec_get(float* a, const uint4& v) {
+  a[0] = __uint_as_float(v.x);
+  a[1] = __uint_as_float(v.y);
+  a[2] = __uint_as_float(v.z);
+  a[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ uint4 vec_make(const float* a) {
+  return make_uint4(__float_as_uint(a[0]), __float_as_uint(a[1]),
+                    __float_as_uint(a[2]), __float_as_uint(a[3]));
 }
 
-// xn = cast(relu(a*x + b)) on one vector: f32 math, rounded once. The gate
-// of the backward is the same fmaf(x, a, b) > 0.
-template <typename T>
+// 4 consecutive f32 from a 16-byte aligned address
+__device__ __forceinline__ void load4(float* d, const float* src) {
+  const float4 f = *reinterpret_cast<const float4*>(src);
+  d[0] = f.x;
+  d[1] = f.y;
+  d[2] = f.z;
+  d[3] = f.w;
+}
+
+// xn = relu(a*x + b) on one vector. The gate of the backward is the same
+// fmaf(x, a, b) > 0.
 __device__ __forceinline__ uint4 bnin_vec(const uint4& v, const float* av,
                                           const float* bv) {
-  constexpr int E = Pack<T>::E;
   float x[E];
-  Pack<T>::get(x, v);
+  vec_get(x, v);
 #pragma unroll
   for (int e = 0; e < E; ++e) x[e] = fmaxf(fmaf(x[e], av[e], bv[e]), 0.f);
-  return Pack<T>::make(x);
+  return vec_make(x);
 }
 
 struct Geo {
@@ -221,12 +155,11 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
-template <typename T, int BM_, int BN_, bool KMAJOR>
+constexpr int BM = 64, BN = 64;   // output tile
+constexpr int BK = 16;            // K depth of a step
+template <bool KMAJOR>
 struct Cfg {
-  static constexpr int BM = BM_, BN = BN_;
-  static constexpr int E = Pack<T>::E;
-  static constexpr int BK = 64 / (int)sizeof(T);   // 32 bf16, 16 f32
-  static constexpr int PAD = 16 / (int)sizeof(T);
+  static constexpr int PAD = 4;
   static constexpr int LDA = (KMAJOR ? BM : BK) + PAD;
   static constexpr int A_ELEMS = (KMAJOR ? BK : BM) * LDA;
   static constexpr int LDB = BN + PAD;
@@ -234,7 +167,7 @@ struct Cfg {
   static constexpr int LDC = BN + 4;
   static constexpr int STAGE = A_ELEMS + B_ELEMS;
   static constexpr int STAGES = 4;
-  static constexpr int STAGE_BYTES = STAGES * STAGE * (int)sizeof(T);
+  static constexpr int STAGE_BYTES = STAGES * STAGE * 4;
   static constexpr int C_BYTES = BM * LDC * 4;
   static constexpr int SMEM = STAGE_BYTES > C_BYTES ? STAGE_BYTES : C_BYTES;
   static constexpr int A_VECS = BM * BK / E, B_VECS = BK * BN / E;
@@ -245,24 +178,23 @@ struct Cfg {
 // a: the gathered operand (forward and dW: x; dx: gy), b: the packed
 // weights (9, kc, nc) for the convolutions, gy (M, nc) for dW.
 // out: (M, nc) for the convolutions. part: the stats modes' (mtiles, 2, nc)
-// moments, DX_BNIN's (mtiles, 2, nc) [da; db]; dW's (splits, 9*kc, nc) f32
-// partials. ab: the BN-input modes' (2, Cin) f32 [a; b]; xin: DX_BNIN's x
+// moments, DX_BNIN's (mtiles, 2, nc) [da; db]; dW's (splits, 9*kc, nc)
+// partials. ab: the BN-input modes' (2, Cin) [a; b]; xin: DX_BNIN's x
 // (M, nc) at the output pixels.
-template <typename T, int BM, int BN, int MODE>
+template <int MODE>
 __global__ void __launch_bounds__(NT, 2) rconv_gemm(
-    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
-    float* __restrict__ part, const T* __restrict__ xin,
-    const float* __restrict__ ab, Geo g, int ntiles, int mtiles,
-    long long kspan) {
+    const float* __restrict__ a, const float* __restrict__ b,
+    float* __restrict__ out, float* __restrict__ part,
+    const float* __restrict__ xin, const float* __restrict__ ab, Geo g,
+    int ntiles, int mtiles, long long kspan) {
   constexpr bool IS_DW = MODE == DW || MODE == DW_BNIN;
   constexpr bool IS_DX = MODE == DX || MODE == DX_BNIN;
   constexpr bool STATS = MODE == FWD_STATS || MODE == FWD_BNIN_STATS;
   constexpr bool BNIN_A = MODE == FWD_BNIN_STATS || MODE == DW_BNIN;
   constexpr bool KMAJOR = IS_DW;
-  using C = Cfg<T, BM, BN, KMAJOR>;
-  constexpr int E = C::E, BK = C::BK;
+  using C = Cfg<KMAJOR>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* stage = reinterpret_cast<T*>(smem);
+  float* stage = reinterpret_cast<float*>(smem);
   const int tid = threadIdx.x;
   const int cmask_w = g.W - 1, cmask_h = g.H - 1, lhw = g.lh + g.lw;
 
@@ -301,7 +233,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
 
   // Where vector v of step kt's A tile comes from (every mode but DX:
   // one source row each, the reflection resolved here); false = zeros.
-  auto a_src = [&](int kt, int v, const T*& src) -> bool {
+  auto a_src = [&](int kt, int v, const float*& src) -> bool {
     if constexpr (IS_DW) {
       const long long p = k_begin + (long long)kt * BK + v / (BM / E);
       const long long c = m0 + (v % (BM / E)) * E;
@@ -327,9 +259,9 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
   };
   // BN-input modes: the vectors this thread copied into stage s for step
   // kt (a_src's pixels and channels), rewritten in place as
-  // xn = cast(relu(a*x + b)) once its own cp.async group has landed;
-  // zero-filled vectors stay zero. A thread's vectors (v = tid + i*NT) lie
-  // in one column of the tile, so they share one load of a and b.
+  // xn = relu(a*x + b) once its own cp.async group has landed; zero-filled
+  // vectors stay zero. A thread's vectors (v = tid + i*NT) lie in one
+  // column of the tile, so they share one load of a and b.
   auto bnin = [&](int kt, int s) {
     if constexpr (BNIN_A) {
       constexpr int RV = KMAJOR ? BM / E : BK / E;
@@ -340,20 +272,20 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
       const long long p0 = (IS_DW ? k_begin + (long long)kt * BK : m0) + tid / RV;
       const long long p_end = IS_DW ? k_end : g.M;
       float av[E], bv[E];
-      load_f32<E>(av, sab + c);
-      load_f32<E>(bv, sab + g.kc + c);
-      T* As = stage + s * C::STAGE + (tid / RV) * C::LDA + col;
+      load4(av, sab + c);
+      load4(bv, sab + g.kc + c);
+      float* As = stage + s * C::STAGE + (tid / RV) * C::LDA + col;
 #pragma unroll
       for (int i = 0; i < C::A_PER; ++i) {
         if (p0 + i * (NT / RV) < p_end) {
           uint4* q = reinterpret_cast<uint4*>(As + i * (NT / RV) * C::LDA);
-          *q = bnin_vec<T>(*q, av, bv);
+          *q = bnin_vec(*q, av, bv);
         }
       }
     }
   };
   // vector v of step kt's B tile: the weights (conv) or gy rows (dW)
-  auto b_src = [&](int kt, int v, const T*& src) -> bool {
+  auto b_src = [&](int kt, int v, const float*& src) -> bool {
     const int n = n0 + (v % (BN / E)) * E;
     const int r = v / (BN / E);
     if constexpr (IS_DW) {
@@ -370,14 +302,14 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
   };
   // step kt's tiles into stage s by cp.async (DX's A tile: dx_issue)
   auto issue = [&](int kt, int s) {
-    T* As = stage + s * C::STAGE;
-    T* Bs = As + C::A_ELEMS;
+    float* As = stage + s * C::STAGE;
+    float* Bs = As + C::A_ELEMS;
     if constexpr (!IS_DX) {
 #pragma unroll
       for (int i = 0; i < C::A_PER; ++i) {
         const int v = tid + i * NT;
         constexpr int RV = KMAJOR ? BM / E : BK / E;
-        const T* src = a;
+        const float* src = a;
         const bool ok = a_src(kt, v, src);
         cp_async16(As + (v / RV) * C::LDA + (v % RV) * E, src, ok);
       }
@@ -385,19 +317,19 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
 #pragma unroll
     for (int i = 0; i < C::B_PER; ++i) {
       const int v = tid + i * NT;
-      const T* src = b;
+      const float* src = b;
       const bool ok = b_src(kt, v, src);
       cp_async16(Bs + (v / (BN / E)) * C::LDB + (v % (BN / E)) * E, src, ok);
     }
   };
   // DX's A tile: per input pixel the sum of its legs' gy rows. A pixel with
   // one leg (or none) copies its row (or zeros) by cp.async into stage s; a
-  // boundary pixel with several sums them in f32 here, rounds once, and
-  // dx_store writes the sum after this step's products.
+  // boundary pixel with several sums them here, and dx_store writes the sum
+  // after this step's products.
   bool held[IS_DX ? C::A_PER : 1];
   auto dx_issue = [&](int kt, int s) {
     if constexpr (IS_DX) {
-      T* As = stage + s * C::STAGE;
+      float* As = stage + s * C::STAGE;
       const int t = kt / kchunks;
       const int c0 = (kt - t * kchunks) * BK;
       const int dy = t / 3, dx = t % 3;
@@ -406,14 +338,14 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
         const int v = tid + i * NT;
         const long long p = m0 + v / (BK / E);
         const int c = c0 + (v % (BK / E)) * E;
-        T* dst = As + (v / (BK / E)) * C::LDA + (v % (BK / E)) * E;
+        float* dst = As + (v / (BK / E)) * C::LDA + (v % (BK / E)) * E;
         held[i] = false;
         if (p >= g.M || c >= g.kc) {
           cp_async16(dst, a, false);
           continue;
         }
         const int w = (int)(p & cmask_w), h = (int)((p >> g.lw) & cmask_h);
-        const T* img = a + ((p >> lhw) << lhw) * g.kc + c;
+        const float* img = a + ((p >> lhw) << lhw) * g.kc + c;
         int h0 = h - dy + 1, w0 = w - dx + 1;        // the direct leg
         if (h0 < 0 || h0 >= g.H) h0 = -1;
         if (w0 < 0 || w0 >= g.W) w0 = -1;
@@ -433,20 +365,20 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
         for (int e = 0; e < E; ++e) acc[e] = 0.f;
         auto add = [&](int hh, int ww) {
           if (hh >= 0 && ww >= 0)
-            Pack<T>::add(acc, __ldg(reinterpret_cast<const uint4*>(row(hh, ww))));
+            vec_add(acc, __ldg(reinterpret_cast<const uint4*>(row(hh, ww))));
         };
         add(h0, w0);
         add(h0, w1);
         add(h1, w0);
         add(h1, w1);
-        ra[i] = Pack<T>::make(acc);
+        ra[i] = vec_make(acc);
         held[i] = true;
       }
     }
   };
   auto dx_store = [&](int s) {
     if constexpr (IS_DX) {
-      T* As = stage + s * C::STAGE;
+      float* As = stage + s * C::STAGE;
 #pragma unroll
       for (int i = 0; i < C::A_PER; ++i) {
         const int v = tid + i * NT;
@@ -457,70 +389,33 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
     }
   };
 
-  // ---- main loop: S stages in flight, one barrier per step
-  constexpr bool TC = sizeof(T) == 2;
-  constexpr int WM = BM / 2, WN = BN / 4, FM = WM / 16, FN = WN / 16;
+  // ---- main loop: S stages in flight, one barrier per step; a 4 x 4
+  // register tile a thread (rows ty + 16i, columns tx + 16j)
   constexpr int RM = BM / 16, RN = BN / 16;
-  using ALayout = typename std::conditional<KMAJOR, wmma::col_major,
-                                            wmma::row_major>::type;
-  const int warp = tid / 32, wm = warp / 4, wn = warp % 4;
   const int ty = tid / 16, tx = tid % 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> facc[TC ? FM : 1][TC ? FN : 1];
-  float racc[TC ? 1 : RM][TC ? 1 : RN];
-  if constexpr (TC) {
+  float racc[RM][RN];
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(facc[i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) racc[i][j] = 0.f;
-  }
+    for (int j = 0; j < RN; ++j) racc[i][j] = 0.f;
 
   auto compute = [&](int s) {
-    const T* As = stage + s * C::STAGE;
-    const T* Bs = As + C::A_ELEMS;
-    if constexpr (TC) {
+    const float* As = stage + s * C::STAGE;
+    const float* Bs = As + C::A_ELEMS;
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> fa[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
+    for (int k = 0; k < BK; ++k) {
+      float av[RM], bv[RN];
 #pragma unroll
-        for (int i = 0; i < FM; ++i) {
-          const int row = wm * WM + i * 16;
-          const T* p = KMAJOR ? As + kk * C::LDA + row : As + row * C::LDA + kk;
-          wmma::load_matrix_sync(fa[i], reinterpret_cast<const __nv_bfloat16*>(p),
-                                 C::LDA);
-        }
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(
-              fb[j], reinterpret_cast<const __nv_bfloat16*>(
-                         Bs + kk * C::LDB + wn * WN + j * 16), C::LDB);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j)
-            wmma::mma_sync(facc[i][j], fa[i], fb[j], facc[i][j]);
+      for (int i = 0; i < RM; ++i) {
+        const int r = ty + 16 * i;
+        av[i] = KMAJOR ? As[k * C::LDA + r] : As[r * C::LDA + k];
       }
-    } else {
 #pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        float av[RM], bv[RN];
+      for (int j = 0; j < RN; ++j) bv[j] = Bs[k * C::LDB + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const int r = ty + 16 * i;
-          av[i] = (float)(KMAJOR ? As[k * C::LDA + r] : As[r * C::LDA + k]);
-        }
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < RN; ++j) bv[j] = (float)Bs[k * C::LDB + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < RN; ++j) racc[i][j] = fmaf(av[i], bv[j], racc[i][j]);
-      }
+        for (int j = 0; j < RN; ++j) racc[i][j] = fmaf(av[i], bv[j], racc[i][j]);
     }
   };
 
@@ -549,22 +444,13 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
   cp_async_wait<0>();
   __syncthreads();
 
-  // ---- epilogue: the f32 tile through shared memory
+  // ---- epilogue: the tile through shared memory
   float* Cs = reinterpret_cast<float*>(smem);
-  if constexpr (TC) {
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(Cs + (wm * WM + i * 16) * C::LDC + wn * WN + j * 16,
-                                facc[i][j], C::LDC, wmma::mem_row_major);
-  } else {
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j)
-        Cs[(ty + 16 * i) * C::LDC + tx + 16 * j] = racc[i][j];
-  }
+    for (int j = 0; j < RN; ++j)
+      Cs[(ty + 16 * i) * C::LDC + tx + 16 * j] = racc[i][j];
   __syncthreads();
 
   if constexpr (IS_DW) {
@@ -578,8 +464,8 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
             *reinterpret_cast<const float4*>(Cs + r * C::LDC + c4 * 4);
     }
   } else if constexpr (MODE == DX_BNIN) {
-    // dx = cast(dxn*g*a), da = sum dxn*g*x, db = sum dxn*g from the f32 tile
-    // dxn: a thread keeps one vector of columns and walks its rows
+    // dx = dxn*g*a, da = sum dxn*g*x, db = sum dxn*g from the tile dxn: a
+    // thread keeps one vector of columns and walks its rows
     constexpr int CV = BN / E, RG = NT / CV;
     static_assert(2 * BN <= NT && RG * 2 * BN * 4 <= C::SMEM, "da/db staging");
     const int cv = tid % CV, rg = tid / CV;
@@ -588,13 +474,13 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
 #pragma unroll
     for (int e = 0; e < E; ++e) da[e] = db[e] = av[e] = bv[e] = 0.f;
     if (n < g.nc) {
-      load_f32<E>(av, ab + n);
-      load_f32<E>(bv, ab + g.nc + n);
+      load4(av, ab + n);
+      load4(bv, ab + g.nc + n);
       for (int r = rg; r < BM; r += RG) {
         const long long p = m0 + r;
         if (p >= g.M) break;
         float xv[E], vals[E];
-        Pack<T>::get(xv, __ldg(reinterpret_cast<const uint4*>(xin + p * g.nc + n)));
+        vec_get(xv, __ldg(reinterpret_cast<const uint4*>(xin + p * g.nc + n)));
         const float* cp = Cs + r * C::LDC + cv * E;
 #pragma unroll
         for (int e = 0; e < E; ++e) {
@@ -603,7 +489,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
           da[e] = fmaf(gd, xv[e], da[e]);
           db[e] += gd;
         }
-        *reinterpret_cast<uint4*>(out + p * g.nc + n) = Pack<T>::make(vals);
+        *reinterpret_cast<uint4*>(out + p * g.nc + n) = vec_make(vals);
       }
     }
     __syncthreads();          // the tile is read; its memory holds the sums
@@ -629,17 +515,11 @@ __global__ void __launch_bounds__(NT, 2) rconv_gemm(
       const int n = n0 + cv * E;
       float* cp = Cs + r * C::LDC + cv * E;
       if (p < g.M && n < g.nc) {
-        float vals[E];
-#pragma unroll
-        for (int e = 0; e < E; ++e) vals[e] = Pack<T>::round(cp[e]);
-        *reinterpret_cast<uint4*>(out + p * g.nc + n) = Pack<T>::make(vals);
-        if constexpr (STATS) {
-#pragma unroll
-          for (int e = 0; e < E; ++e) cp[e] = vals[e];   // the cast y
-        }
+        *reinterpret_cast<uint4*>(out + p * g.nc + n) =
+            *reinterpret_cast<const uint4*>(cp);
       } else if constexpr (STATS) {
 #pragma unroll
-        for (int e = 0; e < E; ++e) cp[e] = 0.f;
+        for (int e = 0; e < E; ++e) cp[e] = 0.f;   // adds nothing to the sums
       }
     }
     if constexpr (STATS) {
@@ -697,18 +577,18 @@ Geo make_geo(int N, int H, int W, int kc, int nc) {
 }
 
 // the BN-input operands of a launch: x at the output pixels (DX_BNIN) and
-// the packed affine (2, Cin) f32; null for the plain modes
+// the packed affine (2, Cin); null for the plain modes
 struct Bnin {
-  const void* xin = nullptr;
+  const float* xin = nullptr;
   const float* ab = nullptr;
 };
 
-template <typename T, int BM, int BN, int MODE>
-cudaError_t launch_gemm(const void* a, const void* b, void* out, float* part,
+template <int MODE>
+cudaError_t launch_gemm(const float* a, const float* b, float* out, float* part,
                         const Bnin& bn, const Geo& g, int mtiles, int splits,
                         long long kspan, cudaStream_t st) {
-  using C = Cfg<T, BM, BN, MODE == DW || MODE == DW_BNIN>;
-  auto kern = rconv_gemm<T, BM, BN, MODE>;
+  using C = Cfg<MODE == DW || MODE == DW_BNIN>;
+  auto kern = rconv_gemm<MODE>;
   // the affine of the gathered operand's channels sits behind the stages
   const int smem = C::SMEM + (MODE == FWD_BNIN_STATS || MODE == DW_BNIN
                                   ? 2 * g.kc * (int)sizeof(float) : 0);
@@ -717,35 +597,20 @@ cudaError_t launch_gemm(const void* a, const void* b, void* out, float* part,
   if (e != cudaSuccess) return e;
   const int ntiles = (g.nc + BN - 1) / BN;
   const long long blocks = (long long)ntiles * mtiles * splits;
-  kern<<<(unsigned)blocks, NT, smem, st>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out),
-      part, static_cast<const T*>(bn.xin), bn.ab, g, ntiles, mtiles, kspan);
+  kern<<<(unsigned)blocks, NT, smem, st>>>(a, b, out, part, bn.xin, bn.ab, g,
+                                           ntiles, mtiles, kspan);
   return cudaGetLastError();
 }
 
-constexpr int conv_bm(int dtype) { return dtype == 1 ? 128 : 64; }
-int conv_mtiles(int dtype, const Geo& g) {
-  return (int)((g.M + conv_bm(dtype) - 1) / conv_bm(dtype));
-}
-// dW's tile rows (Cin per tap): 128 where Cin > 64 in bf16, which halves
-// the weight-gradient tiles' re-reads of x and gy from L2
-int dw_bm(int dtype, int cin) { return dtype == 1 && cin > 64 ? 128 : 64; }
-int dw_bn(int dtype, int cout) { return dtype == 1 && cout > 64 ? 128 : 64; }
+int conv_mtiles(const Geo& g) { return (int)((g.M + BM - 1) / BM); }
 
 template <int MODE>
-cudaError_t conv(int dtype, const void* a, const void* w, void* out, float* part,
+cudaError_t conv(const void* a, const void* w, void* out, float* part,
                  const Bnin& bn, const Geo& g, cudaStream_t st) {
-  const int mtiles = conv_mtiles(dtype, g);
-  if (dtype == 1) {
-    if constexpr (MODE == DX) {
-      return cudaErrorNotSupported;      // bf16 dx: rconv_slab.cu
-    } else {
-      if (g.nc <= 64)
-        return launch_gemm<__nv_bfloat16, 128, 64, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
-      return launch_gemm<__nv_bfloat16, 128, 128, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
-    }
-  }
-  return launch_gemm<float, 64, 64, MODE>(a, w, out, part, bn, g, mtiles, 1, 0, st);
+  return launch_gemm<MODE>(static_cast<const float*>(a),
+                           static_cast<const float*>(w),
+                           static_cast<float*>(out), part, bn, g,
+                           conv_mtiles(g), 1, 0, st);
 }
 
 // out (2, nc) = the per-block (mtiles, 2, nc) partials summed in order
@@ -760,30 +625,15 @@ cudaError_t reduce_pairs(const float* part, void* out, int mtiles, int nc,
 // dW (MODE DW) or dW of xn rebuilt from the raw x (DW_BNIN): the K-split
 // partials, then their sum in a fixed order
 template <int MODE>
-cudaError_t dw(int dtype, const void* x, const void* gy, float* p, void* dwo,
+cudaError_t dw(const void* x, const void* gy, float* p, void* dwo,
                const Bnin& bn, const Geo& g, int cin, int cout, int splits,
                cudaStream_t st) {
-  const int bm = dw_bm(dtype, cin);
-  const int mtiles = 9 * ((cin + bm - 1) / bm);
+  const int mtiles = 9 * ((cin + BM - 1) / BM);
   const long long steps = (g.M + 31) / 32;
   const long long kspan = ((steps + splits - 1) / splits) * 32;
-  cudaError_t e;
-  if (dtype == 1) {
-    if constexpr (MODE == DW) {
-      return cudaErrorNotSupported;      // bf16 dW: rconv_slab.cu
-    } else {
-      if (bm == 128 && dw_bn(dtype, cout) == 128)
-        e = launch_gemm<__nv_bfloat16, 128, 128, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
-      else if (bm == 128)
-        e = launch_gemm<__nv_bfloat16, 128, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
-      else if (dw_bn(dtype, cout) == 128)
-        e = launch_gemm<__nv_bfloat16, 64, 128, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
-      else
-        e = launch_gemm<__nv_bfloat16, 64, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
-    }
-  } else {
-    e = launch_gemm<float, 64, 64, MODE>(x, gy, nullptr, p, bn, g, mtiles, splits, kspan, st);
-  }
+  cudaError_t e = launch_gemm<MODE>(static_cast<const float*>(x),
+                                    static_cast<const float*>(gy), nullptr, p,
+                                    bn, g, mtiles, splits, kspan, st);
   if (e != cudaSuccess) return e;
   const long long n = 9LL * cin * cout;
   reduce_rows<8><<<(unsigned)((n + 31) / 32), dim3(32, 8), 0, st>>>(
@@ -796,13 +646,11 @@ cudaError_t dw(int dtype, const void* x, const void* gy, float* p, void* dwo,
 extern "C" {
 
 // rows of one forward tile: the moment partials are (ceil(N*H*W / bm), 2, Cout)
-int rconv_conv_bm(int dtype) { return conv_bm(dtype); }
+int rconv_conv_bm() { return BM; }
 
 // dW's K splits: enough blocks for ~4 waves on 132 SMs, >= 8 K steps each
-int rconv_dw_splits(int dtype, int N, int H, int W, int cin, int cout) {
-  const int bm = dw_bm(dtype, cin);
-  const long long tiles = 9LL * ((cin + bm - 1) / bm)
-      * ((cout + dw_bn(dtype, cout) - 1) / dw_bn(dtype, cout));
+int rconv_dw_splits(int N, int H, int W, int cin, int cout) {
+  const long long tiles = 9LL * ((cin + BM - 1) / BM) * ((cout + BN - 1) / BN);
   const long long steps = ((long long)N * H * W + 31) / 32;
   long long s = (4 * 132 + tiles - 1) / tiles;
   if (s > steps / 8) s = steps / 8;
@@ -811,82 +659,78 @@ int rconv_dw_splits(int dtype, int N, int H, int W, int cin, int cout) {
 }
 
 // y (N,H,W,Cout) = reflect conv of x (N,H,W,Cin) with w9 (9,Cin,Cout); with
-// stats, part (mtiles,2,Cout) scratch and s12 (2,Cout) = [sum y; sum y^2].
-// dtype 0 = f32, 1 = bf16.
+// stats, part (mtiles,2,Cout) scratch and s12 (2,Cout) = [sum y; sum y^2]
 int rconv_fwd_launch(const void* x, const void* w9, void* y, void* part,
-                     void* s12, int dtype, int N, int H, int W, int cin,
-                     int cout, int stats, void* stream) {
+                     void* s12, int N, int H, int W, int cin, int cout,
+                     int stats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g = make_geo(N, H, W, cin, cout);
-  if (!stats) return (int)conv<FWD>(dtype, x, w9, y, nullptr, Bnin(), g, st);
+  if (!stats) return (int)conv<FWD>(x, w9, y, nullptr, Bnin(), g, st);
   float* p = static_cast<float*>(part);
-  cudaError_t e = conv<FWD_STATS>(dtype, x, w9, y, p, Bnin(), g, st);
+  cudaError_t e = conv<FWD_STATS>(x, w9, y, p, Bnin(), g, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)reduce_pairs(p, s12, conv_mtiles(dtype, g), cout, st);
+  return (int)reduce_pairs(p, s12, conv_mtiles(g), cout, st);
 }
 
-// the same of xn = cast(relu(a*x + b)), ab (2,Cin) f32 = [a; b], with the
-// moments; xn is never written
+// the same of xn = relu(a*x + b), ab (2,Cin) = [a; b], with the moments;
+// xn is never written
 int rconv_fwd_bnin_launch(const void* x, const void* ab, const void* w9,
-                          void* y, void* part, void* s12, int dtype, int N,
-                          int H, int W, int cin, int cout, void* stream) {
+                          void* y, void* part, void* s12, int N, int H, int W,
+                          int cin, int cout, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g = make_geo(N, H, W, cin, cout);
   Bnin bn;
   bn.ab = static_cast<const float*>(ab);
   float* p = static_cast<float*>(part);
-  cudaError_t e = conv<FWD_BNIN_STATS>(dtype, x, w9, y, p, bn, g, st);
+  cudaError_t e = conv<FWD_BNIN_STATS>(x, w9, y, p, bn, g, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)reduce_pairs(p, s12, conv_mtiles(dtype, g), cout, st);
+  return (int)reduce_pairs(p, s12, conv_mtiles(g), cout, st);
 }
 
-// dx (N,H,W,Cin) from gy (N,H,W,Cout) and the transposed taps w9t
-// (9,Cout,Cin); f32 only
-int rconv_dx_launch(const void* gy, const void* w9t, void* dx, int dtype,
-                    int N, int H, int W, int cin, int cout, void* stream) {
+// dx (N,H,W,Cin) from gy (N,H,W,Cout) and the transposed taps w9t (9,Cout,Cin)
+int rconv_dx_launch(const void* gy, const void* w9t, void* dx, int N, int H,
+                    int W, int cin, int cout, void* stream) {
   const Geo g = make_geo(N, H, W, cout, cin);
-  return (int)conv<DX>(dtype, gy, w9t, dx, nullptr, Bnin(), g,
+  return (int)conv<DX>(gy, w9t, dx, nullptr, Bnin(), g,
                        static_cast<cudaStream_t>(stream));
 }
 
-// dx = cast(dxn*g*a) with dxn the plain dx of gy, g = (a*x + b > 0) at the
-// raw x (N,H,W,Cin); dab (2,Cin) = [sum dxn*g*x; sum dxn*g] from the f32
-// dxn; part (mtiles,2,Cin) scratch
+// dx = dxn*g*a with dxn the plain dx of gy, g = (a*x + b > 0) at the raw x
+// (N,H,W,Cin); dab (2,Cin) = [sum dxn*g*x; sum dxn*g]; part (mtiles,2,Cin)
+// scratch
 int rconv_dx_bnin_launch(const void* gy, const void* w9t, const void* x,
                          const void* ab, void* dx, void* part, void* dab,
-                         int dtype, int N, int H, int W, int cin, int cout,
-                         void* stream) {
+                         int N, int H, int W, int cin, int cout, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g = make_geo(N, H, W, cout, cin);
   Bnin bn;
-  bn.xin = x;
+  bn.xin = static_cast<const float*>(x);
   bn.ab = static_cast<const float*>(ab);
   float* p = static_cast<float*>(part);
-  cudaError_t e = conv<DX_BNIN>(dtype, gy, w9t, dx, p, bn, g, st);
+  cudaError_t e = conv<DX_BNIN>(gy, w9t, dx, p, bn, g, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)reduce_pairs(p, dab, conv_mtiles(dtype, g), cin, st);
+  return (int)reduce_pairs(p, dab, conv_mtiles(g), cin, st);
 }
 
-// dw (9,Cin,Cout) f32 from x (N,H,W,Cin) and gy (N,H,W,Cout), f32 only;
-// part is (splits, 9, Cin, Cout) f32 scratch, splits from rconv_dw_splits
+// dw (9,Cin,Cout) from x (N,H,W,Cin) and gy (N,H,W,Cout); part is (splits,
+// 9, Cin, Cout) scratch, splits from rconv_dw_splits
 int rconv_dw_launch(const void* x, const void* gy, void* part, void* dw_out,
-                    int dtype, int N, int H, int W, int cin, int cout,
-                    int splits, void* stream) {
+                    int N, int H, int W, int cin, int cout, int splits,
+                    void* stream) {
   const Geo g = make_geo(N, H, W, cin, cout);
-  return (int)dw<DW>(dtype, x, gy, static_cast<float*>(part), dw_out, Bnin(),
-                     g, cin, cout, splits, static_cast<cudaStream_t>(stream));
+  return (int)dw<DW>(x, gy, static_cast<float*>(part), dw_out, Bnin(), g, cin,
+                     cout, splits, static_cast<cudaStream_t>(stream));
 }
 
-// the same with xn = cast(relu(a*x + b)) rebuilt from the raw x in the loader
+// the same with xn = relu(a*x + b) rebuilt from the raw x in the loader
 int rconv_dw_bnin_launch(const void* x, const void* ab, const void* gy,
-                         void* part, void* dw_out, int dtype, int N, int H,
-                         int W, int cin, int cout, int splits, void* stream) {
+                         void* part, void* dw_out, int N, int H, int W, int cin,
+                         int cout, int splits, void* stream) {
   const Geo g = make_geo(N, H, W, cin, cout);
   Bnin bn;
   bn.ab = static_cast<const float*>(ab);
-  return (int)dw<DW_BNIN>(dtype, x, gy, static_cast<float*>(part), dw_out, bn,
-                          g, cin, cout, splits,
-                          static_cast<cudaStream_t>(stream));
+  return (int)dw<DW_BNIN>(x, gy, static_cast<float*>(part), dw_out, bn, g, cin,
+                          cout, splits, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
 // The 3x3 stride-1 reflect-padded convolution in bf16 on Hopper, around one
-// landed slab of whole image rows that feeds all nine taps: the forward with
-// the following BatchNorm's batch moments, of the plain conv and of the
-// BN-input chain's conv of xn = relu(a*x + b), and the backward, the input
-// gradient dx and the weight gradient dW of both.
+// landed slab of whole image rows that feeds all nine taps: the forward,
+// alone and with the following BatchNorm's batch moments, of the plain conv
+// and of the BN-input chain's conv of xn = relu(a*x + b), and the backward,
+// the input gradient dx and the weight gradient dW of both.
 //
 // Replaces the Pallas TPU kernels of videowalk_tpu/ops/rconv_kernel.py:
+//   #4  _fwd_call         :240 -> _fwd_kernel         :224
+//                                  (rconv_slab_px<BN, FWD>)
 //   #5  _fwd_call_st      :319 -> _fwd_kernel_st      :291
 //                                  (rconv_slab_px<BN, FWD_STATS> + reduce_rows)
 //   #6  _fwd_call_bnin_st :440 -> _fwd_kernel_bnin_st :401
@@ -20,13 +22,12 @@
 // y = conv_valid(reflect_pad(x, 1), w) with torch 'reflect' semantics: pad
 // row -1 mirrors row 1, row H mirrors H-2. H and W are powers of two in
 // [8, 32] (rconv_supported); activations are channel-contiguous (N, H, W, C)
-// storage, channels a multiple of 8. f32 operands, and the forward without
-// moments (#4), stay on rconv.cu's engine.
+// storage, channels a multiple of 8. f32 operands stay on rconv.cu's engine.
 //
 // Bound at the flagship's routed shape (3136 images of 8x8, 512 -> 512):
 // each pass is 2*200704*9*512*512 = 0.947 TFLOP, 0.96 ms at 989 TFLOP/s
 // dense bf16, against ~0.41 GB of bytes (0.12 ms at 3.35 TB/s); at the
-// superpixel step's (24, 32x32, 512 -> 512) 0.116 TFLOP, 0.117 ms. All six
+// superpixel step's (24, 32x32, 512 -> 512) 0.116 TFLOP, 0.117 ms. All seven
 // are bound by the tensor cores, so the design cuts what kept the previous
 // engine (rconv.cu's rconv_gemm) far from them: a gather of the A operand
 // once per tap (9x the distinct input through L2), synchronous loads of the
@@ -34,7 +35,7 @@
 // modes the affine applied to every gathered tap copy of x (36 times an
 // element at 512 channels).
 //
-// All six: a tile's pixel range is a run of whole image rows (128 output
+// All seven: a tile's pixel range is a run of whole image rows (128 output
 // pixels for the forward and dx, a 64-pixel K chunk for dW: two whole 8x8
 // images, or a band of rows of a larger map). The slab of flat pixels
 // [first - W, last + W), the tile's rows plus one row above and below,
@@ -66,10 +67,12 @@
 // A row of each pixel to a slab row, a zero row (pixels past M) or, for
 // dx only, a leg-sum row. Grid: output-channel tiles fastest, then pixel
 // tiles.
-// forward (#5): M = N*H*W output pixels, N = Cout, K = Cin with B = W[t]
+// forward (#4): M = N*H*W output pixels, N = Cout, K = Cin with B = W[t]
 //   (w9, K rows, N contiguous). Output pixel (h, w) of tap (dy, dx) reads x
 //   at (refl(h+dy-1), refl(w+dx-1)): always one slab row, so the forward has
-//   no leg rows, no leg pass and no barrier for one. Epilogue: the tile is
+//   no leg rows, no leg pass and no barrier for one. Epilogue: #9's, the
+//   tile rounded once to bf16, staged and written by 16-byte stores.
+// forward with moments (#5): #4's main loop. Epilogue: the tile is
 //   rounded once to bf16 and staged in the freed stage memory, as #9's; a
 //   thread keeps one 8-channel vector and walks its rows: it writes y by
 //   16-byte stores and sums the CAST y and y^2 in f32 (the TPU kernel's
@@ -318,7 +321,7 @@ __device__ __forceinline__ void bnin_vec(uint4* vec, const float (&av)[8],
 // ---------------------------------------------- pixel tiles: forward and dx
 
 namespace pxk {
-enum Mode { DX, DX_BNIN, FWD_STATS, FWD_BNIN_STATS };
+enum Mode { DX, DX_BNIN, FWD_STATS, FWD_BNIN_STATS, FWD };
 constexpr int BM = 128;                 // output pixels of a tile
 constexpr int BK = 16;                  // K channels of a chunk
 constexpr int SLAB_MAX = BM + 2 * 32;   // slab rows at W = 32
@@ -326,8 +329,9 @@ constexpr int LEG_MAX = 80;             // dx's leg-sum rows (largest at W = 32)
 constexpr int A_STRIDE = BK * 2 + 16;   // bytes: 48, conflict-free ldmatrix
 constexpr int SM_SMEM = 233472;         // shared memory of an SM (228 KB)
 template <int BN, int MODE> struct Cfg {
-  static constexpr bool FWD = MODE == FWD_STATS || MODE == FWD_BNIN_STATS;
-  static constexpr int LEGS = FWD ? 0 : LEG_MAX;        // the forward has none
+  static constexpr bool FORWARD =
+      MODE == FWD || MODE == FWD_STATS || MODE == FWD_BNIN_STATS;
+  static constexpr int LEGS = FORWARD ? 0 : LEG_MAX;    // the forward has none
   static constexpr int ZERO_ROW = SLAB_MAX + LEGS;
   static constexpr int A_BYTES = ((ZERO_ROW + 1) * A_STRIDE + 1023) / 1024 * 1024;
   // a tap's B tile (16 K x BN), 128-byte swizzled MN-major: K row k of N
@@ -339,7 +343,7 @@ template <int BN, int MODE> struct Cfg {
   static constexpr int S = 2;                           // chunks in flight
   static constexpr int TABLES = 9 * BM * 2 + LEGS * 8;
   static constexpr int SMEM = S * STAGE + TABLES;
-  // the epilogue: the tile staged in bf16 (#9, #5, #6) or f32 (#7), then
+  // the epilogue: the tile staged in bf16 (#9, #4, #5, #6) or f32 (#7), then
   // the (RG, 2, BN) row-group sums of #5, #6, #7 behind it; a thread keeps
   // one 8-channel vector of RG row groups
   static constexpr int C_STRIDE = BN + 8;               // bf16 tile
@@ -370,7 +374,8 @@ struct PxAux {
 };
 
 // out (M, Nout) from src (M, K) and the nine B tiles wk (9, K, Nout):
-//   FWD_STATS       y of x (K = Cin) with w9, and the moments' partials;
+//   FWD             y of x (K = Cin) with w9;
+//   FWD_STATS       the same, and the moments' partials;
 //   FWD_BNIN_STATS  the same of xn = bf16(relu(a*x + b)) rebuilt in the slab;
 //   DX              dx of gy (K = Cout) with w9t;
 //   DX_BNIN         the chain's dx = bf16(dxn*g*a) and the [da; db] partials.
@@ -396,7 +401,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
 
   // ---- tables, once per block: each tap's A row of each pixel (and, for
   // dx, the slab rows that each leg-sum row adds up; -1: none)
-  if constexpr (C::FWD) {
+  if constexpr (C::FORWARD) {
     for (int e = tid; e < 9 * BM; e += NT) {
       const int t = e / BM, r = e % BM, dy = t / 3, dxo = t % 3;
       const long long p = m0 + r;
@@ -570,7 +575,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
                                 // stage is free
     if (c + C::S - 1 < KC) issue(c + C::S - 1, (c + C::S - 1) % C::S);
     cp_async_commit();
-    if constexpr (!C::FWD) {
+    if constexpr (!C::FORWARD) {
       legs(st);
       __syncthreads();          // the leg sums are visible
     }
@@ -656,7 +661,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
     }
     red = Cf + BM * C::F_STRIDE;
   } else {
-    // ---- #9, #5, #6: the tile rounded once to bf16 through shared memory
+    // ---- #9, #4, #5, #6: the tile rounded once to bf16 through shared memory
     __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(smem);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
@@ -667,8 +672,8 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
           __floats2bfloat162_rn(acc[j][2], acc[j][3]);
     }
     __syncthreads();
-    if constexpr (MODE == DX) {
-      // #9: 16-byte stores
+    if constexpr (MODE == DX || MODE == FWD) {
+      // #9, #4: 16-byte stores
       for (int v = tid; v < BM * BN / 8; v += NT) {
         const int r = v / (BN / 8), c8 = v % (BN / 8);
         const long long p = m0 + r;
@@ -951,7 +956,7 @@ cudaError_t run_px(const void* src, const void* wk, void* out, const PxAux& aux,
   cudaError_t e = ndim <= 64
       ? launch_px<64, MODE>(src, wk, out, aux, g, kdim, ndim, st)
       : launch_px<128, MODE>(src, wk, out, aux, g, kdim, ndim, st);
-  if (e != cudaSuccess || MODE == pxk::DX) return e;
+  if (e != cudaSuccess || MODE == pxk::DX || MODE == pxk::FWD) return e;
   const int mtiles = (int)((g.M + pxk::BM - 1) / pxk::BM);
   const long long n = 2LL * ndim;
   reduce_rows<32><<<(unsigned)((n + 31) / 32), dim3(32, 32), 0, st>>>(
@@ -989,6 +994,14 @@ cudaError_t run_dw(const void* x, const float* ab, const void* gy, void* part,
 }  // namespace
 
 extern "C" {
+
+// y (N,H,W,Cout) bf16 = reflect conv of x (N,H,W,Cin) with w9 (9,Cin,Cout)
+int rconv_slab_fwd_launch(const void* x, const void* w9, void* y, int N, int H,
+                          int W, int cin, int cout, void* stream) {
+  return (int)run_px<pxk::FWD>(x, w9, y, PxAux{nullptr, nullptr, nullptr},
+                               nullptr, make_geo(N, H, W), cin, cout,
+                               static_cast<cudaStream_t>(stream));
+}
 
 // pixels of one forward or dx tile: the per-block partials of #5, #6 and #7
 // are (ceil(N*H*W / bm), 2, C)

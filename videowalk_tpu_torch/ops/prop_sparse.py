@@ -16,13 +16,14 @@ Replaces the Pallas TPU kernel ``videowalk_tpu/ops/prop_sparse_kernel.py``
 launches the hand-written Hopper kernel ``csrc/prop_sparse.cu`` or raises.
 ``prop_sparse.launches`` counts kernel launches.
 
-Bound on the card: f32 operations. At DAVIS-480p (C=256, 60x107, 1 long +
-20 short frames, r=12) a target needs ~6420 x 15.5k valid (query,
-candidate) pairs x 256 FMAs ~ 51 GFLOP, while its unique key bytes (~140 MB)
-are mostly reused from L2. The kernel streams keys through shared memory in
-chunks and keeps a running top-k per query (see the source's note); the TPU
-layout constraints (128-lane label padding, 128-aligned C, 4-aligned halo,
-padded raster) do not apply. Its gate is its shared-memory budget.
+Bound on the card: operations. At DAVIS-480p (C=256, 60x107, 1 long + 20
+short frames, r=12) a target needs ~6420 x 15.5k valid (query, candidate)
+pairs x 256 FMAs ~ 51 GFLOP of f32 products (0.76 ms at the f32 peak),
+while its unique key bytes (~140 MB) are mostly reused from L2. Per 8x8 query tile it scores the long frames' every cell and, in each
+short frame, the union of the tile's disks (``disk_union_offsets``), and
+keeps a running top-k per query (see the source's note); the TPU layout
+constraints (128-lane label padding, 128-aligned C, 4-aligned halo, padded
+raster) do not apply. Its gate is its shared-memory budget.
 """
 
 from __future__ import annotations
@@ -39,30 +40,46 @@ SMEM_LIMIT = 232448    # opt-in shared memory of one Hopper block, bytes
 
 def sparse_halo(radius: float) -> int:
     """Half-width of the short-term candidate window around a query tile:
-    ``floor(radius)`` covers every cell of the disk ``d^2 < radius^2``; the
-    exact disk is applied per (query, key) pair."""
-    return max(int(np.floor(radius)), 0)
+    ``ceil(radius) - 1`` is the largest ``|d|`` of the disk
+    ``d^2 < radius^2``; the exact disk is applied per (query, key) pair."""
+    return max(int(np.ceil(radius)) - 1, 0)
 
 
-def smem_bytes(C: int, topk: int) -> int:
+def disk_union_offsets(radius: float, tile: int = TQ) -> np.ndarray:
+    """``(n, 2)`` int offsets ``(oy, ox)`` from a ``tile x tile`` query
+    tile's corner of the cells some query of the tile takes (``dy^2 + dx^2
+    < radius^2`` in f32 for one of them), row-major: the union of the
+    tile's disks that the kernel scores in each short frame, in candidate
+    order. (The source computes it per block, by each cell's distance to the
+    tile's nearest query, and cuts it to the frame.)"""
+    rr = sparse_halo(radius)
+    d = np.arange(-rr, tile + rr)
+    oy, ox = np.meshgrid(d, d, indexing="ij")
+    dyc = oy - np.clip(oy, 0, tile - 1)
+    dxc = ox - np.clip(ox, 0, tile - 1)
+    keep = (dyc * dyc + dxc * dxc).astype(np.float32) < np.float32(radius * radius)
+    return np.stack([oy[keep], ox[keep]], axis=1)
+
+
+def smem_bytes(C: int, topk: int, radius: float) -> int:
     """Dynamic shared memory of one launch (mirrors the source's
-    ``prop_sparse_smem_bytes``): query tile + two key chunks of 64 keys, or
-    of 32 or 16 where 64 do not fit (rows padded by 4 floats), the chunk's
-    scores, the running top-k values and ids, per-query flags."""
-    nq = TQ * TQ
-    for kc in (64, 32, 16):
-        b = 4 * ((nq + 2 * kc) * (C + 4) + nq * (kc + 1) + 2 * topk * nq + nq)
-        if b <= SMEM_LIMIT:
-            break
-    return b
+    ``prop_sparse_smem_bytes``): the query tile (rows of C rounded up to 32
+    floats), two key stages of 256 keys x 32 channels, the top-k lists
+    (values and ids), two chunks' key cells, tile offsets and slots, eight
+    warps' 64-float scratch, the disk union's row table (``TQ + 2 * halo``
+    rows of 16 bytes), two counters."""
+    nq, kc, cs = TQ * TQ, 256, 32
+    rows = TQ + 2 * sparse_halo(radius)
+    return (4 * (nq * (-(-C // cs) * cs) + 2 * kc * cs) + nq * topk * 8
+            + 2 * kc * 12 + 8 * 64 * 4 + rows * 16 + 16)
 
 
-def sparse_supported(C: int, topk: int, n_lbl: int) -> bool:
-    """Shape gate of the CUDA kernel: float4 rows (C % 4 == 0), k within the
-    kernel's bound, and the launch within one block's shared memory (C <= 546
-    at any k)."""
+def sparse_supported(C: int, topk: int, n_lbl: int, radius: float) -> bool:
+    """Shape gate of the CUDA kernel: 16-byte rows (C % 4 == 0), k within the
+    kernel's bound, and the launch within one block's shared memory (C <=
+    576 at k = 10 and r = 12)."""
     return (C % 4 == 0 and 1 <= topk <= MAX_TOPK and n_lbl >= 1
-            and smem_bytes(C, topk) <= SMEM_LIMIT)
+            and smem_bytes(C, topk, radius) <= SMEM_LIMIT)
 
 
 def valid_pairs(H: int, W: int, radius: float, n_long: int,
@@ -123,6 +140,8 @@ def _lib():
     if lib.prop_sparse_launch.argtypes is None:
         lib.prop_sparse_launch.argtypes = _ARGTYPES
         lib.prop_sparse_launch.restype = ctypes.c_int
+        lib.prop_sparse_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.prop_sparse_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -161,13 +180,14 @@ def prop_sparse(feats: torch.Tensor, labels: torch.Tensor, ctx: torch.Tensor,
     if feats.data_ptr() % 16:
         raise ValueError("prop_sparse: feats must be 16-byte aligned (the "
                          "kernel copies rows 16 bytes at a time)")
-    if not sparse_supported(C, topk, nl) or not 0 <= n_long <= L \
+    if not sparse_supported(C, topk, nl, radius) or not 0 <= n_long <= L \
             or not 0 <= t_query < N:
         raise ValueError(
             f"prop_sparse: the CUDA kernel does not take C={C}, topk={topk}, "
-            f"n_lbl={nl}, n_long={n_long}, L={L}, t_query={t_query} (needs "
-            f"C % 4 == 0, 1 <= topk <= {MAX_TOPK}, {smem_bytes(C, topk)} <= "
-            f"{SMEM_LIMIT} bytes of shared memory)")
+            f"n_lbl={nl}, radius={radius}, n_long={n_long}, L={L}, "
+            f"t_query={t_query} (needs C % 4 == 0, 1 <= topk <= {MAX_TOPK}, "
+            f"{smem_bytes(C, topk, radius)} <= {SMEM_LIMIT} bytes of shared "
+            f"memory)")
     out = torch.empty((H * W, nl), dtype=torch.float32, device=feats.device)
     rr = sparse_halo(radius)
     with torch.cuda.device(feats.device):

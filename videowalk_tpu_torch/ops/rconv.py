@@ -42,8 +42,8 @@ version
 and autograd of the same) for a tensor on the CPU, and launches a
 hand-written Hopper kernel for a CUDA tensor, or raises:
 ``csrc/rconv_slab.cu`` (one landed slab of whole image rows feeding all
-nine taps, ``wgmma``) for bf16 #5–#10, ``csrc/rconv.cu`` for bf16 #4 and
-every f32 kernel. Each counts its kernel launches in ``.launches``.
+nine taps, ``wgmma``) for every bf16 kernel, #4–#10, ``csrc/rconv.cu``
+(f32 FMAs) for every f32 kernel. Each counts its kernel launches in ``.launches``.
 
 Bound on the card at the flagship's routed shape (layer4 interior, 3136
 images of 8x8, Cin = Cout = 512, bf16): each pass is 0.947 TFLOP, 0.96 ms
@@ -76,9 +76,15 @@ def reflect_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), w)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or in its own type where that is wider (an f64 model on
+    the CPU keeps f64, as ``BatchNorm`` does)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def moments_plain(y: torch.Tensor):
     """f32 per-channel ``(Σ y, Σ y²)`` of the (cast) output."""
-    yf = y.float()
+    yf = _wide(y)
     return yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))
 
 
@@ -93,13 +99,13 @@ def reflect_conv_plain_bwd(x: torch.Tensor, w: torch.Tensor,
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
-    return v.float()[None, :, None, None]
+    return _wide(v)[None, :, None, None]
 
 
 def bnin_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     """``(xn, g)``: ``xn = relu(a·x + b)`` in f32 cast to x's dtype, and the
     ReLU gate ``g = (a·x + b > 0)``."""
-    pre = x.float() * _per_channel(a) + _per_channel(b)
+    pre = _wide(x) * _per_channel(a) + _per_channel(b)
     return torch.relu(pre).to(x.dtype), pre > 0
 
 
@@ -111,18 +117,18 @@ def reflect_conv_dx_bnin_plain(gy: torch.Tensor, w: torch.Tensor,
     (dxn·g·a).to(x.dtype)``, ``da = Σ dxn·g·x``, ``db = Σ dxn·g``."""
     g = bnin_plain(x, a, b)[1]
     with torch.enable_grad():
-        xx = torch.zeros_like(x, dtype=torch.float32).requires_grad_()
-        dxn, = torch.autograd.grad(reflect_conv_plain(xx, w.float()), xx,
-                                   gy.float())
+        xx = _wide(torch.zeros_like(x)).requires_grad_()
+        dxn, = torch.autograd.grad(reflect_conv_plain(xx, _wide(w)), xx,
+                                   _wide(gy))
     dxg = dxn * g
     return ((dxg * _per_channel(a)).to(x.dtype),
-            (dxg * x.float()).sum((0, 2, 3)), dxg.sum((0, 2, 3)))
+            (dxg * _wide(x)).sum((0, 2, 3)), dxg.sum((0, 2, 3)))
 
 
 # ----------------------------------------------------------------- kernels
 
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)   # rconv.cu's, rconv_slab.cu's
 
 
 def _lib():
@@ -131,21 +137,21 @@ def _lib():
     lib = _build.load("rconv")
     if lib.rconv_fwd_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rconv_conv_bm.argtypes = [i]
+        lib.rconv_conv_bm.argtypes = []
         lib.rconv_conv_bm.restype = i
-        lib.rconv_dw_splits.argtypes = [i] * 6
+        lib.rconv_dw_splits.argtypes = [i] * 5
         lib.rconv_dw_splits.restype = i
-        lib.rconv_fwd_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.rconv_fwd_launch.argtypes = [p] * 5 + [i] * 6 + [p]
         lib.rconv_fwd_launch.restype = i
-        lib.rconv_dx_launch.argtypes = [p] * 3 + [i] * 6 + [p]
+        lib.rconv_dx_launch.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.rconv_dx_launch.restype = i
-        lib.rconv_dw_launch.argtypes = [p] * 4 + [i] * 7 + [p]
+        lib.rconv_dw_launch.argtypes = [p] * 4 + [i] * 6 + [p]
         lib.rconv_dw_launch.restype = i
-        lib.rconv_fwd_bnin_launch.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.rconv_fwd_bnin_launch.argtypes = [p] * 6 + [i] * 5 + [p]
         lib.rconv_fwd_bnin_launch.restype = i
-        lib.rconv_dx_bnin_launch.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.rconv_dx_bnin_launch.argtypes = [p] * 7 + [i] * 5 + [p]
         lib.rconv_dx_bnin_launch.restype = i
-        lib.rconv_dw_bnin_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.rconv_dw_bnin_launch.argtypes = [p] * 5 + [i] * 6 + [p]
         lib.rconv_dw_bnin_launch.restype = i
     return lib
 
@@ -158,6 +164,8 @@ def _slab_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rconv_slab_bm.argtypes = []
         lib.rconv_slab_bm.restype = i
+        lib.rconv_slab_fwd_launch.argtypes = [p] * 3 + [i] * 5 + [p]
+        lib.rconv_slab_fwd_launch.restype = i
         lib.rconv_slab_fwd_stats_launch.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.rconv_slab_fwd_stats_launch.restype = i
         lib.rconv_slab_fwd_bnin_stats_launch.argtypes = [p] * 6 + [i] * 5 + [p]
@@ -247,20 +255,23 @@ def _fwd(name: str, x: torch.Tensor, w: torch.Tensor, stats: bool,
     cout = w.shape[0]
     if ab is not None:
         ab = _pack_ab(name, *ab, x)
-    dt = _DTYPES[x.dtype]
-    slab = stats and x.dtype == torch.bfloat16   # rconv_slab.cu's #5 / #6
+    slab = x.dtype == torch.bfloat16         # rconv_slab.cu's #4 / #5 / #6
     lib = _slab_lib() if slab else _lib()
     w9 = w.permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
     y = _nhwc_empty(N, cout, H, W, x)
     f32 = dict(dtype=torch.float32, device=x.device)
     if stats:
-        bm = lib.rconv_slab_bm() if slab else lib.rconv_conv_bm(dt)
+        bm = lib.rconv_slab_bm() if slab else lib.rconv_conv_bm()
         part = torch.empty((-(-N * H * W // int(bm)), 2, cout), **f32)
         s12 = torch.empty((2, cout), **f32)
     else:
         part = s12 = torch.empty((0,), **f32)
     with torch.cuda.device(x.device):
-        if slab and ab is None:
+        if slab and not stats:
+            err = lib.rconv_slab_fwd_launch(
+                x.data_ptr(), w9.data_ptr(), y.data_ptr(), N, H, W, cin, cout,
+                _stream(x))
+        elif slab and ab is None:
             err = lib.rconv_slab_fwd_stats_launch(
                 x.data_ptr(), w9.data_ptr(), y.data_ptr(), part.data_ptr(),
                 s12.data_ptr(), N, H, W, cin, cout, _stream(x))
@@ -272,12 +283,11 @@ def _fwd(name: str, x: torch.Tensor, w: torch.Tensor, stats: bool,
         elif ab is None:
             err = lib.rconv_fwd_launch(
                 x.data_ptr(), w9.data_ptr(), y.data_ptr(), part.data_ptr(),
-                s12.data_ptr(), dt, N, H, W, cin, cout, int(stats),
-                _stream(x))
+                s12.data_ptr(), N, H, W, cin, cout, int(stats), _stream(x))
         else:
             err = lib.rconv_fwd_bnin_launch(
                 x.data_ptr(), ab.data_ptr(), w9.data_ptr(), y.data_ptr(),
-                part.data_ptr(), s12.data_ptr(), dt, N, H, W, cin, cout,
+                part.data_ptr(), s12.data_ptr(), N, H, W, cin, cout,
                 _stream(x))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
@@ -339,14 +349,13 @@ def _dx(name: str, gy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{name}: gy has {cout} channels, w {w.shape[0]}")
     if ab is not None:
         ab = _pack_ab(name, *ab, x)
-    dt = _DTYPES[gy.dtype]
     slab = gy.dtype == torch.bfloat16     # rconv_slab.cu's #9 / #7
     lib = _slab_lib() if slab else _lib()
     w9t = w.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
     dx = _nhwc_empty(N, cin, H, W, gy)
     if ab is not None:
         f32 = dict(dtype=torch.float32, device=gy.device)
-        bm = lib.rconv_slab_bm() if slab else lib.rconv_conv_bm(dt)
+        bm = lib.rconv_slab_bm() if slab else lib.rconv_conv_bm()
         part = torch.empty((-(-N * H * W // int(bm)), 2, cin), **f32)
         dab = torch.empty((2, cin), **f32)
     with torch.cuda.device(gy.device):
@@ -356,7 +365,7 @@ def _dx(name: str, gy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
                 cout, _stream(gy))
         elif ab is None:
             err = lib.rconv_dx_launch(gy.data_ptr(), w9t.data_ptr(),
-                                      dx.data_ptr(), dt, N, H, W, cin, cout,
+                                      dx.data_ptr(), N, H, W, cin, cout,
                                       _stream(gy))
         elif slab:
             err = lib.rconv_slab_dx_bnin_launch(
@@ -366,8 +375,8 @@ def _dx(name: str, gy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
         else:
             err = lib.rconv_dx_bnin_launch(
                 gy.data_ptr(), w9t.data_ptr(), x.data_ptr(), ab.data_ptr(),
-                dx.data_ptr(), part.data_ptr(), dab.data_ptr(), dt, N, H, W,
-                cin, cout, _stream(gy))
+                dx.data_ptr(), part.data_ptr(), dab.data_ptr(), N, H, W, cin,
+                cout, _stream(gy))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return dx if ab is None else (dx, dab[0], dab[1])
@@ -413,11 +422,10 @@ def _dw(name: str, x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
     _check_act(name, "gy", gy, x.dtype, x.device, (N, cout, H, W))
     if ab is not None:
         ab = _pack_ab(name, *ab, x)
-    dt = _DTYPES[x.dtype]
     slab = x.dtype == torch.bfloat16      # rconv_slab.cu's #10 / #8
     lib = _slab_lib() if slab else _lib()
     splits = int(lib.rconv_slab_dw_splits(N, H, W, cin, cout) if slab
-                 else lib.rconv_dw_splits(dt, N, H, W, cin, cout))
+                 else lib.rconv_dw_splits(N, H, W, cin, cout))
     f32 = dict(dtype=torch.float32, device=x.device)
     part = torch.empty((splits, 9, cin, cout), **f32)
     dw9 = torch.empty((9, cin, cout), **f32)
@@ -432,12 +440,12 @@ def _dw(name: str, x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor,
                 dw9.data_ptr(), N, H, W, cin, cout, splits, _stream(x))
         elif ab is None:
             err = lib.rconv_dw_launch(x.data_ptr(), gy.data_ptr(),
-                                      part.data_ptr(), dw9.data_ptr(), dt, N,
-                                      H, W, cin, cout, splits, _stream(x))
+                                      part.data_ptr(), dw9.data_ptr(), N, H,
+                                      W, cin, cout, splits, _stream(x))
         else:
             err = lib.rconv_dw_bnin_launch(
                 x.data_ptr(), ab.data_ptr(), gy.data_ptr(), part.data_ptr(),
-                dw9.data_ptr(), dt, N, H, W, cin, cout, splits, _stream(x))
+                dw9.data_ptr(), N, H, W, cin, cout, splits, _stream(x))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return dw9.to(w.dtype).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
@@ -486,8 +494,8 @@ def _as_kernel_layout(t: torch.Tensor) -> torch.Tensor:
 def _fold_moment_cotangents(gy, gs1, gs2, y):
     """The moments' cotangents folded into the conv's, on the saved cast
     ``y``: ``(gy.f32 + gs1 + 2·y.f32·gs2).to(y.dtype)``."""
-    return (gy.float() + gs1[None, :, None, None]
-            + 2.0 * y.float() * gs2[None, :, None, None]).to(y.dtype)
+    return (_wide(gy) + gs1[None, :, None, None]
+            + 2.0 * _wide(y) * gs2[None, :, None, None]).to(y.dtype)
 
 
 class _ReflectConv(torch.autograd.Function):

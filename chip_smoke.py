@@ -24,14 +24,17 @@ card.
    target equal to the frame-0 ground truth, one launch per target, and the
    card's end-to-end predictions against the CPU path on a small video.
 
-5. Holds the fused walk kernels (forward and backward, ``ops/csrc/walk.cu``)
-   against their plain PyTorch version with rate-0.1 edge-drop masks at the
-   flagship shape (B=8, T=8, N=49, C=128), at the gate's edge (T=10,
-   N=128, C=512) and at the superpixel step's shape (B=6, T=4, N=48) with
-   8-14 absent node slots (all-zero rows) a frame, and times both with CUDA
-   events; then times the fused walk (forward + backward) against
+5. Holds the fused walk kernels (forward and backward, ``ops/csrc/walk.cu``,
+   four device launches each) against their plain PyTorch version with
+   rate-0.1 edge-drop masks at the flagship shape (B=8, T=8, N=49, C=128),
+   at the gate's edge (T=10, N=128, C=512) and at the superpixel step's
+   shape (B=6, T=4, N=48) with 8-14 absent node slots (all-zero rows) a
+   frame, checks that two runs are bitwise equal, times both with CUDA
+   events, gives each phase kernel's device time from ``torch.profiler``
+   and says whether each kernel is under its plain version at the edge;
+   then times the fused walk (forward + backward) against
    ``core/walk.py``'s walk over T 4/8/10, N 48-128, C 128-512 at batch 8:
-   the sweep that bounds ``fused_walk="auto"`` (``ops/walk.py``).
+   the sweep that bounds ``fused_walk="auto"`` (``models/crw.py``).
 6. Holds the bf16 reflect-conv kernels (``ops/csrc/rconv_slab.cu``:
    forward #4, forward with BN moments #5, dx #9 and dW #10, and the
    BN-input chain's forward #6, which applies ``relu(a*x + b)`` to its
@@ -498,6 +501,8 @@ def walk_bounds(B, T, N, C) -> dict:
     products' multiply-adds) over the f32 peak."""
     S = T - 1
     nn, q_bytes = B * S * N * N, 4 * B * T * N * C
+    # the four (B, S, N, N) f32 residuals the function needs: D12, D21, F,
+    # B (the kernels' P and Q are their design's extra bytes, not counted)
     fwd_bytes = q_bytes + 2 * nn + 4 * 4 * nn + 2 * 4 * B * (S - 1)
     bwd_bytes = q_bytes + 4 * 4 * nn + 4 * B * (S - 1) + q_bytes
     fwd_flops = 2 * B * S * N * N * C + 2 * 3 * B * (S - 1) * N ** 3
@@ -511,14 +516,47 @@ def walk_bounds(B, T, N, C) -> dict:
     return out
 
 
+def walk_phase_us(fn, n: int = 20, tries: int = 3) -> dict:
+    """Device microseconds per launch of each ``walk_*`` kernel that
+    ``fn()`` launches (each once a call), from ``torch.profiler`` over
+    ``n`` calls; empty (printed as not measured) if the profiler saw none
+    in ``tries`` windows. A reading only: the kernels' checks do not depend
+    on it."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            m = re.search(r"walk_\w+", e.key)
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            if m and t and e.count:
+                out[m.group(0)] = t / e.count
+        if out:
+            break
+    return out
+
+
 def walk_kernels_vs_plain() -> dict:
     """Phase 5: the walk kernels and their plain version on the same inputs,
     at the flagship shape, at the gate's edge and at the superpixel step's
     shape with 8-14 absent node slots (all-zero q rows) in every frame.
     Tolerances: losses rtol
     1e-5, accuracies 1e-6, residuals rtol 1e-5 + atol 1e-6, dq 2e-5 of its
-    largest entry (f32 products summed in another order)."""
+    largest entry (f32 products summed in another order). A second run of
+    the kernels must be bitwise equal to the first."""
     res = {}
+    print(f"walk kernels: {wk.DEVICE_LAUNCHES} device launches per "
+          f"walk_fwd call and per walk_bwd call", flush=True)
     for tag, shape, absent in (
             ("flagship", (BATCH, CLIP_LEN, N_PATCHES, 128), None),
             ("edge", (BATCH, 10, 128, 512), None),
@@ -541,6 +579,12 @@ def walk_kernels_vs_plain() -> dict:
             dq_scale=float(want_dq.abs().max()))
         res_ok = all(torch.allclose(g, w, rtol=1e-5, atol=1e-6)
                      for g, w in zip(got[2:], want[2:]))
+        again = wk.walk_fwd(q, m12, m21, WALK_TEMP)
+        again_dq = wk.walk_bwd(q, *again[2:], dl, WALK_TEMP)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip((*got, got_dq), (*again, again_dq))):
+            fail(f"two runs of the walk kernels differ at {tag} {shape}")
         if not (all(torch.isfinite(t).all() for t in (*got, got_dq))
                 and err["loss_rel"] <= 1e-5 and err["accs"] <= 1e-6
                 and res_ok and err["dq"] <= 2e-5 * err["dq_scale"]):
@@ -554,9 +598,13 @@ def walk_kernels_vs_plain() -> dict:
                 lambda: wk.fused_walk_plain_fwd(q, m12, m21, WALK_TEMP), 20),
             plain_bwd_ms=cuda_ms(lambda: wk.fused_walk_plain_bwd(
                 q, *res_fwd, dl, WALK_TEMP), 20))
+        phases = dict(
+            fwd=walk_phase_us(lambda: wk.walk_fwd(q, m12, m21, WALK_TEMP)),
+            bwd=walk_phase_us(lambda: wk.walk_bwd(q, *res_fwd, dl, WALK_TEMP)))
         wk.walk_fwd.launches, wk.walk_bwd.launches = before  # not the path's
         bounds = walk_bounds(*shape)
-        res[tag] = dict(shape=shape, err=err, bounds=bounds, **times)
+        res[tag] = dict(shape=shape, err=err, bounds=bounds, **times,
+                        device_us=phases)
         zero_rows = int((q.abs().amax(-1) == 0).sum())
         res[tag]["absent_slots"] = zero_rows
         print(f"walk kernels vs plain at {tag} (B,T,N,C)={shape}, "
@@ -569,8 +617,20 @@ def walk_kernels_vs_plain() -> dict:
         print(f"  fwd {times['fwd_ms']:.4f} ms (plain {times['plain_fwd_ms']:.4f}, "
               f"bound {bounds['fwd']['bound_ms']:.5f} by {bounds['fwd']['bound_by']})"
               f"; bwd {times['bwd_ms']:.4f} ms (plain {times['plain_bwd_ms']:.4f}, "
-              f"bound {bounds['bwd']['bound_ms']:.5f} by {bounds['bwd']['bound_by']})",
-              flush=True)
+              f"bound {bounds['bwd']['bound_ms']:.5f} by {bounds['bwd']['bound_by']})"
+              f"; two runs bitwise equal", flush=True)
+        for d, ks in phases.items():
+            print(f"  walk_{d} device time per call "
+                  + (f"{sum(ks.values()):.1f} us: " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in ks.items()) if ks
+                     else "not measured (the profiler saw no kernel)"),
+                  flush=True)
+        if tag == "edge":
+            for d in ("fwd", "bwd"):
+                under = times[f"{d}_ms"] < times[f"plain_{d}_ms"]
+                print(f"  walk_{d} at the edge: {'under' if under else 'NOT under'}"
+                      f" its plain version ({times[f'{d}_ms']:.4f} vs "
+                      f"{times[f'plain_{d}_ms']:.4f} ms)", flush=True)
     return res
 
 
@@ -579,9 +639,11 @@ def walk_gate_sweep(batch: int = BATCH) -> dict:
     ``fused_walk_loss`` and autograd) against ``core/walk.py``'s
     ``crw_walk_loss`` forward + backward on the same unit q and edge-drop
     masks, at batch 8 over ``WALK_SWEEP``: the measurement that bounds
-    ``fused_walk="auto"`` (``ops/walk.py::fused_walk_wins``). Prints both
-    times, their ratio and whether the gate admits the shape."""
+    ``fused_walk="auto"`` (``models/crw.py::fused_walk_route``). Prints
+    both times, their ratio, whether the default config's gate takes the
+    fused walk there and whether that agrees with the sweep."""
     from videowalk_tpu_torch.core.walk import crw_walk_loss
+    from videowalk_tpu_torch.models.crw import fused_walk_route
     before = (wk.walk_fwd.launches, wk.walk_bwd.launches)
     rows = []
     for T in WALK_SWEEP["T"]:
@@ -599,11 +661,12 @@ def walk_gate_sweep(batch: int = BATCH) -> dict:
                 core_ms = cuda_ms(lambda: run(crw_walk_loss), 5, 1)
                 rows.append(dict(T=T, N=N, C=C, fused_ms=fused_ms,
                                  core_ms=core_ms, ratio=fused_ms / core_ms,
-                                 gate=wk.fused_walk_wins(T, N, C)))
+                                 gate=fused_walk_route(CRWConfig(), T, N, C)))
                 del q, m12, m21, masks
     wk.walk_fwd.launches, wk.walk_bwd.launches = before   # not the path's
     print(f"fused walk vs core walk, forward + backward at batch {batch} "
-          f"(ms; ratio fused/core; gate = fused_walk_wins):", flush=True)
+          f"(ms; ratio fused/core; gate = fused_walk='auto' takes it):",
+          flush=True)
     for r in rows:
         print(f"  T={r['T']:2d} N={r['N']:3d} C={r['C']:3d}  fused "
               f"{r['fused_ms']:8.3f}  core {r['core_ms']:8.3f}  ratio "
@@ -1120,6 +1183,8 @@ def profile_steps(run, n: int = 3) -> dict:
     """``n`` more steps (``run()`` takes one) under ``torch.profiler``:
     device time by kernel and by kind, and the device's idle share of the
     host clock's window (one stream, so kernel times add up)."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1146,7 +1211,7 @@ def profile_steps(run, n: int = 3) -> dict:
     kinds = {}
     for name, t in kernels.items():
         low = name.lower()
-        kind = ("walk kernels" if low.startswith("walk_") else
+        kind = ("walk kernels" if re.search(r"(^|::)walk_", low) else
                 "slic kernels" if "slic_" in low else
                 "dilation kernel" if "dilate_l1" in low else
                 "reflect-conv kernels" if ("rconv_" in low

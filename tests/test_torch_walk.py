@@ -191,15 +191,15 @@ def test_sinkhorn_paths_raise_naming_the_roadmap():
 @pytest.mark.parametrize("T,N,C,fused", [
     (8, 49, 128, True),          # the flagship patch step
     (4, 48, 128, True),          # the superpixel step of record
-    (10, 128, 512, False),       # the gate's edge: the kernel lost 6.9x
-    (8, 64, 256, False),         # outside the measured region
-    (10, 64, 128, True),         # inside it
+    (10, 128, 512, True),        # the gate's edge: the kernels won 4-6.5x
+    (8, 64, 256, True),          # swept: the kernels won 5.6-8x
+    (10, 64, 128, True),         # swept: the kernels won 3.6-10x
     (2, 49, 128, True),          # no cycle: either path returns 0
 ])
 def test_auto_fused_walk_follows_the_measured_region(T, N, C, fused):
-    """``fused_walk='auto'`` takes the fused kernels only where the card's
-    sweep found them faster than the core walk (``ops/walk.py::
-    FUSED_WALK_MAX_N``); ``on`` forces them on any supported shape and
+    """``fused_walk='auto'`` takes the fused kernels where the card's sweep
+    found them faster than the core walk: every shape the kernels take
+    (``ops/walk.py``); ``on`` forces them on any supported shape and
     ``off`` never takes them."""
     from videowalk_tpu_torch.models.crw import CRWConfig, fused_walk_route
 

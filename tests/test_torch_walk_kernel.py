@@ -1,8 +1,11 @@
 """The fused walk (``videowalk_tpu_torch/ops/walk.py``): its plain PyTorch
 forward/backward against the JAX package's fused walk ``_fused_walk``
 (Pallas, interpret mode on the CPU) and against the port's own core loss
-with autograd; its guards; and, on the card (``-m cuda``), the CUDA kernels
-against the plain version.
+with autograd; a plain rendering of the kernels' phases (the recursions
+split by row and column blocks, the cycles, steps and frames apart)
+against both; its guards; and, on the card (``-m cuda``), the CUDA
+kernels against the plain version and against themselves (two runs
+bitwise equal).
 
 Tolerances: losses rtol 1e-5, accuracies exact to 1e-6 (f32 sums in
 another order; the diagonal-is-max test on identical products); dq atol
@@ -58,18 +61,17 @@ def _assert_grads(got, want):
                                atol=2e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("B,T,N,C,rate", [
-    (2, 4, 10, 16, 0.0), (2, 5, 13, 24, 0.1), (2, 8, 49, 128, 0.1)])
-def test_plain_matches_jax_fused_walk(B, T, N, C, rate):
-    """Same q and masks; JAX pads N and C to 128 lanes with zeros (padded
-    nodes are unreachable under ZeroSoftmax, ``n_valid`` keeps them out of
-    the loss), the port does not pad."""
+def _jax_fused_walk(q, m12, m21, dl):
+    """JAX's ``_fused_walk`` (Pallas, interpret mode on the CPU) and its
+    VJP for ``dl``: losses, accs, dq. JAX pads N and C to 128 lanes with
+    zeros (padded nodes are unreachable under ZeroSoftmax, ``n_valid`` keeps
+    them out of the loss); the port does not pad."""
     import jax
     import jax.numpy as jnp
 
     from videowalk_tpu.ops.walk_kernel import _fused_walk
 
-    q, m12, m21, dl = _inputs(B, T, N, C, rate, seed=N + C)
+    B, T, N, C = q.shape
     S, NP, CP = T - 1, 128, max(128, C)
     qp = np.zeros((B, T, NP, CP), np.float32)
     qp[:, :, :N, :C] = q
@@ -79,15 +81,130 @@ def test_plain_matches_jax_fused_walk(B, T, N, C, rate):
         lambda v: _fused_walk(v, jnp.asarray(mp[0]), jnp.asarray(mp[1]),
                               TEMP, N), jnp.asarray(qp))
     dq_j = np.asarray(vjp((jnp.asarray(dl), jnp.zeros_like(a_j)))[0])
+    return np.asarray(l_j), np.asarray(a_j), dq_j[:, :, :N, :C]
+
+
+@pytest.mark.parametrize("B,T,N,C,rate", [
+    (2, 4, 10, 16, 0.0), (2, 5, 13, 24, 0.1), (2, 8, 49, 128, 0.1)])
+def test_plain_matches_jax_fused_walk(B, T, N, C, rate):
+    """Same q and masks through JAX's fused walk and the plain version."""
+    q, m12, m21, dl = _inputs(B, T, N, C, rate, seed=N + C)
+    l_j, a_j, dq_j = _jax_fused_walk(q, m12, m21, dl)
 
     losses, accs, *res = wk.fused_walk_plain_fwd(
         torch.from_numpy(q), torch.from_numpy(m12), torch.from_numpy(m21),
         TEMP)
     dq = wk.fused_walk_plain_bwd(torch.from_numpy(q), *res,
                                  torch.from_numpy(dl), TEMP)
-    np.testing.assert_allclose(losses.numpy(), np.asarray(l_j), rtol=1e-5)
-    np.testing.assert_allclose(accs.numpy(), np.asarray(a_j), atol=1e-6)
-    _assert_grads(dq.numpy(), dq_j[:, :, :N, :C])
+    np.testing.assert_allclose(losses.numpy(), l_j, rtol=1e-5)
+    np.testing.assert_allclose(accs.numpy(), a_j, atol=1e-6)
+    _assert_grads(dq.numpy(), dq_j)
+
+
+def _phased_fwd(q, m12, m21, temp, blk):
+    """The forward as ``csrc/walk.cu`` splits it, in plain torch: the
+    affinities and ZeroSoftmax of every step at once; the F recursion run
+    separately on each block of ``blk`` rows and the B recursion on each
+    block of ``blk`` columns; the cycles apart."""
+    B, T, N, _ = q.shape
+    S = T - 1
+    A = q[:, :-1] @ q[:, 1:].transpose(-1, -2)
+    neg = torch.full_like(A, tw.NEG)
+    d12 = torch.where(m12 != 0, neg, A) / temp
+    d21 = torch.where(m21 != 0, neg, A.transpose(-1, -2)) / temp
+    P, Q = tw.zero_softmax(d12), tw.zero_softmax(d21)
+    f, b = P.clone(), Q.clone()                   # slot 0: F_0 = P_0, B_0 = Q_0
+    for r0 in range(0, N, blk):
+        rows = slice(r0, r0 + blk)
+        v = P[:, 0, rows]
+        for i in range(1, S):
+            v = v @ P[:, i]                       # rows r of F_i: rows r of F_{i-1}
+            f[:, i, rows] = v
+    for c0 in range(0, N, blk):
+        cols = slice(c0, c0 + blk)
+        v = Q[:, 0, :, cols]
+        for i in range(1, S):
+            v = Q[:, i] @ v                       # columns of B_i: those of B_{i-1}
+            b[:, i, :, cols] = v
+    AA = f[:, 1:] @ b[:, 1:]                      # every cycle at once
+    diag = torch.diagonal(AA, dim1=-2, dim2=-1)
+    losses = (torch.log(AA.sum(-1) + N * tw.EPS)
+              - torch.log(diag + tw.EPS)).mean(-1)
+    accs = (diag >= AA.amax(-1)).float().mean(-1)
+    return losses, accs, d12, d21, f, b, P, Q
+
+
+def _phased_bwd(q, d12, d21, f, b, p, qz, dl, temp, blk):
+    """The backward as ``csrc/walk.cu`` splits it, in plain torch: every
+    cycle's dAA_i, X_i = dAA_i B_i^T and Y_i = F_i^T dAA_i at once; the dF
+    recursion on blocks of ``blk`` rows and the dB recursion on blocks of
+    ``blk`` columns, each storing dF_i, dB_i; every step's zsm VJP at once;
+    dq per frame as dA_t q_{t+1} + dA_{t-1}^T q_{t-1}."""
+    B, T, N, _ = q.shape
+    S = T - 1
+    eye = torch.eye(N, dtype=q.dtype)
+    AA = f[:, 1:] @ b[:, 1:]
+    rowsum = AA.sum(-1, keepdim=True) + N * tw.EPS
+    dAA = (((AA + tw.EPS) / rowsum - eye) * (dl[..., None, None] / N)
+           / (AA + tw.EPS))
+    X = dAA @ b[:, 1:].transpose(-1, -2)          # X[:, i - 1] = X_i
+    Y = f[:, 1:].transpose(-1, -2) @ dAA
+    dF, dB = torch.empty_like(f), torch.empty_like(b)
+    for r0 in range(0, N, blk):
+        rows = slice(r0, r0 + blk)
+        v = torch.zeros_like(X[:, 0, rows])
+        for i in range(S - 1, 0, -1):
+            v = v + X[:, i - 1, rows]
+            dF[:, i, rows] = v
+            v = v @ p[:, i].transpose(-1, -2)
+        dF[:, 0, rows] = v
+    for c0 in range(0, N, blk):
+        cols = slice(c0, c0 + blk)
+        v = torch.zeros_like(Y[:, 0, :, cols])
+        for i in range(S - 1, 0, -1):
+            v = v + Y[:, i - 1, :, cols]
+            dB[:, i, :, cols] = v
+            v = qz[:, i].transpose(-1, -2) @ v
+        dB[:, 0, :, cols] = v
+    dP = torch.cat([dF[:, :1], f[:, :-1].transpose(-1, -2) @ dF[:, 1:]], 1)
+    dQ = torch.cat([dB[:, :1], dB[:, 1:] @ b[:, :-1].transpose(-1, -2)], 1)
+    dA = (wk._zsm_bwd(d12, dP) / temp
+          + (wk._zsm_bwd(d21, dQ) / temp).transpose(-1, -2))
+    dq = torch.zeros_like(q)
+    for t in range(T):
+        if t < S:
+            dq[:, t] = dA[:, t] @ q[:, t + 1]
+        if t > 0:
+            dq[:, t] = dq[:, t] + dA[:, t - 1].transpose(-1, -2) @ q[:, t - 1]
+    return dq
+
+
+@pytest.mark.parametrize("B,T,N,C,blk,absent", [
+    (2, 3, 5, 8, 2, False), (2, 8, 49, 128, 8, False),
+    (2, 5, 13, 24, 8, True)])
+def test_phase_split_matches_plain_and_jax(B, T, N, C, blk, absent):
+    """The kernels' decomposition (row and column blocks of ``blk``, which
+    does not divide N) against the plain version, and through it against
+    JAX's fused walk; with absent node slots (all-zero q rows) in the
+    last case. Tolerances as above."""
+    q, m12, m21, dl = _inputs(B, T, N, C, 0.1, seed=N + T)
+    if absent:
+        q = _drop_slots(q, 1, 5, seed=N)
+    tq, t12, t21, tdl = (torch.from_numpy(a) for a in (q, m12, m21, dl))
+    got = _phased_fwd(tq, t12, t21, TEMP, blk)
+    want = wk.fused_walk_plain_fwd(tq, t12, t21, TEMP)
+    got_dq = _phased_bwd(tq, *got[2:], tdl, TEMP, blk)
+    want_dq = wk.fused_walk_plain_bwd(tq, *want[2:], tdl, TEMP)
+    l_j, a_j, dq_j = _jax_fused_walk(q, m12, m21, dl)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), atol=1e-6)
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-6)
+    _assert_grads(got_dq.numpy(), want_dq.numpy())
+    np.testing.assert_allclose(got[0].numpy(), l_j, rtol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), a_j, atol=1e-6)
+    _assert_grads(got_dq.numpy(), dq_j)
+    assert np.isfinite(got_dq.numpy()).all()
 
 
 @pytest.mark.parametrize("shape,rate", [((2, 16, 5, 9), 0.0),
@@ -162,7 +279,7 @@ def test_wrappers_refuse_other_devices():
         wk.walk_fwd(q, m, m, TEMP)
     r = torch.zeros((1, 3, 3, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        wk.walk_bwd(q, r, r, r, r, torch.zeros((1, 2), device="meta"), TEMP)
+        wk.walk_bwd(q, *(r,) * 6, torch.zeros((1, 2), device="meta"), TEMP)
 
 
 def test_fused_on_outside_the_gate_raises():
@@ -201,11 +318,17 @@ def test_kernel_raises_without_its_library(monkeypatch, tmp_path):
                     torch.from_numpy(m21).cuda(), TEMP)
 
 
+# the tiles' edges: N across one to four lanes a row, the 32-row tiles and
+# the recursions' 8-vector blocks, the shortest and longest clips, C across
+# the 64-channel chunks and dq tiles (C = 1: the scalar q reads)
+EDGE_SHAPES = [(2, T, N, C, 0.1) for N in (1, 13, 49, 64, 65, 101, 128)
+               for T in (3, 10) for C in (1, 24, 128, 512)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,N,C,rate", [
     (2, 3, 1, 1, 0.0), (3, 5, 13, 24, 0.1), (8, 8, 49, 128, 0.1),
-    (2, 6, 101, 40, 0.1),          # largest N with the backward in shared memory
-    (2, 10, 128, 512, 0.1)])       # the gate's edge: global backward scratch
+    (2, 6, 101, 40, 0.1), (2, 10, 128, 512, 0.1)] + EDGE_SHAPES)
 def test_kernels_match_plain_on_card(B, T, N, C, rate):
     """Kernel vs plain version on the card, f32 (TF32 off). Tolerance as
     above: products summed in another order."""
@@ -258,3 +381,21 @@ def test_kernels_match_plain_with_absent_slots_on_card(B, T, N, C, lo, hi):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=1e-5, atol=1e-6)
     _assert_grads(got_dq.cpu().numpy(), want_dq.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,N,C", [(8, 8, 49, 128), (2, 10, 128, 512)])
+def test_kernels_repeat_bitwise_on_card(B, T, N, C):
+    """Two runs of the kernels on the same inputs give bitwise-equal
+    losses, accuracies, residuals and dq: every sum has a fixed order and
+    no atomics."""
+    _need_card()
+    q, m12, m21, dl = (torch.from_numpy(a).cuda()
+                       for a in _inputs(B, T, N, C, 0.1, seed=N))
+    runs = []
+    for _ in range(2):
+        out = wk.walk_fwd(q, m12, m21, TEMP)
+        runs.append((*out, wk.walk_bwd(q, *out[2:], dl, TEMP)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

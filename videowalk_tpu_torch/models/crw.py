@@ -67,9 +67,9 @@ class CRWConfig:
     dilation_kernel_size: int = 51
     dtype: torch.dtype = torch.float32   # encoder trunk compute type
     # fused walk kernels (ops/walk.py): 'auto' takes them where the config
-    # allows and the card's sweep says they win (ops/walk.py::
-    # fused_walk_wins); 'on' forces them and raises where they do not
-    # apply; 'off' never
+    # allows (on the card they beat the core walk at every swept shape:
+    # ops/walk.py); 'on' forces them and raises where they do not apply;
+    # 'off' never
     fused_walk: str = "auto"
     # reflect-conv kernels (ops/rconv.py): 'auto' routes the shapes the
     # H100 chose (today every supported shape: 3x3 stride-1 convs on 8-32
@@ -85,9 +85,8 @@ class CRWConfig:
 def fused_walk_route(cfg: CRWConfig, T: int, N: int, C: int) -> bool:
     """True iff the walk loss of a ``(B, C, T, N)`` q takes the fused
     kernels (``ops/walk.py``): the config must allow them (ZeroSoftmax, no
-    flip, no zeroed diagonal, a supported shape); ``on`` then forces them,
-    ``auto`` takes them inside the card's measured region
-    (``fused_walk_wins``), ``off`` never."""
+    flip, no zeroed diagonal, a supported shape); ``on`` then forces them
+    and ``auto`` takes them, ``off`` never."""
     fused_ok = (not cfg.flip and not cfg.zero_diagonal
                 and cfg.use_zero_softmax
                 and (T < 3 or walk_ops.walk_supported(T, N, C)))
@@ -97,9 +96,7 @@ def fused_walk_route(cfg: CRWConfig, T: int, N: int, C: int) -> bool:
             "(flip/zero_diagonal/plain-softmax, N > 128 nodes, "
             f"clip_len > 10 or C > 512; N={N}, T={T}, C={C}); use "
             "fused_walk='auto' to let it fall back")
-    if cfg.fused_walk == "auto":
-        return fused_ok and (T < 3 or walk_ops.fused_walk_wins(T, N, C))
-    return cfg.fused_walk == "on"
+    return fused_ok and cfg.fused_walk != "off"
 
 
 class Head(nn.Sequential):

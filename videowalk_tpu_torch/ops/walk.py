@@ -12,30 +12,35 @@ Replaces the Pallas TPU kernels ``videowalk_tpu/ops/walk_kernel.py``
   (the reference's cross-entropy over ``log(AA + eps)``: the log-sum-exp of
   log-probabilities is the log of their sum) and the accuracy
   ``mean_rows[diag >= rowmax]``;
-- backward: the hand VJP from the residuals D12, D21, F, B, walked in
-  reverse, giving dq.
+- backward: the hand VJP from the residuals D12, D21, F, B, P, Q, walked
+  in reverse, giving dq.
 
 ``fused_walk`` is the autograd wrapper: its forward calls ``walk_fwd``, its
 backward ``walk_bwd``. Each takes the plain PyTorch version
 (``fused_walk_plain_fwd`` / ``_bwd``: the same math, the same residuals)
 for a tensor on the CPU, and launches the hand-written Hopper kernel
 ``csrc/walk.cu`` for a CUDA tensor, or raises. ``walk_fwd.launches`` and
-``walk_bwd.launches`` count kernel launches.
+``walk_bwd.launches`` count the wrapper calls that launched the kernels
+(each call makes ``DEVICE_LAUNCHES`` device launches, one per phase).
 
 Unlike the TPU kernel there is no 128-lane padding of N and C and no
 (8, 128) loss tile: losses and accuracies come out as ``(B, S-1)`` f32.
 ``walk_supported`` is every shape the JAX model's fused gate takes: 3 <= T
-<= 10, N <= 128, with C <= 512; ``fused_walk="auto"`` takes the kernels
-only inside the part of it where they beat the core walk on the card
-(``fused_walk_wins``).
+<= 10, N <= 128, with C <= 512. ``fused_walk="auto"`` takes the kernels on
+all of it: in the card's sweep (``chip_smoke.py --phases walk``: forward +
+backward at batch 8 over T in {4, 8, 10}, N in {48, 49, 64, 96, 128}, C in
+{128, 256, 512}; PERF.md §6) the fused walk took at most a third of the
+core walk's time at every swept shape.
 
 Bound on the card, at the flagship shape (B=8, T=8, N=49, C=128): the
-forward reads q (1.6 MB) and the masks (0.27 MB) and writes four
-(B,S,N,N) f32 residuals (2.15 MB) for 68 MFLOP; the backward reads q and
-the residuals and writes dq (5.4 MB) for 148 MFLOP. That is ~1.2 us of
-bytes and ~2.2 us of f32 operations at the card's peaks, so launch latency
-and the serial chain of small products decide the time. The kernels run
-one block per batch element (8 blocks on 132 SMs at that shape): see the
+function's forward reads q (1.6 MB) and the masks (0.27 MB) and writes
+the four (B,S,N,N) f32 residuals it needs, D12, D21, F, B (2.2 MB), for
+68 MFLOP; the backward reads q and those residuals and writes dq (5.4 MB)
+for 148 MFLOP. That is ~1.2-1.6 us of bytes and ~1-2.2 us of f32
+operations at the card's peaks, so launch latency and the serial
+recursions decide the time. P and Q are the design's own extra residuals
+(1.08 MB more a call each way). Each call runs four grids of many blocks
+per batch element, the recursions split by rows and columns: see the
 source's note.
 """
 
@@ -49,29 +54,12 @@ from videowalk_tpu_torch.core.walk import (EPS, NEG, ZSM_EPS, dropout_masks,
                                            zero_softmax)
 
 MAX_T, MAX_N, MAX_C = 10, 128, 512
+DEVICE_LAUNCHES = 4     # kernels ``csrc/walk.cu`` launches a call, each way
 
 
 def walk_supported(T: int, N: int, C: int) -> bool:
     """Shapes the CUDA kernels take (and the model's fused gate admits)."""
     return 3 <= T <= MAX_T and 1 <= N <= MAX_N and 1 <= C <= MAX_C
-
-
-# Where the kernels beat ``core/walk.py``'s math on the card, forward +
-# backward at batch 8 over T in {4, 8, 10}, N in {48, 49, 64, 96, 128}, C in
-# {128, 256, 512} (``chip_smoke.py --phases walk``, PERF.md §6): the largest
-# swept N that won at every swept T, for C up to each bound. The core walk
-# is launch-bound, so its time moves with the host: at the region's corner
-# (T=10 with N=64, C=128 or N=49, C=512) the two are within 6% and their
-# order flips between runs. Both main shapes lie well inside, (T, N, C) =
-# (8, 49, 128) and (4, 48, 128).
-FUSED_WALK_MAX_N = ((128, 64), (512, 49))
-
-
-def fused_walk_wins(T: int, N: int, C: int) -> bool:
-    """Shapes where ``fused_walk="auto"`` takes the kernels: supported and
-    inside the card's measured region ``FUSED_WALK_MAX_N``."""
-    return walk_supported(T, N, C) and any(
-        C <= c and N <= n for c, n in FUSED_WALK_MAX_N)
 
 
 def _zsm_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -88,8 +76,8 @@ def fused_walk_plain_fwd(q: torch.Tensor, m12: torch.Tensor,
                          m21: torch.Tensor, temperature: float):
     """Plain PyTorch forward. ``q (B, T, N, C)`` f32, masks ``(B, S, N, N)``
     (nonzero = dropped) -> ``losses, accs (B, S-1)`` and the residuals
-    ``d12, d21, f, b`` ``(B, S, N, N)`` (``f[:, 0] = zsm(d12[:, 0])``,
-    ``b[:, 0] = zsm(d21[:, 0])``)."""
+    ``d12, d21, f, b, p, qz`` ``(B, S, N, N)`` (``p = zsm(d12)``,
+    ``qz = zsm(d21)``, ``f[:, 0] = p[:, 0]``, ``b[:, 0] = qz[:, 0]``)."""
     B, T, N, _ = q.shape
     S = T - 1
     A = q[:, :-1] @ q[:, 1:].transpose(-1, -2)               # (B, S, N, N)
@@ -107,11 +95,12 @@ def fused_walk_plain_fwd(q: torch.Tensor, m12: torch.Tensor,
         losses.append((torch.log(rowsum) - torch.log(diag + EPS)).mean(-1))
         accs.append((diag >= AA.amax(-1)).float().mean(-1))
     return (torch.stack(losses, 1), torch.stack(accs, 1), d12, d21,
-            torch.stack(fs, 1), torch.stack(bs, 1))
+            torch.stack(fs, 1), torch.stack(bs, 1), P, Q)
 
 
 def fused_walk_plain_bwd(q: torch.Tensor, d12: torch.Tensor,
                          d21: torch.Tensor, f: torch.Tensor, b: torch.Tensor,
+                         p: torch.Tensor, qz: torch.Tensor,
                          dlosses: torch.Tensor,
                          temperature: float) -> torch.Tensor:
     """Plain PyTorch backward: the residuals and ``dlosses (B, S-1)`` ->
@@ -140,8 +129,8 @@ def fused_walk_plain_bwd(q: torch.Tensor, d12: torch.Tensor,
         dA = (_zsm_bwd(d12[:, i], dP) / temperature
               + (_zsm_bwd(d21[:, i], dQ) / temperature).transpose(-1, -2))
         add_dq(i, dA)
-        dF = dF @ zero_softmax(d12[:, i]).transpose(-1, -2)
-        dB = zero_softmax(d21[:, i]).transpose(-1, -2) @ dB
+        dF = dF @ p[:, i].transpose(-1, -2)
+        dB = qz[:, i].transpose(-1, -2) @ dB
     dA = (_zsm_bwd(d12[:, 0], dF) / temperature
           + (_zsm_bwd(d21[:, 0], dB) / temperature).transpose(-1, -2))
     add_dq(0, dA)
@@ -154,14 +143,14 @@ def _lib():
     lib = _build.load("walk")
     if lib.walk_fwd_launch.argtypes is None:
         lib.walk_fwd_launch.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_void_p])
         lib.walk_fwd_launch.restype = ctypes.c_int
         lib.walk_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_void_p])
         lib.walk_bwd_launch.restype = ctypes.c_int
-        lib.walk_bwd_workspace_floats.argtypes = [ctypes.c_int]
+        lib.walk_bwd_workspace_floats.argtypes = [ctypes.c_int] * 3
         lib.walk_bwd_workspace_floats.restype = ctypes.c_long
     return lib
 
@@ -199,49 +188,50 @@ def walk_fwd(q: torch.Tensor, m12: torch.Tensor, m21: torch.Tensor,
            ((B, T, N, C), (B, S, N, N), (B, S, N, N)),
            (torch.float32, torch.uint8, torch.uint8), q.device)
     opts = dict(dtype=torch.float32, device=q.device)
-    losses = torch.empty((B, S - 1), **opts)
-    accs = torch.empty((B, S - 1), **opts)
-    d12, d21, f, b = (torch.empty((B, S, N, N), **opts) for _ in range(4))
+    losses, accs = torch.empty((2, B, S - 1), **opts).unbind(0)
+    res = torch.empty((6, B, S, N, N), **opts).unbind(0)
     with torch.cuda.device(q.device):
         err = _lib().walk_fwd_launch(
             q.data_ptr(), m12.data_ptr(), m21.data_ptr(), losses.data_ptr(),
-            accs.data_ptr(), d12.data_ptr(), d21.data_ptr(), f.data_ptr(),
-            b.data_ptr(), B, T, N, C, float(temperature),
+            accs.data_ptr(), *(r.data_ptr() for r in res), B, T, N, C,
+            float(temperature),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"walk_fwd kernel launch failed: cudaError {err}")
     walk_fwd.launches += 1
-    return losses, accs, d12, d21, f, b
+    return (losses, accs, *res)
 
 
 walk_fwd.launches = 0
 
 
 def walk_bwd(q: torch.Tensor, d12: torch.Tensor, d21: torch.Tensor,
-             f: torch.Tensor, b: torch.Tensor, dlosses: torch.Tensor,
+             f: torch.Tensor, b: torch.Tensor, p: torch.Tensor,
+             qz: torch.Tensor, dlosses: torch.Tensor,
              temperature: float) -> torch.Tensor:
     """Backward of the fused walk -> ``dq (B, T, N, C)``."""
     if q.device.type == "cpu":
-        return fused_walk_plain_bwd(q, d12, d21, f, b, dlosses, temperature)
+        return fused_walk_plain_bwd(q, d12, d21, f, b, p, qz, dlosses,
+                                    temperature)
     _kernel_device("walk_bwd", q)
     B, T, N, C = q.shape
     S = T - 1
     sq = (B, S, N, N)
+    res = (d12, d21, f, b, p, qz)
     _check("walk_bwd", (("q", q), ("d12", d12), ("d21", d21), ("f", f),
-                        ("b", b), ("dlosses", dlosses)),
-           ((B, T, N, C), sq, sq, sq, sq, (B, S - 1)),
-           (torch.float32,) * 6, q.device)
+                        ("b", b), ("p", p), ("qz", qz), ("dlosses", dlosses)),
+           ((B, T, N, C),) + (sq,) * 6 + ((B, S - 1),),
+           (torch.float32,) * 8, q.device)
     lib = _lib()
     dq = torch.empty_like(q)
-    # the per-block N x N matrices live in shared memory where they fit,
-    # else in this global scratch (0 floats when they fit)
-    ws = torch.empty((B * int(lib.walk_bwd_workspace_floats(N)),),
+    # the phases' N x N matrices: X_i (then dD12), Y_i (then dD21), dF_i,
+    # dB_i, dD12^T, dD21^T
+    ws = torch.empty((int(lib.walk_bwd_workspace_floats(B, T, N)),),
                      dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.walk_bwd_launch(
-            q.data_ptr(), d12.data_ptr(), d21.data_ptr(), f.data_ptr(),
-            b.data_ptr(), dlosses.data_ptr(), dq.data_ptr(), ws.data_ptr(),
-            B, T, N, C, float(temperature),
+            q.data_ptr(), *(r.data_ptr() for r in res), dlosses.data_ptr(),
+            dq.data_ptr(), ws.data_ptr(), B, T, N, C, float(temperature),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"walk_bwd kernel launch failed: cudaError {err}")
@@ -255,17 +245,16 @@ walk_bwd.launches = 0
 class _FusedWalk(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, m12, m21, temperature):
-        losses, accs, d12, d21, f, b = walk_fwd(q, m12, m21, temperature)
-        ctx.save_for_backward(q, d12, d21, f, b)
+        losses, accs, *res = walk_fwd(q, m12, m21, temperature)
+        ctx.save_for_backward(q, *res)
         ctx.temperature = temperature
         ctx.mark_non_differentiable(accs)
         return losses, accs
 
     @staticmethod
     def backward(ctx, dlosses, _daccs):
-        q, d12, d21, f, b = ctx.saved_tensors
-        dq = walk_bwd(q, d12, d21, f, b, dlosses.contiguous().float(),
-                      ctx.temperature)
+        q, *res = ctx.saved_tensors
+        dq = walk_bwd(q, *res, dlosses.contiguous().float(), ctx.temperature)
         return dq, None, None, None
 
 

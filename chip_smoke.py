@@ -78,7 +78,11 @@ card.
    px frames, 36 segments, compactness 50, 10 rounds): equal labels after
    one assignment from the same centers (>= 99.9%, white-noise and
    structured frames) and after the full run on structured frames (>= 99%),
-   a run with per-frame active counts, two runs bitwise equal; times both.
+   a run with per-frame active counts, two runs bitwise equal; times both,
+   gives each SLIC kernel's device time and the device launches of a call
+   from ``torch.profiler`` and checks that a call copies nothing from the
+   host; the bound counts each round's (pixel, center in its window) pairs
+   at the centers the plain version holds there.
 10. Holds the L1 dilation kernel (``ops/csrc/dilation.cu``, #11) to
    **equality** with its plain version on the 1152 bf16 one-hot masks of
    SLIC labels at k=55 (and k=5, and a ragged stack), checks that a planted
@@ -121,8 +125,9 @@ from videowalk_tpu_torch.ops import prop_sparse as ps
 from videowalk_tpu_torch.ops import rconv as rc
 from videowalk_tpu_torch.ops import walk as wk
 from videowalk_tpu_torch.ops.dilation import dilate_l1, dilate_l1_plain
-from videowalk_tpu_torch.ops.slic import slic_fused
-from videowalk_tpu_torch.ops.slic_device import slic
+from videowalk_tpu_torch.ops.slic import device_launches, slic_fused
+from videowalk_tpu_torch.ops.slic_device import (initial_centers, rgb_to_lab,
+                                                 slic, slic_geometry)
 from videowalk_tpu_torch.parallel import (create_train_state, make_optimizer,
                                           make_train_step)
 
@@ -174,9 +179,9 @@ DEFAULT_ARM = ("auto", "auto")
 SP_BATCH, SP_CLIP, SP_IMG, NUM_SP, COMPACTNESS, MAX_SP, DIL_K = \
     6, 4, 256, 36, 50.0, 48, 55
 SLIC_ITERS = 10
-# f32 operations of one (pixel, active center) pair of a SLIC assignment: 5
-# subtractions, 5 multiplications, 4 additions; a center update adds 5 sums
-# and a count a pixel
+# f32 operations of one (pixel, center in its window) pair of a SLIC
+# assignment: 5 subtractions, 5 multiplications, 4 additions; a center
+# update adds 5 sums and a count a pixel
 SLIC_PAIR_FLOPS, SLIC_UPDATE_FLOPS = 14, 6
 
 
@@ -1414,6 +1419,67 @@ def _agree(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a == b).float().mean())
 
 
+def slic_window_pairs(x: torch.Tensor, n_segments: int, compactness: float,
+                      n_iter: int) -> list[int]:
+    """(pixel, center) pairs SLIC compares in each of ``n_iter`` rounds on
+    ``x``: for each pixel the centers inside its 2S window (all centers for
+    a pixel with none), at the centers the plain ``slic`` holds at that
+    round (the grid's, then each update's)."""
+    H, W = x.shape[-3], x.shape[-2]
+    ratio, window = slic_geometry(H, W, n_segments, compactness)
+    xb = x.reshape(-1, H, W, 3)
+    B = xb.shape[0]
+    centers = initial_centers(rgb_to_lab(xb).reshape(B, H * W, 3), H, W,
+                              n_segments, ratio)
+    py = torch.arange(H, device=x.device, dtype=torch.float32) * ratio
+    px = torch.arange(W, device=x.device, dtype=torch.float32) * ratio
+    pairs = []
+    for r in range(n_iter):
+        in_y = ~((py[None, :, None] - centers[:, None, :, 3]).abs() > window)
+        in_x = ~((px[None, :, None] - centers[:, None, :, 4]).abs() > window)
+        n = (in_y[:, :, None, :] & in_x[:, None, :, :]).sum(-1)  # (B, H, W)
+        pairs.append(int(torch.where(n > 0, n, n_segments).sum()))
+        if r + 1 < n_iter:
+            _, centers = slic(xb, n_segments, compactness, n_iter=1,
+                              init_centers=centers, return_centers=True)
+    return pairs
+
+
+def slic_call_profile(fn, n: int = 10) -> dict:
+    """``n`` calls of ``fn`` under ``torch.profiler``: each SLIC kernel's
+    device µs a call, the device launches a call and the host-to-device
+    copies a call. The profiler may drop the first kernel of its window
+    (seen on the card: 10.8 launches a call for 11), so a kernel's count a
+    call is rounded and its µs a call is its mean a launch times that
+    count."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us, launches, htod = {}, 0, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        key, per_call = e.key.lower(), max(round(e.count / n), 1)
+        if "memcpy" in key and "htod" in key:
+            htod += e.count
+        elif "memcpy" not in key and "memset" not in key:
+            launches += per_call
+        name = re.sub(r"^.*?(slic_\w+).*$", r"\1", e.key)[:60]
+        us[name] = us.get(name, 0.0) + t / e.count * per_call
+    return dict(kernel_us=us, device_launches=launches, htod_copies=htod / n)
+
+
 def slic_kernel_vs_plain() -> dict:
     """The fused SLIC kernels (#12) against the plain ``slic`` at the step
     of record, (6, 4, 256, 256, 3) frames, 36 segments, compactness 50, 10
@@ -1428,9 +1494,14 @@ def slic_kernel_vs_plain() -> dict:
     equal. ``max_abs_err``: the centers after one round from the grid,
     kernel against plain, on the white-noise frames.
 
-    ``bound_ms``: the rounds' (pixel, active center) pairs x 14 f32
-    operations plus 6 a pixel for each center update, over the f32 peak,
-    against the images read and the labels written once over the HBM rate."""
+    ``bound_ms``: the rounds' (pixel, center in its window) pairs
+    (``slic_window_pairs``, the white-noise frames) x 14 f32 operations
+    plus 6 a pixel for each center update, over the f32 peak, against the
+    images read and the labels written once over the HBM rate; the old
+    count of every (pixel, active center) pair is kept as ``dense_gflop``.
+    A call's device launches (``device_launches``) and its SLIC kernels'
+    device µs come from ``torch.profiler``; a call must copy nothing from
+    the host."""
     before = slic_fused.launches
     kw = dict(n_segments=NUM_SP, compactness=COMPACTNESS)
     frames = dict(noise=noise_frames(seed=11),
@@ -1483,20 +1554,44 @@ def slic_kernel_vs_plain() -> dict:
     res["ms"] = cuda_ms(lambda: slic_fused(xn, **kw), 20)
     res["plain_ms"] = cuda_ms(lambda: slic(xn, **kw), 3, 1)
     res["structured_ms"] = cuda_ms(lambda: slic_fused(x, **kw), 20)
+    prof = slic_call_profile(lambda: slic_fused(xn, **kw))
+    prof_rc = slic_call_profile(
+        lambda: slic_fused(xn, return_centers=True, **kw))
     slic_fused.launches = before            # comparison launches do not count
+    res.update(profile=prof, profile_return_centers=prof_rc)
+    print(f"  one call on white noise, device µs by kernel "
+          f"{ {k: round(v, 2) for k, v in prof['kernel_us'].items()} }, "
+          f"{prof['device_launches']:g} device launches, "
+          f"{prof['htod_copies']:g} host-to-device copies; with "
+          f"return_centers {prof_rc['device_launches']:g} launches",
+          flush=True)
+    if prof["htod_copies"] or prof_rc["htod_copies"]:
+        fail(f"slic_fused copies from the host: {prof}")
+    if (prof["device_launches"] != device_launches(SLIC_ITERS)
+            or prof_rc["device_launches"]
+            != device_launches(SLIC_ITERS, return_centers=True)):
+        fail(f"slic_fused device launches {prof['device_launches']}, "
+             f"{prof_rc['device_launches']}")
     n_pix = SP_BATCH * SP_CLIP * SP_IMG * SP_IMG
-    flops = (SLIC_ITERS * n_pix * NUM_SP * SLIC_PAIR_FLOPS
-             + (SLIC_ITERS - 1) * n_pix * SLIC_UPDATE_FLOPS)
+    pairs = slic_window_pairs(xn, NUM_SP, COMPACTNESS, SLIC_ITERS)
+    update_flops = (SLIC_ITERS - 1) * n_pix * SLIC_UPDATE_FLOPS
+    flops = sum(pairs) * SLIC_PAIR_FLOPS + update_flops
+    dense = SLIC_ITERS * n_pix * NUM_SP * SLIC_PAIR_FLOPS + update_flops
     nbytes = n_pix * (3 * 4 + 4)
     o_ms, b_ms = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-    res.update(gflop=flops / 1e9, bytes=nbytes, bound_ms=max(o_ms, b_ms),
+    res.update(gflop=flops / 1e9, dense_gflop=dense / 1e9, bytes=nbytes,
+               window_centers_per_pixel=[p / n_pix for p in pairs],
+               bound_ms=max(o_ms, b_ms),
                bound_by="operations" if o_ms >= b_ms else "bytes",
-               device_launches=1 + SLIC_ITERS + SLIC_ITERS - 1)
+               device_launches=prof["device_launches"])
     print(f"  slic_fused {res['ms']:.3f} ms a call on white noise "
           f"({res['structured_ms']:.3f} on the structured frames; "
-          f"{res['device_launches']} device launches), plain slic "
+          f"{res['device_launches']:g} device launches), plain slic "
           f"{res['plain_ms']:.3f} ms; bound {res['bound_ms']:.4f} ms by "
-          f"{res['bound_by']} ({res['gflop']:.2f} GFLOP f32, "
+          f"{res['bound_by']} ({res['gflop']:.2f} GFLOP f32 for the "
+          f"in-window pairs, centers a pixel by round "
+          f"{[round(v, 2) for v in res['window_centers_per_pixel']]}; "
+          f"dense_gflop {res['dense_gflop']:.2f} for every pair; "
           f"{nbytes / 1e6:.1f} MB)", flush=True)
     return res
 

@@ -170,3 +170,238 @@ def test_slic_refuses_bad_arguments():
         tsd.slic(x, 4, init_centers=torch.zeros((2, 5, 5)))
     with pytest.raises(ValueError, match="unsupported device"):
         slic_fused(torch.zeros((2, 8, 8, 3), device="meta"))
+
+
+# --- the algebra of the fused kernel's design (ops/csrc/slic.cu), in plain
+# torch: a per-tile window cull and fixed-point center sums. The kernels run
+# only on the card; these mirrors hold what they compute to the plain version.
+
+WARP_ROWS = 8                         # a thread's rows (one column)
+TILE_W, TILE_H = 32, 8 * WARP_ROWS    # the round kernel's tile: 8 warps
+
+
+def _features(x, n_segments, compactness):
+    """``(B, HW, 5)`` features of ``x (B, H, W, 3)`` and ``(ratio, window)``,
+    as the plain version builds them."""
+    B, H, W, _ = x.shape
+    ratio, window = tsd.slic_geometry(H, W, n_segments, compactness)
+    color = tsd.rgb_to_lab(x).reshape(B, H * W, 3)
+    py = torch.arange(H, dtype=torch.float32)[:, None].expand(H, W) * ratio
+    px = torch.arange(W, dtype=torch.float32)[None, :].expand(H, W) * ratio
+    coords = torch.stack([py.reshape(-1), px.reshape(-1)], -1)
+    return torch.cat([color, coords.expand(B, -1, -1)], -1), ratio, window
+
+
+def _direct(f5, c):
+    """``(B, HW, K)`` direct-form squared distances and the window's
+    ``|dy|``, ``|dx|``."""
+    diff = f5[:, :, None, :] - c[:, None, :, :]
+    sq = diff * diff
+    d = sq[..., 0] + sq[..., 1] + sq[..., 2] + sq[..., 3] + sq[..., 4]
+    return d, diff[..., 3].abs(), diff[..., 4].abs()
+
+
+def _active(kact, K):
+    return torch.arange(K)[None, :] < torch.as_tensor(kact)[:, None]  # (B, K)
+
+
+def _dense_labels(f5, c, kact, window):
+    """The uncut scan: the nearest in-window active center, else the
+    nearest active one; ties to the lowest slot."""
+    d, ady, adx = _direct(f5, c)
+    act = _active(kact, c.shape[1])[:, None, :]
+    inf = torch.tensor(float("inf"))
+    win = ~((ady > window) | (adx > window)) & act
+    has = win.any(-1)
+    return torch.where(has, torch.where(win, d, inf).argmin(-1),
+                       torch.where(act, d, inf).argmin(-1))
+
+
+def _tile_lists(c, kact, H, W, ratio, window):
+    """``(B, tiles, K)`` the slots the kernel lists for each tile, and
+    ``(B, tiles, 8, K)`` those each warp's rows keep: the active ones whose
+    center lies within the window, plus a margin, of the tile's (the
+    warp's) edge pixels, every f32 product as the kernel's."""
+    f32 = np.float32
+    r, w = f32(ratio), f32(window)
+    ys = np.arange(0, H, TILE_H)
+    xs = np.arange(0, W, TILE_W)
+    reach = w + f32(1e-4) * (f32(1.0) + w + f32(H - 1) * r + f32(W - 1) * r)
+    ylo = ys.astype(f32) * r - reach
+    yhi = (np.minimum(ys + TILE_H, H) - 1).astype(f32) * r + reach
+    xlo = xs.astype(f32) * r - reach
+    xhi = (np.minimum(xs + TILE_W, W) - 1).astype(f32) * r + reach
+    yw = ys[:, None] + np.arange(8)[None, :] * WARP_ROWS          # (ty, 8)
+    wlo = yw.astype(f32) * r - reach
+    whi = (yw + WARP_ROWS - 1).astype(f32) * r + reach
+    n_t = len(ys) * len(xs)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    ylo, yhi = (t(np.repeat(v, len(xs))).reshape(1, n_t, 1) for v in (ylo, yhi))
+    xlo, xhi = (t(np.tile(v, len(ys))).reshape(1, n_t, 1) for v in (xlo, xhi))
+    wlo, whi = (t(np.repeat(v, len(xs), 0)).reshape(1, n_t, 8, 1)
+                for v in (wlo, whi))
+    cy, cx = c[:, None, :, 3], c[:, None, :, 4]
+    listed = ((cy >= ylo) & (cy <= yhi) & (cx >= xlo) & (cx <= xhi)
+              & _active(kact, c.shape[1])[:, None, :])
+    kept = listed[:, :, None, :] & (cy[:, :, None] >= wlo) & (cy[:, :, None] <= whi)
+    return listed, kept
+
+
+def _pixel_tiles(H, W):
+    """Each pixel's tile and warp (its rows within the tile)."""
+    yy, xx = np.mgrid[:H, :W]
+    tile = (yy // TILE_H) * ((W + TILE_W - 1) // TILE_W) + xx // TILE_W
+    return (torch.from_numpy(tile.reshape(-1)),
+            torch.from_numpy(((yy % TILE_H) // WARP_ROWS).reshape(-1)))
+
+
+def _culled_labels(f5, c, kact, H, W, ratio, window):
+    """The kernel's assignment: the exact per-pixel window test over the
+    slots its warp keeps of its tile's list; a pixel with no kept slot in
+    its window scans every active slot. Also returns the tile lists, which
+    pixels fell back, and the in-window active slots a pixel's warp did not
+    keep (there must be none)."""
+    listed, kept = _tile_lists(c, kact, H, W, ratio, window)
+    tile, warp = _pixel_tiles(H, W)
+    keep = kept[:, tile, warp, :]                             # (B, HW, K)
+    d, ady, adx = _direct(f5, c)
+    inf = torch.tensor(float("inf"))
+    act = _active(kact, c.shape[1])[:, None, :]
+    in_window = ~((ady > window) | (adx > window)) & act
+    win = in_window & keep
+    has = win.any(-1)
+    labels = torch.where(has, torch.where(win, d, inf).argmin(-1),
+                         torch.where(act, d, inf).argmin(-1))
+    return labels, listed, ~has, in_window & ~keep
+
+
+def _grid_start(x, n_segments, compactness):
+    B, H, W, _ = x.shape
+    f5, ratio, window = _features(x, n_segments, compactness)
+    c = tsd.initial_centers(f5[..., :3].contiguous(), H, W, n_segments, ratio)
+    return f5, c, ratio, window
+
+
+@pytest.mark.parametrize("H,W,K,comp,kact", [
+    (33, 47, 7, 20.0, [7, 4]),          # tiles that do not divide H or W
+    (70, 45, 12, 30.0, [12, 1]),        # n_active down to 1: the fallback
+    (64, 64, 9, 30.0, [2, 1]),
+    (256, 256, 36, 50.0, [36, 30]),     # the step of record's geometry
+])
+def test_window_cull_gives_the_uncut_labels(H, W, K, comp, kact):
+    """Per-tile conservative lists with the exact per-pixel window test and
+    the fallback scan equal the uncut direct-form scan, label for label, at
+    the grid start and after three plain rounds; no in-window active center
+    is ever left off its tile's list."""
+    rng = np.random.RandomState(H + K)
+    x = torch.from_numpy(rng.rand(2, H, W, 3).astype(np.float32))
+    f5, c0, ratio, window = _grid_start(x, K, comp)
+    _, c3 = tsd.slic(x, K, comp, n_iter=3, n_active=kact, return_centers=True)
+    fell_back = 0
+    for c in (c0, c3):
+        got, lists, fallback, missed = _culled_labels(f5, c, kact, H, W,
+                                                      ratio, window)
+        assert not missed.any()
+        assert torch.equal(got, _dense_labels(f5, c, kact, window))
+        assert (got < torch.as_tensor(kact)[:, None]).all()
+        fell_back += int(fallback.sum())
+    if min(kact) <= 2:
+        assert fell_back > 0                 # the fallback was exercised
+    if H == 256:
+        # ~19 of 36 slots listed a 32x64 tile at the step of record
+        assert 8 <= float(lists[0].sum(-1).float().mean()) <= 24
+
+
+def _fixed_point_means(f5, labels, prev, kact, H, W):
+    """The kernel's update: each warp's (8 rows x 32 columns of a tile) f32
+    partial sums per label, a block's 8 warps summed in order, int64 fixed
+    point (round(sum * 2^20); the count as it is) over the blocks, mean =
+    f32(f64(S) * 2^-20 / n); an empty or inactive slot keeps its center."""
+    B, HW, _ = f5.shape
+    K = prev.shape[1]
+    tile, warp = _pixel_tiles(H, W)
+    n_tiles = int(tile.max()) + 1
+    vals = torch.cat([f5, torch.ones(B, HW, 1)], -1)          # (B, HW, 6)
+    slot = (tile * 8 + warp)[None, :] * K + labels            # (B, HW)
+    part = torch.zeros(B, n_tiles * 8 * K, 6)
+    for b in range(B):
+        part[b].index_add_(0, slot[b], vals[b])
+    part = part.reshape(B, n_tiles, 8, K, 6)
+    block = part[:, :, 0]
+    for w in range(1, 8):                                     # warps in order
+        block = block + part[:, :, w]
+    q = torch.round(block.double() * 2.0 ** 20).long()
+    q[..., 5] = block[..., 5].long()                          # the count
+    S = q.sum(1)                                              # (B, K, 6) int64
+    n = S[..., 5:6]
+    mean = (S[..., :5].double() * 2.0 ** -20 / n.clamp_min(1).double()).float()
+    keep = (n == 0) | ~_active(kact, K)[..., None]
+    return torch.where(keep, prev, mean)
+
+
+@pytest.mark.parametrize("H,W,K,comp,kact", [
+    (33, 47, 7, 20.0, [7, 4]),
+    (256, 256, 36, 50.0, [36, 36]),
+])
+def test_fixed_point_sums_give_the_f32_means(H, W, K, comp, kact):
+    """Fixed-point sums turned back into means, from the plain version's
+    labels, are within 1e-4 of the exact (f64) means of those labels, and
+    no farther from them than the plain version's own f32 means plus 1e-5
+    (at 65536 pixels a frame the f32 sums of the plain version are ~1.1e-4
+    off, the fixed point's ~1.5e-5: the f32 rounding of a mean near 300);
+    the next assignment from them gives >= 99.9% of the plain version's
+    labels."""
+    x = torch.from_numpy(quadrant(H, W, seed=K)[None].repeat(2, 0))
+    x[1] = torch.from_numpy(np.random.RandomState(K).rand(H, W, 3)
+                            .astype(np.float32))
+    f5, c0, ratio, window = _grid_start(x, K, comp)
+    labels, want = tsd.slic(x, K, comp, n_iter=1, n_active=kact,
+                            init_centers=c0, return_centers=True)
+    labels = labels.reshape(2, -1).long()
+    got = _fixed_point_means(f5, labels, c0, kact, H, W)
+    onehot = torch.nn.functional.one_hot(labels, K).double()
+    n = onehot.sum(1)[..., None]
+    exact = (onehot.transpose(1, 2) @ f5.double()) / n.clamp_min(1)
+    exact = torch.where(n > 0, exact, c0.double())    # empty: kept
+    err = float((got.double() - exact).abs().max())
+    assert err <= 1e-4
+    assert err <= float((want.double() - exact).abs().max()) + 1e-5
+    nxt = tsd.slic(x, K, comp, n_iter=1, n_active=kact, init_centers=got)
+    ref = tsd.slic(x, K, comp, n_iter=1, n_active=kact, init_centers=want)
+    assert float((nxt == ref).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("H,W,n", [(64, 64, 9), (256, 256, 36), (40, 52, 12),
+                                   (33, 47, 7), (8, 8, 100), (16, 64, 5)])
+def test_round_kernel_grid_equals_initial_centers(H, W, n):
+    """The round kernel's grid start, mirrored in Python doubles (cell
+    centers in f64, then f32; times ratio in f32; gather at the truncated
+    position; a short grid repeats), is ``initial_centers`` bit for bit."""
+    gh, gw = tsd.grid_shape(H, W, n)
+    ratio, _ = tsd.slic_geometry(H, W, n, 30.0)
+    color = torch.from_numpy(np.random.RandomState(n).randn(2, H * W, 3)
+                             .astype(np.float32))
+    want = tsd.initial_centers(color, H, W, n, ratio)
+    got = torch.empty_like(want)
+    for k in range(n):
+        m = k % (gh * gw)
+        iy, ix = m // gw, m % gw
+        cy = np.float32((iy + 0.5) * H / gh)
+        cx = np.float32((ix + 0.5) * W / gw)
+        p = min(max(int(cy), 0), H - 1) * W + min(max(int(cx), 0), W - 1)
+        got[:, k, :3] = color[:, p]
+        got[:, k, 3] = float(cy * np.float32(ratio))
+        got[:, k, 4] = float(cx * np.float32(ratio))
+    assert torch.equal(got, want)
+
+
+def test_fixed_point_range_and_device_launches():
+    from videowalk_tpu_torch.ops import slic as ts
+
+    for H, W, n in ((256, 256, 36), (2160, 3840, 128), (480, 854, 36)):
+        ts.check_fixed_point_range(H, W, tsd.slic_geometry(H, W, n, 50.0)[0])
+    with pytest.raises(ValueError, match="fixed-point range"):
+        ts.check_fixed_point_range(1 << 20, 1 << 20, 1.0)
+    assert ts.device_launches(10) == 11
+    assert ts.device_launches(10, return_centers=True) == 12
+    assert ts.device_launches(1) == 2

@@ -55,13 +55,18 @@ def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     return torch.stack([L, a, b], dim=-1)
 
 
+def grid_shape(H: int, W: int, n_segments: int) -> tuple[int, int]:
+    """``(rows, columns)`` of the initial centers' grid."""
+    gh = int(np.sqrt(n_segments * H / W) + 0.5)
+    gw = int(np.ceil(n_segments / max(1, gh)))
+    return max(1, gh), gw
+
+
 def _grid_centers(H: int, W: int, n_segments: int):
     """Regular-grid initial centers (y, x) as f32 numpy arrays, like
     skimage's mgrid slices; a grid that comes up short repeats from its
     start."""
-    gh = int(np.sqrt(n_segments * H / W) + 0.5)
-    gw = int(np.ceil(n_segments / max(1, gh)))
-    gh = max(1, gh)
+    gh, gw = grid_shape(H, W, n_segments)
     ys = (np.arange(gh) + 0.5) * H / gh
     xs = (np.arange(gw) + 0.5) * W / gw
     yy, xx = np.meshgrid(ys, xs, indexing="ij")

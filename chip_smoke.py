@@ -85,9 +85,11 @@ card.
    at the centers the plain version holds there.
 10. Holds the L1 dilation kernel (``ops/csrc/dilation.cu``, #11) to
    **equality** with its plain version on the 1152 bf16 one-hot masks of
-   SLIC labels at k=55 (and k=5, and a ragged stack), checks that a planted
-   fault fails, and times kernel, plain version and the library call (one
-   ``conv2d`` with the diamond kernel, ``> 0``).
+   SLIC labels at k=55 (and k=5, and a ragged stack), checks that two
+   planted faults fail (a square, a band-edge row), and times kernel, plain
+   version and the library call (one ``conv2d`` with the diamond kernel,
+   ``> 0``); the kernel's device µs and device launches a call from
+   ``torch.profiler``.
 11. Drives the superpixel training step of record through
    ``make_train_step`` with ``slic_fused`` inside the timed step: ``sp``,
    ``sp_dil`` (L1 dilation k=55; profiled, stages timed), ``sp_dil`` with
@@ -124,7 +126,8 @@ from videowalk_tpu_torch.ops import _build
 from videowalk_tpu_torch.ops import prop_sparse as ps
 from videowalk_tpu_torch.ops import rconv as rc
 from videowalk_tpu_torch.ops import walk as wk
-from videowalk_tpu_torch.ops.dilation import dilate_l1, dilate_l1_plain
+from videowalk_tpu_torch.ops.dilation import (choose_band, dilate_l1,
+                                             dilate_l1_plain)
 from videowalk_tpu_torch.ops.slic import device_launches, slic_fused
 from videowalk_tpu_torch.ops.slic_device import (initial_centers, rgb_to_lab,
                                                  slic, slic_geometry)
@@ -1445,13 +1448,13 @@ def slic_window_pairs(x: torch.Tensor, n_segments: int, compactness: float,
     return pairs
 
 
-def slic_call_profile(fn, n: int = 10) -> dict:
-    """``n`` calls of ``fn`` under ``torch.profiler``: each SLIC kernel's
-    device µs a call, the device launches a call and the host-to-device
-    copies a call. The profiler may drop the first kernel of its window
-    (seen on the card: 10.8 launches a call for 11), so a kernel's count a
-    call is rounded and its µs a call is its mean a launch times that
-    count."""
+def call_profile(fn, n: int = 10) -> dict:
+    """``n`` calls of ``fn`` under ``torch.profiler``: each kernel's device
+    µs a call (SLIC's by their names), the device launches a call and the
+    host-to-device copies a call. The profiler may drop the first kernel of
+    its window (seen on the card: 10.8 launches a call for 11), so a
+    kernel's count a call is rounded and its µs a call is its mean a launch
+    times that count."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -1554,8 +1557,8 @@ def slic_kernel_vs_plain() -> dict:
     res["ms"] = cuda_ms(lambda: slic_fused(xn, **kw), 20)
     res["plain_ms"] = cuda_ms(lambda: slic(xn, **kw), 3, 1)
     res["structured_ms"] = cuda_ms(lambda: slic_fused(x, **kw), 20)
-    prof = slic_call_profile(lambda: slic_fused(xn, **kw))
-    prof_rc = slic_call_profile(
+    prof = call_profile(lambda: slic_fused(xn, **kw))
+    prof_rc = call_profile(
         lambda: slic_fused(xn, return_centers=True, **kw))
     slic_fused.launches = before            # comparison launches do not count
     res.update(profile=prof, profile_return_centers=prof_rc)
@@ -1612,11 +1615,14 @@ def dilation_kernel_vs_plain() -> dict:
     shifted-max decomposition) on the one-hot masks of real SLIC labels at
     the step of record, (1152, 256, 256) bf16, k=55; also k=5 there and a
     ragged (3, 40, 52) f32 stack at k=23. The result is exact 0/1:
-    **equality**. A planted fault (one 64x64 tile of one mask put back to
-    its undilated input) must fail the same check. ``library_ms``: the
-    reference's formulation, one ``F.conv2d`` with the binary diamond
-    kernel, then ``> 0``. ``bound_ms``: one read and one write of the stack
-    over the HBM rate."""
+    **equality**. Two planted faults must fail the same check: one 64x64
+    square of one mask put back to its undilated input, and one row at the
+    edge of a kernel band (the last row of the first band) of one mask left
+    undilated. ``library_ms``: the reference's formulation, one
+    ``F.conv2d`` with the binary diamond kernel, then ``> 0``.
+    ``bound_ms``: one read and one write of the stack over the HBM rate;
+    the kernel's device µs a call and its device launches a call come from
+    ``torch.profiler``, beside the device µs of a ``clone`` of the stack."""
     before = dilate_l1.launches
     x = superpixel_onehots(structured_frames(SP_BATCH, SP_CLIP, SP_IMG, SP_IMG,
                                              seed=12))
@@ -1641,7 +1647,7 @@ def dilation_kernel_vs_plain() -> dict:
         (dilate_l1(small, 23) != dilate_l1_plain(small, 23)).sum())
     if res["differing"]["ragged k=23"]:
         fail("dilate_l1 differs from its plain version at (3, 40, 52), k=23")
-    # planted fault: the first 64x64 tile that the dilation changed
+    # planted fault 1: the first 64x64 square that the dilation changed
     changed = (got != x).reshape(x.shape[0], SP_IMG // 64, 64, SP_IMG // 64,
                                  64).any(4).any(2)
     n, ty, tx = (int(v) for v in changed.nonzero()[0])
@@ -1651,7 +1657,17 @@ def dilation_kernel_vs_plain() -> dict:
     want = dilate_l1_plain(x, DIL_K)
     res["planted_fault_differing"] = int((faulty != want).sum())
     if torch.equal(faulty, want):
-        fail("the dilation check passes a planted fault")
+        fail("the dilation check passes a planted fault (a square)")
+    # planted fault 2: the last row of the kernel's first band, undilated, in
+    # the first mask that the dilation changed there
+    edge = choose_band(SP_IMG, SP_IMG, DIL_K // 2) - 1
+    n = int((got[:, edge] != x[:, edge]).any(-1).nonzero()[0])
+    faulty.copy_(got)
+    faulty[n, edge] = x[n, edge]
+    res["band_edge_fault"] = dict(mask=n, row=edge,
+                                  differing=int((faulty != want).sum()))
+    if torch.equal(faulty, want):
+        fail("the dilation check passes a planted fault (a band-edge row)")
     res["set_share"] = dict(input=float(x.float().mean()),
                             dilated=float(got.float().mean()))
     del faulty, want
@@ -1666,19 +1682,36 @@ def dilation_kernel_vs_plain() -> dict:
     res["library_ms"] = cuda_ms(lambda: torch.nn.functional.conv2d(
         x[:, None], kernel, padding=DIL_K // 2) > 0, 2, 1)
     res["k5_ms"] = cuda_ms(lambda: dilate_l1(x, 5), 20)
+    prof = call_profile(lambda: dilate_l1(x, DIL_K))
+    res["device_us"] = sum(prof["kernel_us"].values())
+    res["device_launches"] = prof["device_launches"]
+    # a copy of the stack moves the same bytes: the rate the card reaches
+    res["clone_us"] = sum(call_profile(lambda: x.clone())["kernel_us"].values())
+    if res["device_launches"] != 1:
+        fail(f"dilate_l1 makes {res['device_launches']} device launches a "
+             f"call, not 1")
     dilate_l1.launches = before             # comparison launches do not count
     nbytes = 2 * x.numel() * x.element_size()
     res.update(bytes=nbytes, bound_ms=nbytes / HBM_RATE * 1e3,
                bound_by="bytes")
+    res["bound_share"] = dict(events=res["bound_ms"] / res["ms"],
+                              device=res["bound_ms"] / res["device_us"] * 1e3)
     print(f"dilate_l1 vs plain at {res['shape']} bf16 one-hots of SLIC "
           f"labels: differing pixels {res['differing']} (tolerance: "
-          f"equality); planted fault (one tile undilated) differs in "
-          f"{res['planted_fault_differing']} pixels; set share "
-          f"{res['set_share']}", flush=True)
+          f"equality); planted faults differ in "
+          f"{res['planted_fault_differing']} pixels (a 64x64 square "
+          f"undilated) and {res['band_edge_fault']['differing']} (row "
+          f"{edge}, a band edge, undilated); set share {res['set_share']}",
+          flush=True)
     print(f"  dilate_l1 k={DIL_K} {res['ms']:.3f} ms (k=5 {res['k5_ms']:.3f}), "
-          f"plain {res['plain_ms']:.3f} ms, library (conv2d > 0) "
+          f"device {res['device_us']:.1f} us a call in "
+          f"{res['device_launches']} device launch(es) (a clone of the "
+          f"stack {res['clone_us']:.1f} us), plain "
+          f"{res['plain_ms']:.3f} ms, library (conv2d > 0) "
           f"{res['library_ms']:.3f} ms; bound {res['bound_ms']:.4f} ms by "
-          f"bytes ({nbytes / 1e6:.0f} MB)", flush=True)
+          f"bytes ({nbytes / 1e6:.0f} MB): {res['bound_share']['events']:.3f}"
+          f" of it by events, {res['bound_share']['device']:.3f} by device "
+          f"time", flush=True)
     return res
 
 

@@ -20,10 +20,12 @@ kernel and plain version are held to equality.
 
 Bound on the card: bytes, one read and one write of the stack. At the
 superpixel step of record (1152 masks of 256x256 in bf16, k=55) that is
-302 MB, 0.09 ms at 3.35 TB/s; the arithmetic (a few integer operations a
+302 MB, 0.09 ms at 3.35 TB/s; the arithmetic (a few bit operations a
 pixel) is far below the card's rate. The plain version moves the stack ~17
-times through padded copies. The kernel reads each tile with its halo into
-shared memory once and writes the result once (see the source's note).
+times through padded copies. The kernel takes a band of whole rows of one
+mask a block (``choose_band``), reads it with its r-row halo once into
+bit-packed rows in shared memory, dilates there and writes the band once
+(see the source's note).
 """
 
 from __future__ import annotations
@@ -35,8 +37,39 @@ import torch.nn.functional as F
 
 from videowalk_tpu_torch.core.masks import l1_decomposition
 
-MAX_RADIUS = 127       # row distances are kept as bytes, clipped at r + 1
+MAX_RADIUS = 127       # k up to 255: the radii held to the plain version
+SMEM_LIMIT = 232448    # bytes of shared memory a block can take on Hopper
+ROWS_BYTES = 64        # the kernel's set-row reduction: 2 ints a warp, 8 warps
 _DTYPES = {torch.uint8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def _pitch(w: int) -> int:
+    return ((w + 31) // 32) | 1
+
+
+def window_bytes(h: int, w: int, r: int, band: int) -> int:
+    """Shared memory of a block of the kernel that takes ``band`` rows: two
+    buffers of the band's window (``band + 2r`` rows, clipped at the frame),
+    ``ceil(w / 32) | 1`` 32-bit words a row, and the set-row reduction
+    (mirrors ``csrc/dilation.cu``, whose shared memory is all dynamic)."""
+    return 2 * min(h, band + 2 * r) * _pitch(w) * 4 + ROWS_BYTES
+
+
+def choose_band(h: int, w: int, r: int) -> int:
+    """Rows a block of the kernel takes: the whole frame where its window
+    fits the card's shared memory (``SMEM_LIMIT``), else the tallest band
+    whose window fits. Raises where not even the window of one row fits,
+    with the widest frame that does at this h and r."""
+    if window_bytes(h, w, r, 1) > SMEM_LIMIT:
+        words = (SMEM_LIMIT - ROWS_BYTES) // (8 * min(h, 1 + 2 * r))
+        widest = 32 * (words if words % 2 else words - 1)
+        raise ValueError(f"dilate_l1: width {w} does not fit the kernel at "
+                         f"radius {r}: a band of one row needs "
+                         f"{window_bytes(h, w, r, 1)} bytes of shared memory, "
+                         f"the limit is {SMEM_LIMIT} (widths up to {widest})")
+    if window_bytes(h, w, r, h) <= SMEM_LIMIT:
+        return h
+    return (SMEM_LIMIT - ROWS_BYTES) // (8 * _pitch(w)) - 2 * r
 
 
 def _shift(y: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -95,15 +128,16 @@ def _lib():
     lib = _build.load("dilation")
     if lib.dilate_l1_launch.argtypes is None:
         lib.dilate_l1_launch.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.dilate_l1_launch.restype = ctypes.c_int
     return lib
 
 
 def dilate_l1(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
-    """L1-ball dilation of 0/1 masks ``(N, h, w)`` (uint8, bf16 or f32; any
-    h, w), radius ``kernel_size // 2 >= 2``; returns the input's type. No
-    autograd: the caller detaches."""
+    """L1-ball dilation of 0/1 masks ``(N, h, w)`` (uint8, bf16 or f32),
+    radius ``kernel_size // 2 >= 2``; returns the input's type. On the card
+    any h, widths up to ``choose_band``'s limit (3616 at r=127). No autograd:
+    the caller detaches."""
     r = kernel_size // 2
     if x.dim() != 3:
         raise ValueError(f"dilate_l1: masks must be (N, h, w); got "
@@ -118,14 +152,15 @@ def dilate_l1(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
         return dilate_l1_plain(x, kernel_size)
     if x.device.type != "cuda":
         raise ValueError(f"dilate_l1: unsupported device {x.device}")
-    x = x.detach().contiguous()
     N, h, w = x.shape
+    band = choose_band(h, w, r)
+    x = x.detach().contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     with torch.cuda.device(x.device):
         err = _lib().dilate_l1_launch(
-            x.data_ptr(), out.data_ptr(), N, h, w, r, _DTYPES[x.dtype],
+            x.data_ptr(), out.data_ptr(), N, h, w, r, _DTYPES[x.dtype], band,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dilate_l1 kernel launch failed: cudaError {err}")

@@ -98,6 +98,21 @@ card.
    asserts finite losses and its kernels' launches per step.
 12. A small f32 superpixel step (64 px frames, dilation) on the card
    against the CPU with the same labels: loss, q, gradients, launches.
+13. Drives the teacher-student step (``CRWTeacherStudent``, alpha 0.5) at
+   the flagship config through ``make_train_step`` with the teacher frozen
+   (``frozen_prefixes=("teacher.",)``): the student seeded, the teacher a
+   seeded CRW's ``state_dict`` loaded under ``teacher.`` by
+   ``partial_load``, as the JAX CLI loads a pretrained teacher. 3 warm-up
+   steps, ``--steps`` timed ones with the counts zeroed just before and read
+   just after (the teacher's eval-mode trunk on #4, 15 a step; the
+   student's on the default route; no walk kernel: plain softmax takes
+   ``core/walk.py``), 3 more under ``torch.profiler``; every teacher
+   parameter and buffer must be bitwise unchanged and the losses finite.
+   Then the plain CRW flagship step on the default route in the same
+   process, for comparison.
+14. A small f32 teacher-student step card vs CPU (same weights, clips and
+   masks: loss, q, student gradients, the card's launches), and one small
+   ``sk_targets`` CRW loss card vs CPU.
 
 Prints one JSON line of kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -120,7 +135,7 @@ import torch
 from videowalk_tpu_torch.cli.test import build_model, encode_video, test
 from videowalk_tpu_torch.eval.propagation import context_index_bank
 from videowalk_tpu_torch.core.masks import make_dilation_kernel
-from videowalk_tpu_torch.models import CRW, CRWConfig
+from videowalk_tpu_torch.models import CRW, CRWConfig, CRWTeacherStudent
 from videowalk_tpu_torch.models.crw import superpixel_pool_weights
 from videowalk_tpu_torch.ops import _build
 from videowalk_tpu_torch.ops import prop_sparse as ps
@@ -133,6 +148,7 @@ from videowalk_tpu_torch.ops.slic_device import (initial_centers, rgb_to_lab,
                                                  slic, slic_geometry)
 from videowalk_tpu_torch.parallel import (create_train_state, make_optimizer,
                                           make_train_step)
+from videowalk_tpu_torch.utils.checkpoint import partial_load
 
 # DAVIS-480p eval geometry of the config of record
 H, W, C, NL = 60, 107, 256, 4
@@ -202,6 +218,13 @@ ARMS = ((("off", "stats"), _launches()),
         (("auto", "stats"), _launches(fwd_stats=15, dx=15, dw=15)),
         (("auto", "auto"), _launches(fwd_stats=7, dx=7, dw=7, bnin=8)),
         (("on", "off"), _launches(fwd=15, dx=15, dw=15)))
+
+
+# the teacher-student step (alpha 0.5): the teacher's eval-mode trunk takes
+# #4 on the 15 routed convs; the student's train-mode trunk the default
+# route's kernels; its plain-softmax walk takes core/walk.py (no walk kernel)
+TS_ALPHA = 0.5
+TS_LAUNCHES = _launches(fwd=15, fwd_stats=7, dx=7, dw=7, bnin=8)
 
 
 def fail(msg: str) -> None:
@@ -1187,6 +1210,25 @@ def seeded_crw(cfg: CRWConfig, seed: int) -> CRW:
         return CRW(cfg)
 
 
+def seeded_ts(cfg: CRWConfig, seed: int, teacher_seed: int
+              ) -> CRWTeacherStudent:
+    """The teacher-student model on the CPU: the student seeded from
+    ``seed``; the teacher loaded as the JAX CLI loads a pretrained one
+    (``videowalk_tpu/cli/train.py:476-486``): a CRW's ``state_dict`` (seeded
+    from ``teacher_seed``) with its keys prefixed ``teacher.``, through
+    ``partial_load``."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = CRWTeacherStudent(cfg, alpha=TS_ALPHA)
+    teacher = seeded_crw(cfg, teacher_seed).state_dict()
+    loaded = partial_load({f"teacher.{k}": v for k, v in teacher.items()},
+                          model, verbose=False)
+    if len(loaded) != len(teacher):
+        fail(f"partial_load took {len(loaded)} of the teacher's "
+             f"{len(teacher)} tensors")
+    return model
+
+
 def profile_steps(run, n: int = 3) -> dict:
     """``n`` more steps (``run()`` takes one) under ``torch.profiler``:
     device time by kernel and by kind, and the device's idle share of the
@@ -1250,18 +1292,31 @@ def profile_steps(run, n: int = 3) -> dict:
 
 
 def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
-              n_warmup: int = 3, profile: bool = False) -> dict:
+              n_warmup: int = 3, profile: bool = False,
+              teacher_student: bool = False) -> dict:
     """``bench.py``'s flagship training step with the reflect convs routed
     by ``rconv`` / ``bn_fuse``: seeded init, ``n_warmup`` steps, then
     ``n_steps`` timed ones with every kernel count zeroed just before and
     read just after. Each walk kernel must run once a step and each
-    reflect-conv kernel ``expect[name]`` times a step."""
+    reflect-conv kernel ``expect[name]`` times a step.
+
+    ``teacher_student``: the same step of ``CRWTeacherStudent`` (``seeded_ts``)
+    with the teacher frozen; no walk kernel may run, every teacher
+    parameter and buffer must be bitwise unchanged after all the steps, and
+    the FLOPs count the teacher's forward beside the student's forward and
+    backward."""
     dev = torch.device("cuda")
     cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
                     edgedrop_rate=EDGEDROP, dtype=torch.bfloat16,
                     rconv=rconv, bn_fuse=bn_fuse)
-    state = create_train_state(seeded_crw(cfg, seed=0),
-                               make_optimizer(lr=3e-4), device=dev)
+    if teacher_student:
+        model = seeded_ts(cfg, seed=0, teacher_seed=2)
+        teacher0 = {k: v.clone() for k, v in model.teacher.state_dict().items()}
+        frozen = ("teacher.",)
+    else:
+        model, frozen = seeded_crw(cfg, seed=0), ()
+    state = create_train_state(model, make_optimizer(lr=3e-4), device=dev,
+                               frozen_prefixes=frozen)
     step = make_train_step()
     gen = torch.Generator(device=dev).manual_seed(1)
     batch = torch.randn((BATCH, CLIP_LEN, N_PATCHES, PATCH, PATCH, 3),
@@ -1279,16 +1334,22 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
     launches = dict(walk_fwd=wk.walk_fwd.launches,
                     walk_bwd=wk.walk_bwd.launches, **rconv_counts())
     losses = [float(m["loss"]) for m in metrics]
-    want = dict(walk_fwd=n_steps, walk_bwd=n_steps,
+    walks = 0 if teacher_student else n_steps
+    want = dict(walk_fwd=walks, walk_bwd=walks,
                 **{k: v * n_steps for k, v in expect.items()})
-    tag = f"rconv={rconv!r}, bn_fuse={bn_fuse!r}"
+    tag = (("teacher-student, " if teacher_student else "")
+           + f"rconv={rconv!r}, bn_fuse={bn_fuse!r}")
     if launches != want:
         fail(f"{tag}: kernel launches {launches} in {n_steps} steps, want "
              f"{want}")
-    if not all(np.isfinite(losses)):
-        fail(f"{tag}: non-finite training loss: {losses}")
-    flops = 3 * conv_fwd_flops_per_image() * BATCH * CLIP_LEN * N_PATCHES
-    res = dict(rconv=rconv, bn_fuse=bn_fuse, steps=n_steps, step_ms=dt * 1e3,
+    parts = ([float(m[k]) for m in metrics for k in ("crw_loss", "ts_loss")]
+             if teacher_student else [])
+    if not all(np.isfinite(losses + parts)):
+        fail(f"{tag}: non-finite training loss: {losses} {parts}")
+    passes = 4 if teacher_student else 3     # + the teacher's forward
+    flops = passes * conv_fwd_flops_per_image() * BATCH * CLIP_LEN * N_PATCHES
+    res = dict(model="teacher_student" if teacher_student else "crw",
+               rconv=rconv, bn_fuse=bn_fuse, steps=n_steps, step_ms=dt * 1e3,
                clips_per_s=BATCH / dt, tflop_per_step=flops / 1e12,
                mfu=flops / dt / BF16_PEAK,
                max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1297,6 +1358,9 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
                state_step=state.step,
                acc_last={k: float(v) for k, v in metrics[-1].items()
                          if k.startswith("acc")})
+    if teacher_student:
+        res["crw_loss_last"] = float(metrics[-1]["crw_loss"])
+        res["ts_loss_last"] = float(metrics[-1]["ts_loss"])
     print(f"training step {tag}, bench.py config (batch {BATCH}, {CLIP_LEN} "
           f"frames, {N_PATCHES}x{PATCH}px patches, bf16 trunk): "
           f"{res['step_ms']:.2f} ms/step over {n_steps} steps, "
@@ -1308,7 +1372,13 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
           flush=True)
     if profile:   # 3 more steps, after the path's counts were read
         res["profile"] = profile_steps(lambda: step(state, batch, gen))
-    del state, batch
+    if teacher_student:
+        moved = [k for k, v in model.teacher.state_dict().items()
+                 if not torch.equal(v.cpu(), teacher0[k])]
+        if moved:
+            fail(f"{tag}: the frozen teacher moved: {moved[:5]}")
+        res["teacher_tensors_unchanged"] = len(teacher0)
+    del state, batch, model
     torch.cuda.empty_cache()
     return res
 
@@ -1383,6 +1453,117 @@ def small_step_card_vs_cpu() -> dict:
     if not (res["loss_rel"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
             and res["grad_rel_l2"] <= 2e-2):
         fail("card and CPU training steps disagree")
+    return res
+
+
+def ts_train_phase(n_steps: int) -> dict:
+    """The teacher-student flagship step (default routes; profiled), then
+    the plain CRW flagship step on the default routes in the same process
+    (no profile), both with ``n_steps`` timed steps."""
+    ts = train_arm(*DEFAULT_ARM, TS_LAUNCHES, n_steps, profile=True,
+                   teacher_student=True)
+    plain = train_arm(*DEFAULT_ARM, dict(ARMS)[DEFAULT_ARM], n_steps)
+    print("teacher-student vs plain CRW flagship step (same process, default "
+          "routes):", flush=True)
+    for name, a in (("teacher-student", ts), ("plain CRW", plain)):
+        print(f"  {name:16s} {a['step_ms']:8.2f} ms/step  "
+              f"{a['clips_per_s']:6.2f} clips/s  MFU {100 * a['mfu']:5.2f}%  "
+              f"{a['max_memory_gib']:6.2f} GiB", flush=True)
+    return dict(teacher_student=ts, plain=plain)
+
+
+def _card_vs_cpu(build, x, masks, grads: bool) -> dict:
+    """``build()`` (a model seeded on the CPU) run in train mode on the card
+    and on the CPU with the same clips and walk masks: q, loss, diagnostics
+    and, with ``grads``, the gradients of the parameters that got one."""
+    out = {}
+    for name in ("cuda", "cpu"):
+        dev = torch.device(name)
+        model = build().to(dev)
+        q, loss, diags = model(x.to(dev), train=True,
+                               walk_masks=[m.to(dev) for m in masks])
+        if grads:
+            loss.backward()
+        out[name] = dict(
+            q=q.detach().cpu(), loss=float(loss.detach()),
+            diags={k: float(v.detach()) for k, v in diags.items()},
+            grads={k: p.grad.cpu() for k, p in model.named_parameters()
+                   if p.grad is not None})
+    return out
+
+
+def small_ts_step_card_vs_cpu() -> dict:
+    """One small f32 teacher-student forward/backward (the default routes,
+    64 px patches) on the card (kernels) against the CPU (plain versions),
+    same weights, clips and student edge-drop masks, with
+    ``small_step_card_vs_cpu``'s tolerances (loss rtol 1e-4, q atol 1e-4,
+    student gradients 2e-2 relative in L2); the teacher gets no gradient.
+    Then one small ``sk_targets`` CRW loss (the experimental Sinkhorn-Knopp
+    targets) card vs CPU: loss and diagnostics rtol 1e-4, q atol 1e-4."""
+    B, T, N = 2, 4, 4
+    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP)
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randn(B, T, N, PATCH, PATCH, 3).astype(np.float32))
+    masks = [torch.from_numpy(rng.rand(B, T - 1, N, N) < EDGEDROP)
+             for _ in range(2)]
+    before = sp_counts()
+    out = _card_vs_cpu(lambda: seeded_ts(cfg, seed=3, teacher_seed=4), x,
+                       masks, grads=True)
+    launched = {k: v - before[k] for k, v in sp_counts().items()}
+    set_sp_counts(before)                       # not the path's
+    c, h = out["cuda"], out["cpu"]
+    num = sum(float(((c["grads"][k] - g) ** 2).sum())
+              for k, g in h["grads"].items())
+    den = sum(float((g ** 2).sum()) for g in h["grads"].values())
+    teacher_grads = [k for k in list(c["grads"]) + list(h["grads"])
+                     if k.startswith("teacher.")]
+    res = dict(loss_cuda=c["loss"], loss_cpu=h["loss"],
+               loss_rel=abs(c["loss"] - h["loss"]) / abs(h["loss"]),
+               q_max_abs_err=float((c["q"] - h["q"]).abs().max()),
+               grad_rel_l2=(num / den) ** 0.5, kernel_launches=launched)
+    print(f"small f32 teacher-student step (B,T,N)=({B},{T},{N}) {PATCH}px, "
+          f"default routes, card vs CPU: loss {c['loss']:.6f} vs "
+          f"{h['loss']:.6f} (rel {res['loss_rel']:.2e}), q max|d| "
+          f"{res['q_max_abs_err']:.2e}, student grads rel L2 "
+          f"{res['grad_rel_l2']:.2e} (tolerance: loss rtol 1e-4, q 1e-4, "
+          f"grads 2e-2); kernel launches on the card "
+          f"{dict((k, v) for k, v in launched.items() if v)}", flush=True)
+    if launched != dict(dilate_l1=0, slic_fused=0, walk_fwd=0, walk_bwd=0,
+                        **TS_LAUNCHES):
+        fail("the card's small teacher-student step did not go through #4 "
+             "(teacher) and the default route's kernels (student) alone")
+    if teacher_grads or set(c["grads"]) != set(h["grads"]):
+        fail(f"teacher gradients or gradient sets differ: {teacher_grads[:3]}")
+    if not (res["loss_rel"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
+            and res["grad_rel_l2"] <= 2e-2):
+        fail("card and CPU teacher-student steps disagree")
+
+    sk_cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
+                       sk_targets=True)
+    before = sp_counts()
+    sk = _card_vs_cpu(lambda: seeded_crw(sk_cfg, seed=5), x, masks,
+                      grads=False)
+    walk_launches = sum(sp_counts()[k] - before[k]
+                        for k in ("walk_fwd", "walk_bwd"))
+    set_sp_counts(before)
+    c, h = sk["cuda"], sk["cpu"]
+    res["sk_targets"] = dict(
+        loss_cuda=c["loss"], loss_cpu=h["loss"],
+        loss_rel=abs(c["loss"] - h["loss"]) / abs(h["loss"]),
+        diag_max_rel=max(abs(c["diags"][k] - v) / max(abs(v), 1e-12)
+                         for k, v in h["diags"].items()),
+        q_max_abs_err=float((c["q"] - h["q"]).abs().max()),
+        walk_launches=walk_launches, diags_cpu=h["diags"])
+    r = res["sk_targets"]
+    print(f"small f32 sk_targets CRW loss (B,T,N)=({B},{T},{N}), card vs CPU: "
+          f"loss {c['loss']:.6f} vs {h['loss']:.6f} (rel {r['loss_rel']:.2e}), "
+          f"diagnostics max rel {r['diag_max_rel']:.2e}, q max|d| "
+          f"{r['q_max_abs_err']:.2e} (tolerance 1e-4); walk kernel launches "
+          f"{walk_launches}", flush=True)
+    if walk_launches or set(c["diags"]) != set(h["diags"]) or not (
+            r["loss_rel"] <= 1e-4 and r["diag_max_rel"] <= 1e-4
+            and r["q_max_abs_err"] <= 1e-4):
+        fail("card and CPU sk_targets losses disagree, or the walk kernels ran")
     return res
 
 
@@ -1932,7 +2113,9 @@ PHASES = dict(prop=lambda a: kernel_vs_plain(),
               slic=lambda a: slic_kernel_vs_plain(),
               dilation=lambda a: dilation_kernel_vs_plain(),
               sp_train=lambda a: sp_train_phase(a.steps),
-              small_sp_train=lambda a: small_sp_step_card_vs_cpu())
+              small_sp_train=lambda a: small_sp_step_card_vs_cpu(),
+              ts_train=lambda a: ts_train_phase(a.steps),
+              small_ts_train=lambda a: small_ts_step_card_vs_cpu())
 
 
 def main() -> int:
@@ -2000,6 +2183,8 @@ def main() -> int:
     dil = dilation_kernel_vs_plain()
     sp_train = sp_train_phase(args.steps)
     small_sp_train = small_sp_step_card_vs_cpu()
+    ts_train = ts_train_phase(args.steps)
+    small_ts_train = small_ts_step_card_vs_cpu()
 
     kernels = [dict(
         name="prop_sparse_topk", route="cuda",
@@ -2020,9 +2205,12 @@ def main() -> int:
             ms=flag[f"{d}_ms"], plain_ms=flag[f"plain_{d}_ms"],
             bound_ms=flag["bounds"][d]["bound_ms"],
             bound_by=flag["bounds"][d]["bound_by"], library_ms=None))
-    # #4 runs on the route-on, BN-unfused path; the other six on the default
+    # #4 runs in the teacher-student step's teacher; the other six on the
+    # default route
+    runs = dict(train, teacher_student=ts_train["teacher_student"])
     rflag = rconv["flagship"]
-    for name, line, arm in (("fwd", 224, "on+off"), ("fwd_stats", 291, "auto+auto"),
+    for name, line, arm in (("fwd", 224, "teacher_student"),
+                            ("fwd_stats", 291, "auto+auto"),
                             ("fwd_bnin_stats", 401, "auto+auto"),
                             ("dx_bnin", 474, "auto+auto"),
                             ("dw_bnin", 553, "auto+auto"),
@@ -2031,7 +2219,7 @@ def main() -> int:
             name=f"reflect_conv_{name}", route="cuda",
             source="videowalk_tpu_torch/ops/csrc/rconv_slab.cu",
             replaces=f"videowalk_tpu/ops/rconv_kernel.py:{line}",
-            launches=train[arm]["launches"][name],
+            launches=runs[arm]["launches"][name],
             max_abs_err=rflag["abs_err"][name], ms=rflag["ms"][name],
             plain_ms=rflag["plain_ms"].get(name, rflag["plain_ms"]["bwd"]),
             bound_ms=rflag["bounds"][name]["bound_ms"],
@@ -2062,6 +2250,7 @@ def main() -> int:
                            rconv=rconv, train=train, small_train=small_train,
                            slic=slic_res, dilation=dil, sp_train=sp_train,
                            small_sp_train=small_sp_train,
+                           ts_train=ts_train, small_ts_train=small_ts_train,
                            kernels=kernels, ptxas=logs,
                            wgmma_verdicts=verdicts), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,17 +7,22 @@ every Pallas TPU kernel on a ported path is a CUDA C++ kernel for Hopper
 (``sm_90a``) under ``ops/csrc/``, built at first use (``ops/_build.py``).
 
 Ported so far: the DAVIS label-propagation eval path
-(``python -m videowalk_tpu_torch.cli.test``) and the patch-mode CRW
-training step (``parallel.make_train_step``):
+(``python -m videowalk_tpu_torch.cli.test``) and the CRW training step
+(``parallel.make_train_step``) in patch, superpixel and teacher-student
+mode:
 
-utils     device resolution, checkpoint (.pth / flax-tree) loading, colors
-core      walk-loss math: affinities, ZeroSoftmax, palindrome products
+utils     device resolution, checkpoints (.pth loading and writing,
+          flax-tree import, full-state resume), colors
+core      walk-loss math: affinities, ZeroSoftmax, palindrome products,
+          Sinkhorn-Knopp and the sk-targets loss, superpixel masks
 models    ResNet-18 trunk (flax-semantics BN, bf16 compute, reflect convs
           routed to the reflect-conv kernels with BN moments fused),
-          encoder factory, CRW (patch and whole-frame nodes, walk loss)
+          encoder factory, CRW (patch, superpixel and whole-frame nodes,
+          walk loss), teacher-student CRW
 ops       CUDA kernels + their plain PyTorch versions: block-sparse top-k
           propagation, fused palindrome walk (forward and backward),
-          3x3 reflect conv (forward, + BN moments, dx, dW) and its route
+          3x3 reflect conv (forward, + BN moments, the BN-input chain,
+          dx, dW) and its route, SLIC, L1 dilation
 parallel  optimizer, train state, train step
 eval      context bank + autoregressive propagation, prediction dumping
 data      DAVIS-style VOS dataset

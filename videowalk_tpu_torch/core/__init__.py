@@ -1,1 +1,2 @@
-"""Walk-loss math: affinities, ZeroSoftmax, palindrome products."""
+"""Walk-loss math: affinities, ZeroSoftmax, palindrome products,
+Sinkhorn-Knopp, superpixel masks."""

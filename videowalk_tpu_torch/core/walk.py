@@ -21,13 +21,12 @@ from __future__ import annotations
 
 import torch
 
+from videowalk_tpu_torch.core.sinkhorn import sinkhorn_knopp
+
 EPS = 1e-20          # reference code/model.py:12
 L2_NORM_EPS = 1e-12  # torch.nn.functional.normalize's default eps
 ZSM_EPS = 1e-5       # ZeroSoftmax eps (reference code/utils/__init__.py:418)
 NEG = -1e20          # edge-dropout fill (reference code/model.py:81)
-
-_SK_QUEUED = ("the Sinkhorn-Knopp paths (--sk-targets, core/sinkhorn.py) are "
-              "not ported yet (ROADMAP.md, Queue 1 item 1)")
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -81,14 +80,17 @@ def stoch_mat(A: torch.Tensor, temperature: float, *,
               use_zero_softmax: bool = True) -> torch.Tensor:
     """Affinity logits -> row-stochastic transition matrix (reference
     code/model.py:74-90): optional zeroed diagonal, the dropout fill where
-    ``mask`` is set, then (Zero)Softmax of ``A / temperature``."""
-    if do_sinkhorn:
-        raise NotImplementedError(_SK_QUEUED)
+    ``mask`` is set, then (Zero)Softmax of ``A / temperature``, or with
+    ``do_sinkhorn`` the doubly-stochastic ``sinkhorn_knopp(exp(A / T))``
+    (tol 0.01, at most 100 iterations)."""
     if zero_diagonal:
         n = A.shape[-1]
         A = A * (1.0 - torch.eye(n, dtype=A.dtype, device=A.device))
     if mask is not None:
         A = edge_dropout(A, mask)
+    if do_sinkhorn:
+        return sinkhorn_knopp(torch.exp(A / temperature), tol=0.01,
+                              max_iter=100)
     if use_zero_softmax:
         return zero_softmax(A / temperature, dim=-1)
     return torch.softmax(A / temperature, dim=-1)
@@ -144,9 +146,61 @@ def palindrome_products(A12s: torch.Tensor, A21s: torch.Tensor, *,
     return torch.stack(out)
 
 
-def sk_targets_walk_loss(*args, **kwargs):
-    """The --sk-targets walk loss: not ported yet."""
-    raise NotImplementedError(_SK_QUEUED)
+def sk_targets_walk_loss(
+    q: torch.Tensor, temperature: float, *,
+    generator: torch.Generator | None = None, edgedrop_rate: float = 0.0,
+    masks: tuple[torch.Tensor, torch.Tensor] | None = None,
+    use_zero_softmax: bool = False, sk_tol: float = 0.001,
+    sk_max_iter: int = 10,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The experimental ``--sk-targets`` walk loss of ``q (B, C, T, N)``
+    (reference code/teacherstudent.py:174-182).
+
+    The forward chain ``a12_i = A12_0 ... A12_i`` (edge dropout on the
+    forward logits only: one mask, ``masks[0]`` when given, else drawn from
+    ``generator`` at ``edgedrop_rate``) is scored against the row argmax of
+    ``sinkhorn_knopp(at_i, sk_tol, sk_max_iter)``, where ``at_i = Ats_i ...
+    Ats_0`` chains the dropout-free ``Ats = sinkhorn_knopp(exp(A / T),
+    0.01, 100)``. The targets carry no gradient. Returns the mean over the
+    T-2 cycles and ``xent sk {i}`` / ``acc sk {i}``; T < 3: loss 0, no
+    diagnostics."""
+    T = q.shape[2]
+    if T < 3:
+        return torch.zeros((), dtype=torch.float32, device=q.device), {}
+    As = affinity(q[:, :, :-1], q[:, :, 1:])            # (B, S, N, N)
+    if masks is not None:
+        mask = masks[0]
+    elif edgedrop_rate > 0:
+        if generator is None:
+            raise ValueError("edge dropout needs a torch.Generator")
+        mask = torch.rand(As.shape, generator=generator,
+                          device=As.device) < edgedrop_rate
+    else:
+        mask = None
+    drop = As if mask is None else edge_dropout(As, mask)
+    sm = zero_softmax if use_zero_softmax else torch.softmax
+    A12s = sm(drop / temperature, dim=-1).transpose(0, 1)   # (S, B, N, N)
+    with torch.no_grad():
+        Ats = sinkhorn_knopp(torch.exp(As.transpose(0, 1) / temperature),
+                             tol=0.01, max_iter=100)
+    a12, at = A12s[0], Ats[0]
+    losses, accs = [], []
+    for i in range(1, T - 1):
+        a12 = a12 @ A12s[i]
+        with torch.no_grad():
+            at = Ats[i] @ at
+            target = sinkhorn_knopp(at, tol=sk_tol,
+                                    max_iter=sk_max_iter).argmax(dim=-1)
+        logits = torch.log(a12 + EPS)
+        picked = logits.gather(-1, target[..., None])[..., 0]
+        losses.append((torch.logsumexp(logits, dim=-1) - picked).mean())
+        accs.append((logits.argmax(dim=-1) == target).float().mean())
+    loss = torch.stack(losses).sum() / max(1, T - 2)
+    diags = {}
+    for i in range(T - 2):
+        diags[f"xent sk {i + 1}"] = losses[i]
+        diags[f"acc sk {i + 1}"] = accs[i]
+    return loss, diags
 
 
 def walk_xent_loss(AA: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -19,10 +19,12 @@ whole-frame nodes (counterpart of ``videowalk_tpu/models/crw.py``; reference
 - whole frames alone: one node per feature cell (the evaluator's path).
 
 The trunk's reflect convs take the reflect-conv kernels where ``rconv``
-routes them (``models/resnet.py``). The walk loss takes the fused kernel
-(``ops/walk.py``) where the config allows (ZeroSoftmax, no flip, no zeroed
-diagonal, T <= 10, N <= 128, C <= 512): on a CUDA tensor the CUDA
-kernels, on a CPU tensor their plain version. Elsewhere it takes ``core/walk.py``. Random numbers (edge dropout,
+routes them (``models/resnet.py``). With ``sk_targets`` the loss is
+``core/walk.py::sk_targets_walk_loss``. Otherwise the walk loss takes the
+fused kernel (``ops/walk.py``) where the config allows (ZeroSoftmax, no
+flip, no zeroed diagonal, T <= 10, N <= 128, C <= 512): on a CUDA tensor
+the CUDA kernels, on a CPU tensor their plain version. Elsewhere it takes
+``core/walk.py``. Random numbers (edge dropout,
 featdrop) come from the ``generator`` argument. ``state_dict`` names are the
 reference's (``encoder.model.layer1.0.conv1.weight``, ``selfsim_fc.0.weight``).
 """
@@ -56,7 +58,7 @@ class CRWConfig:
     edgedrop_rate: float = 0.0       # --dropout
     featdrop_rate: float = 0.0       # --featdrop
     flip: bool = False               # --flip
-    sk_targets: bool = False         # --sk-targets: not ported yet
+    sk_targets: bool = False         # --sk-targets
     zero_diagonal: bool = False      # --zero-diagonal
     head_bias: bool = False          # CRW: Linear(bias=False); TS variant: True
     use_zero_softmax: bool = True    # CRW ZeroSoftmax; TS plain softmax
@@ -85,15 +87,15 @@ class CRWConfig:
 def fused_walk_route(cfg: CRWConfig, T: int, N: int, C: int) -> bool:
     """True iff the walk loss of a ``(B, C, T, N)`` q takes the fused
     kernels (``ops/walk.py``): the config must allow them (ZeroSoftmax, no
-    flip, no zeroed diagonal, a supported shape); ``on`` then forces them
-    and ``auto`` takes them, ``off`` never."""
-    fused_ok = (not cfg.flip and not cfg.zero_diagonal
+    flip, no sk_targets, no zeroed diagonal, a supported shape); ``on``
+    then forces them and ``auto`` takes them, ``off`` never."""
+    fused_ok = (not cfg.flip and not cfg.sk_targets and not cfg.zero_diagonal
                 and cfg.use_zero_softmax
                 and (T < 3 or walk_ops.walk_supported(T, N, C)))
     if cfg.fused_walk == "on" and not fused_ok:
         raise ValueError(
             "fused_walk='on' is incompatible with this config "
-            "(flip/zero_diagonal/plain-softmax, N > 128 nodes, "
+            "(flip/sk_targets/zero_diagonal/plain-softmax, N > 128 nodes, "
             f"clip_len > 10 or C > 512; N={N}, T={T}, C={C}); use "
             "fused_walk='auto' to let it fall back")
     return fused_ok and cfg.fused_walk != "off"
@@ -204,8 +206,6 @@ class _SegmentPool(torch.autograd.Function):
 class CRW(nn.Module):
     def __init__(self, cfg: CRWConfig):
         super().__init__()
-        if cfg.sk_targets:
-            walk_lib.sk_targets_walk_loss()          # raises: not ported yet
         if cfg.fused_walk not in ("auto", "on", "off"):
             raise ValueError(f"fused_walk={cfg.fused_walk!r}: want auto | on | off")
         self.cfg = cfg
@@ -299,7 +299,12 @@ class CRW(nn.Module):
         _, C, T, N = q.shape
         rate = cfg.edgedrop_rate if train else 0.0
         masks = walk_masks if train else None
-        if fused_walk_route(cfg, T, N, C):
+        use_fused = fused_walk_route(cfg, T, N, C)     # 'on' may raise
+        if cfg.sk_targets:
+            loss, diags = walk_lib.sk_targets_walk_loss(
+                q, cfg.temperature, generator=generator, edgedrop_rate=rate,
+                masks=masks, use_zero_softmax=cfg.use_zero_softmax)
+        elif use_fused:
             loss, diags = walk_ops.fused_walk_loss(
                 q, cfg.temperature, generator=generator, edgedrop_rate=rate,
                 masks=masks)

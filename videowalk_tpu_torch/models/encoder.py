@@ -15,8 +15,8 @@ from torch import nn
 
 from videowalk_tpu_torch.models.resnet import ResNet, resnet18
 
-# model types whose port is still queued (ROADMAP.md, Queue 1 "Still to
-# port": item 2, ResNet-50 trunks; item 7, pretrained imports)
+# model types whose port is still queued (ROADMAP.md, Queue 1 item 5:
+# ResNet-50 trunks and the pretrained imports)
 _QUEUED_TYPES = ("scratch50", "imagenet18", "imagenet50", "moco50",
                  "timecycle", "uvc")
 
@@ -62,7 +62,7 @@ def make_encoder(model_type: str = "scratch",
     ``scratch_zeropad``: the same with zeros padding. ``dtype`` is the
     trunk's compute type (parameters stay f32); ``rconv`` and ``bn_fuse``
     route its reflect convs (``models/resnet.py``). Rematerialization
-    (``remat_stages``) is still queued (ROADMAP.md, Queue 1 item 2)."""
+    (``remat_stages``) is still queued (ROADMAP.md, Queue 1 item 5)."""
     if model_type == "scratch":
         trunk = resnet18("reflect", tuple(remove_layers), dtype, rconv,
                          bn_fuse)
@@ -71,7 +71,7 @@ def make_encoder(model_type: str = "scratch",
     elif model_type in _QUEUED_TYPES:
         raise NotImplementedError(
             f"model type {model_type!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 2: ResNet-50 trunks; item 7: pretrained imports)")
+            f"Queue 1 item 5: ResNet-50 trunks and pretrained imports)")
     else:
         raise ValueError(f"invalid model_type: {model_type!r}")
     return EncoderSpec(module=From3D(trunk), hid_dim=trunk.hid_dim,

@@ -1,6 +1,6 @@
 """CRW train step: forward, backward, Adam (or SGD) and a per-step
-MultiStep LR (counterpart of ``videowalk_tpu/parallel/train_step.py``;
-reference ``code/train.py:36-107``).
+MultiStep LR, for ``CRW`` and ``CRWTeacherStudent`` (counterpart of
+``videowalk_tpu/parallel/train_step.py``; reference ``code/train.py:36-107``).
 
 PyTorch runs eagerly, so there is no compiled step: ``make_train_step``
 returns a function that runs one step on the state's model and optimizer
@@ -14,8 +14,8 @@ import dataclasses
 from typing import Callable, Sequence
 
 import torch
+from torch import nn
 
-from videowalk_tpu_torch.models.crw import CRW
 from videowalk_tpu_torch.utils.device import resolve_device
 
 
@@ -24,7 +24,7 @@ class TrainState:
     """The model (parameters + BN running statistics) on ``device``, its
     optimizer, the per-step LR schedule and the count of steps taken."""
 
-    model: CRW
+    model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     device: torch.device
@@ -62,14 +62,27 @@ def make_optimizer(
     return build
 
 
-def create_train_state(model: CRW, optimizer: Callable,
-                       device: str | torch.device = "cuda") -> TrainState:
+def create_train_state(model: nn.Module, optimizer: Callable,
+                       device: str | torch.device = "cuda",
+                       frozen_prefixes: Sequence[str] = ()) -> TrainState:
     """Move ``model`` to ``device`` (the card unless the caller asks for
     ``'cpu'``; raises where CUDA is asked for and missing) and bind
     ``make_optimizer``'s ``optimizer`` to its parameters there. The model is
-    already initialized (seed it when it is built)."""
+    already initialized (seed it when it is built).
+
+    Parameters whose ``state_dict`` name starts with one of
+    ``frozen_prefixes`` (``("teacher.",)`` for ``CRWTeacherStudent``) get
+    ``requires_grad_(False)`` and stay out of the optimizer, so no step
+    moves them (the JAX step zeroes their updates)."""
     model.to(resolve_device(device))
-    opt, sched = optimizer(model.parameters())
+    prefixes = tuple(frozen_prefixes)
+    trained = []
+    for name, p in model.named_parameters():
+        if name.startswith(prefixes):
+            p.requires_grad_(False)
+        else:
+            trained.append(p)
+    opt, sched = optimizer(trained)
     return TrainState(model=model, optimizer=opt, scheduler=sched,
                       device=next(model.parameters()).device)  # with its index
 
@@ -78,11 +91,12 @@ def make_train_step() -> Callable:
     """``step(state, batch, generator, sp_mask=None) -> metrics``.
 
     One reference training step on ``batch`` (patches
-    ``(B, T, N, h, w, 3)``, or whole frames ``(B, T, h, w, 3)`` with their
-    superpixel ids ``sp_mask (B, T, h, w)``; both on ``state.device``,
-    another device raises): forward in train mode (BN batch statistics;
-    edge dropout and featdrop drawn from ``generator``, a
-    ``torch.Generator`` on that device),
+    ``(B, T, N, h, w, 3)``, or for ``CRW`` whole frames ``(B, T, h, w, 3)``
+    with their superpixel ids ``sp_mask (B, T, h, w)``; both on
+    ``state.device``, another device raises): forward in train mode (BN
+    batch statistics; edge dropout and featdrop drawn from ``generator``, a
+    ``torch.Generator`` on that device; a teacher-student model's teacher
+    runs in eval mode),
     backward, an optimizer step and a scheduler step. Parameters, BN
     running statistics and optimizer state are updated in place.
     ``metrics`` holds the loss and the walk diagnostics as detached 0-d
@@ -97,8 +111,9 @@ def make_train_step() -> Callable:
                 raise ValueError(f"{name} on {t.device}, train state on "
                                  f"{state.device}")
         state.optimizer.zero_grad(set_to_none=True)
-        _, loss, diags = state.model(batch, sp_mask=sp_mask, train=True,
-                                     generator=generator)
+        kwargs = {} if sp_mask is None else {"sp_mask": sp_mask}
+        _, loss, diags = state.model(batch, train=True, generator=generator,
+                                     **kwargs)
         loss.backward()
         state.optimizer.step()
         state.scheduler.step()

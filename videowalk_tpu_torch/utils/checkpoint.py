@@ -1,15 +1,25 @@
-"""Checkpoints in the reference ``.pth`` format.
+"""Checkpoints in the reference ``.pth`` format, and full-state resume.
 
 - ``state_from_flax``: the weight carrier from the JAX package. It takes a
-  flax ``{params, batch_stats}`` tree (nested dicts of numpy arrays) and
-  returns this package's ``state_dict`` with the reference's names: HWIO ->
-  OIHW, dense (in, out) -> (out, in), ``scale`` -> ``weight``,
-  ``mean``/``var`` -> ``running_*``, ``layerK_i`` -> ``layerK.i``, and a
+  flax ``{params, batch_stats}`` tree (nested dicts of numpy arrays) of a
+  ``CRW`` or a ``CRWTeacherStudent`` and returns this package's
+  ``state_dict`` with the reference's names: HWIO -> OIHW, dense (in, out)
+  -> (out, in), ``scale`` -> ``weight``, ``mean``/``var`` -> ``running_*``,
+  ``layerK_i`` -> ``layerK.i``, the teacher-student towers -> ``encoder``,
+  ``selfsim_fc``, ``teacher.encoder``, ``teacher.selfsim_fc``, and a
   ``num_batches_tracked`` per BN. The mapping follows
   ``videowalk_tpu/utils/checkpoint.py::flax_to_torch_state``.
+- ``save_checkpoint``: the reference's checkpoint dict ``{model,
+  optimizer, lr_scheduler, epoch, args}`` (code/train.py:279-289), which
+  the reference and the JAX package's ``torch_to_flax_state`` read.
 - ``load_checkpoint``: ``torch.load`` of a trusted local ``.pth``.
 - ``partial_load``: reference ``partial_load`` semantics (key rename shim,
   substring skip list, report of skipped and loaded keys).
+- ``save_train_state`` / ``load_train_state``: the whole training state
+  (model, optimizer, scheduler, step count and the ``torch.Generator`` of
+  edge dropout and featdrop) in one ``torch.save``, so a resumed run takes
+  the steps an uninterrupted one would. It stands in for the JAX package's
+  orbax resume.
 """
 
 from __future__ import annotations
@@ -29,6 +39,12 @@ _LEAF_MAP = {
 }
 
 _MODULE_MAP = {
+    # teacher-student towers -> the reference's CRWTeacherStudent names
+    # (code/teacherstudent.py:316-321)
+    "student_encoder": ("encoder",),
+    "student_head": ("selfsim_fc",),
+    "teacher_encoder": ("teacher", "encoder"),
+    "teacher_head": ("teacher", "selfsim_fc"),
     "head": ("selfsim_fc",),
     "downsample_conv": ("downsample", "0"),
     "downsample_bn": ("downsample", "1"),
@@ -60,7 +76,8 @@ def _flatten(tree: Mapping, prefix=()) -> dict[tuple, Any]:
 
 
 def state_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
-    """Flax CRW variables (numpy leaves) -> reference-named state_dict."""
+    """Flax CRW or CRWTeacherStudent variables (numpy leaves) ->
+    reference-named state_dict."""
     state: dict[str, torch.Tensor] = {}
     bn_prefixes = set()
     for collection in ("params", "batch_stats"):
@@ -82,6 +99,23 @@ def state_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     for p in sorted(bn_prefixes):
         state[f"{p}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return state
+
+
+def save_checkpoint(path: str, model: nn.Module,
+                    optimizer: torch.optim.Optimizer | None = None,
+                    lr_scheduler=None, epoch: int = 0, args=None) -> None:
+    """Write the reference's checkpoint dict to ``path``: ``model`` (the
+    reference-named ``state_dict`` as CPU tensors), ``optimizer`` and
+    ``lr_scheduler`` (their ``state_dict``, or None), ``epoch`` and
+    ``args``. JAX package: ``utils/checkpoint.py:227``."""
+    torch.save({
+        "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "optimizer": None if optimizer is None else optimizer.state_dict(),
+        "lr_scheduler": (None if lr_scheduler is None
+                         else lr_scheduler.state_dict()),
+        "epoch": epoch,
+        "args": {} if args is None else args,
+    }, path)
 
 
 def load_checkpoint(path: str) -> dict:
@@ -126,3 +160,35 @@ def partial_load(torch_state: Mapping[str, Any], model: nn.Module,
         print("\nLoading keys: ", [k for k in loaded
                                    if not k.endswith("num_batches_tracked")])
     return list(loaded)
+
+
+def save_train_state(path: str, state, generator: torch.Generator | None
+                     = None) -> None:
+    """Write ``state`` (a ``parallel.TrainState``: model, optimizer,
+    scheduler, step) and ``generator``'s state to ``path``."""
+    torch.save({
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "scheduler": state.scheduler.state_dict(),
+        "step": state.step,
+        "generator": None if generator is None else generator.get_state(),
+    }, path)
+
+
+def load_train_state(path: str, state, generator: torch.Generator | None
+                     = None):
+    """Restore what ``save_train_state`` wrote into ``state`` (built as the
+    saved one was: same model, optimizer, schedule, frozen prefixes) and
+    ``generator``, in place; returns ``state``. Tensors land on the
+    devices of ``state``'s own. A trusted local file only (see
+    ``load_checkpoint``)."""
+    ckpt = load_checkpoint(path)
+    state.model.load_state_dict(ckpt["model"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.scheduler.load_state_dict(ckpt["scheduler"])
+    state.step = ckpt["step"]
+    if generator is not None:
+        if ckpt["generator"] is None:
+            raise ValueError(f"{path} holds no generator state")
+        generator.set_state(ckpt["generator"])
+    return state

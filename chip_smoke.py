@@ -113,6 +113,20 @@ card.
 14. A small f32 teacher-student step card vs CPU (same weights, clips and
    masks: loss, q, student gradients, the card's launches), and one small
    ``sk_targets`` CRW loss card vs CPU.
+15. Drives the trainer's loop (``cli/train.py``: ``train_args``,
+   ``build`` with its threaded loader and its prefetcher to the card,
+   ``train_one_epoch`` with the device augmentations and the host's
+   patch/superpixel draw) over in-memory clips (seeded low-frequency
+   textures in motion, 288 px uint8, ``Kinetics400``'s item contract), in
+   three arms, each an epoch of 3 warm-up steps and a timed epoch with
+   every kernel count zeroed just before and read just after: (a)
+   ``train.sh``'s config of record (prob 0.7, SLIC 36, 44 node slots, L1
+   dilation k=55; 20 timed steps, both paths), then one ``--resume`` step
+   through ``main`` from the ``checkpoint.pth`` it wrote; (b) the flagship
+   patch loop; (c) teacher-student at (b)'s shape from a seeded teacher
+   written by ``save_checkpoint`` (#4 x15 a step, the teacher bitwise
+   unchanged). Each gives ms a step by the host clock and by path (CUDA
+   events) beside the bare step of its config run in this process.
 
 Prints one JSON line of kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -1229,10 +1243,12 @@ def seeded_ts(cfg: CRWConfig, seed: int, teacher_seed: int
     return model
 
 
-def profile_steps(run, n: int = 3) -> dict:
-    """``n`` more steps (``run()`` takes one) under ``torch.profiler``:
-    device time by kernel and by kind, and the device's idle share of the
-    host clock's window (one stream, so kernel times add up)."""
+def profile_steps(run, n: int = 3, steps_per_run: int = 1) -> dict:
+    """``n`` more runs (``run()`` takes ``steps_per_run`` steps) under
+    ``torch.profiler``: device time a step by kernel and by kind, and the
+    device's idle share of the host clock's window (one compute stream, so
+    kernel times add up; host-to-device copies on a side stream are
+    counted apart)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -1252,6 +1268,10 @@ def profile_steps(run, n: int = 3) -> dict:
             if t is None:
                 t = e.self_cuda_time_total
             kernels[e.key] = kernels.get(e.key, 0.0) + t
+    n *= steps_per_run
+    side = sum(t for k, t in kernels.items() if k.startswith("Memcpy HtoD"))
+    kernels = {k: t for k, t in kernels.items()
+               if not k.startswith("Memcpy HtoD")}
     busy = sum(kernels.values())
     if busy <= 0:
         fail("the profiler saw no device time")
@@ -1278,6 +1298,7 @@ def profile_steps(run, n: int = 3) -> dict:
     res = dict(steps=n, wall_ms_per_step=wall_us / n / 1e3,
                device_ms_per_step=busy / n / 1e3,
                idle_share=1 - busy / wall_us,
+               host_to_device_copy_ms_per_step=side / n / 1e3,
                kinds_ms_per_step={k: v / n / 1e3 for k, v in
                                   sorted(kinds.items(), key=lambda kv: -kv[1])},
                top_kernels_ms_per_step=[(k[:90], v / n / 1e3) for k, v in top])
@@ -1927,7 +1948,8 @@ SP_LAUNCHES = dict(auto=_launches(fwd_stats=5, dx=5, dw=5, bnin=6),
 
 
 def sp_train_arm(name: str, nodes: str, dilate: bool, rconv: str,
-                 n_steps: int, n_warmup: int = 3, profile: bool = False) -> dict:
+                 n_steps: int, n_warmup: int = 3, profile: bool = False,
+                 max_sp: int = MAX_SP) -> dict:
     """One arm of the superpixel comparison: seeded init, ``n_warmup``
     steps, then ``n_steps`` timed ones with every kernel count zeroed just
     before and read just after. A superpixel step segments its frames with
@@ -1940,7 +1962,7 @@ def sp_train_arm(name: str, nodes: str, dilate: bool, rconv: str,
     sp = nodes == "superpixel"
     cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
                     edgedrop_rate=EDGEDROP, dtype=torch.bfloat16, rconv=rconv,
-                    max_sp_num=MAX_SP, dilate_superpixels=dilate,
+                    max_sp_num=max_sp, dilate_superpixels=dilate,
                     dilation_kernel_shape="L1", dilation_kernel_size=DIL_K)
     state = create_train_state(seeded_crw(cfg, seed=0),
                                make_optimizer(lr=3e-4), device=dev)
@@ -2004,9 +2026,9 @@ def sp_train_arm(name: str, nodes: str, dilate: bool, rconv: str,
         res["stages_ms"] = dict(
             slic=cuda_ms(lambda: slic_fused(unnorm, NUM_SP, COMPACTNESS), 10),
             pool_weights=cuda_ms(lambda: superpixel_pool_weights(
-                mask, MAX_SP, (32, 32), **pool), 10),
+                mask, max_sp, (32, 32), **pool), 10),
             pool_weights_undilated=cuda_ms(lambda: superpixel_pool_weights(
-                mask, MAX_SP, (32, 32)), 10))
+                mask, max_sp, (32, 32)), 10))
         res["idle_share_unprofiled"] = \
             1 - res["profile"]["device_ms_per_step"] / res["step_ms"]
         print(f"  stages by CUDA events: {res['stages_ms']}; device busy "
@@ -2103,6 +2125,314 @@ def small_sp_step_card_vs_cpu() -> dict:
     return res
 
 
+# the trainer's loop (cli/train.py) over in-memory clips: train.sh's
+# config of record (arm a), bench.py's flagship patch loop (b) and
+# teacher-student at (b)'s shape (c); raw frames of RawClipTransform's size
+RAW = int(SP_IMG * 1.125)
+CLI_VIDEOS, CLI_FRAMES = 4, 40
+CLI_COMMON = ["--device", "cuda", "--data-path", "in-memory-clips",
+              "--frame-aug", "grid", "--dropout", str(EDGEDROP), "--temp",
+              str(WALK_TEMP), "--model-type", "scratch", "--lr", "0.0003",
+              "--dtype", "bfloat16", "--augs-backend", "device",
+              "--workers", "8", "--strict-steps"]
+CLI_ARMS = dict(
+    # train.sh:10-31: patch and superpixel steps mixed at prob 0.7 (seed 3
+    # gives both paths in the 3 warm-up steps and 8 of 20 timed steps)
+    config_of_record=CLI_COMMON + [
+        "--clip-len", str(SP_CLIP), "--batch-size", str(SP_BATCH),
+        "--prob", "0.7", "--sp-method", "slic", "--num-sp", str(NUM_SP),
+        "--compactness", str(int(COMPACTNESS)), "--dilate-superpixels",
+        "--dilation-kernel-shape", "L1", "--dilation-kernel-size",
+        str(DIL_K), "--sp-backend", "device", "--data-parallel",
+        "--seed", "3"],
+    # bench.py:30-72: batch 8, 8 frames, 7x7 patches of 64 px
+    flagship_patch=CLI_COMMON + [
+        "--clip-len", str(CLIP_LEN), "--batch-size", str(BATCH),
+        "--prob", "1"],
+    teacher_student=CLI_COMMON + [
+        "--clip-len", str(CLIP_LEN), "--batch-size", str(BATCH),
+        "--prob", "1", "--teacher-student", "--alpha-teacher-student",
+        str(TS_ALPHA)])
+
+
+def moving_textures(n_videos: int, n_frames: int, size: int, seed: int
+                    ) -> np.ndarray:
+    """``(n_videos, n_frames, size, size, 3)`` uint8 clips: seeded
+    low-frequency textures (``lowfreq_features``, a 24 px cell) each moving
+    by its own few pixels a frame, with a bright square crossing them (the
+    objects of ``synthetic_video``)."""
+    rng = np.random.RandomState(seed)
+    out = np.empty((n_videos, n_frames, size, size, 3), np.uint8)
+    for v in range(n_videos):
+        tex = lowfreq_features(rng, 2 * size, 2 * size, 3, cell=24)
+        tex = ((tex + 0.5) * 255).clip(0, 255).astype(np.uint8)
+        vy, vx = rng.randint(1, 5, 2)
+        s = size // 6
+        for t in range(n_frames):
+            y, x = (t * vy) % size, (t * vx) % size
+            frame = tex[y:y + size, x:x + size].copy()
+            q = (t * 5) % (size - s)
+            frame[q:q + s, size // 3:size // 3 + s] = (230, 60, 40)
+            out[v, t] = frame
+    return out
+
+
+class InMemoryClips:
+    """``Kinetics400``'s item contract over clips held in memory:
+    ``dataset[i] -> ({"raw": (T, RAW, RAW, 3) uint8}, empty sp_mask,
+    label)``, every window of ``clip_len`` frames of every video."""
+
+    def __init__(self, videos: np.ndarray, clip_len: int):
+        self.videos, self.clip_len = videos, clip_len
+        self.per_video = videos.shape[1] - clip_len + 1
+
+    def __len__(self):
+        return len(self.videos) * self.per_video
+
+    def __getitem__(self, i: int):
+        v, t = divmod(int(i), self.per_video)
+        return ({"raw": self.videos[v, t:t + self.clip_len].copy()},
+                np.zeros((0,), np.int32), v)
+
+
+def cli_train_arm(name: str, argv: list, n_warmup: int, n_steps: int,
+                  workdir: str, videos: np.ndarray, expect) -> dict:
+    """One arm of the trainer's loop: ``train_args(argv)`` as the CLI parses
+    it, ``cli.train.build`` with an in-memory dataset (its loader and
+    prefetcher as the CLI builds them), one epoch of ``n_warmup`` steps
+    (writes ``checkpoint.pth``), then a timed epoch of ``n_steps`` with
+    every kernel count zeroed just before and read just after.
+    ``expect(n_patch, n_sp)`` gives the counts the path must show. Times:
+    ms a step by the host clock over the epoch (its end-of-epoch checkpoint
+    write left out), and by path from CUDA events recorded after each step
+    (an interval covers that step's augmentations, SLIC and step)."""
+    from videowalk_tpu_torch.cli import train as cli
+    from videowalk_tpu_torch.utils.arguments import (check_supported_train,
+                                                     train_args)
+    from videowalk_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = os.path.join(workdir, name)
+    args = train_args(argv + ["--output-dir", out, "--logs-dir",
+                              os.path.join(out, "logs"),
+                              "--steps-per-epoch", str(n_warmup)])
+    check_supported_train(args)
+    dataset = InMemoryClips(videos, args.clip_len)
+    run = cli.build(args, torch.device("cuda"), dataset)
+    marks, real_step = [], run.step
+
+    def step(state, batch, gen, sp_mask=None):
+        metrics = real_step(state, batch, gen, sp_mask=sp_mask)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(("sp" if sp_mask is not None else "patch", ev, metrics))
+        return metrics
+
+    ck_s, real_ck = [0.0], run.checkpoint_fn
+
+    def checkpoint_fn(state, epoch):
+        t = time.perf_counter()
+        real_ck(state, epoch)
+        ck_s[0] += time.perf_counter() - t
+
+    run.step, run.checkpoint_fn = step, checkpoint_fn
+    cli.train_one_epoch(args, run, 0)                   # warm-up
+    warm_paths = [m[0] for m in marks]
+    marks.clear()
+    args.steps_per_epoch = n_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_sp_counts(dict.fromkeys(sp_counts(), 0))       # counts: this path only
+    ck_s[0] = 0.0
+    start = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    cli.train_one_epoch(args, run, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - ck_s[0]
+    launches = sp_counts()
+    paths = [m[0] for m in marks]
+    n_sp = paths.count("sp")
+    want = expect(n_steps - n_sp, n_sp)
+    if launches != want:
+        fail(f"train_cli {name}: kernel launches {launches} in {n_steps} "
+             f"steps ({n_sp} superpixel), want {want}")
+    if len(paths) != n_steps:
+        fail(f"train_cli {name}: {len(paths)} steps, want {n_steps}")
+    losses = [float(m[2]["loss"]) for m in marks]
+    if not all(np.isfinite(losses)):
+        fail(f"train_cli {name}: non-finite loss {losses}")
+    gaps, prev, intervals = {"patch": [], "sp": []}, start, []
+    for path, ev, _ in marks:
+        intervals.append(prev.elapsed_time(ev))
+        gaps[path].append(intervals[-1])
+        prev = ev
+    batch = args.batch_size
+    res = dict(arm=name, steps=n_steps, warmup_paths=warm_paths, paths=paths,
+               steps_by_path={k: len(v) for k, v in gaps.items()},
+               step_ms=wall / n_steps * 1e3, clips_per_s=batch * n_steps / wall,
+               ms_by_path={k: float(np.mean(v)) if v else None
+                           for k, v in gaps.items()},
+               interval_ms=intervals, checkpoint_s=ck_s[0],
+               state_step=run.state.step,
+               max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               losses=losses, launches=launches)
+    print(f"train_cli '{name}' (batch {batch}, {args.clip_len} frames, prob "
+          f"{args.prob}): {res['step_ms']:.2f} ms/step by the host clock over "
+          f"{n_steps} steps ({res['steps_by_path']}), {res['clips_per_s']:.2f} "
+          f"clips/s; by path (CUDA events) {res['ms_by_path']}; checkpoint "
+          f"write {ck_s[0]:.2f} s left out; peak memory "
+          f"{res['max_memory_gib']:.2f} GiB; losses {losses[0]:.4f} .. "
+          f"{losses[-1]:.4f}; launches {launches}", flush=True)
+    # the epoch's checkpoint.pth holds the state after the timed epoch
+    ck_path = os.path.join(args.output_dir, "checkpoint.pth")
+    ck = load_checkpoint(ck_path)
+    now = run.state.model.state_dict()
+    if (ck["epoch"] != 1 or ck["lr_scheduler"]["step"] != run.state.step
+            or any(not torch.equal(ck["model"][k], v.cpu())
+                   for k, v in now.items())):
+        fail(f"train_cli {name}: checkpoint.pth is not the state after the "
+             f"timed epoch")
+    res["checkpoint"] = dict(path=ck_path, epoch=ck["epoch"],
+                             step=ck["lr_scheduler"]["step"])
+    del ck
+    # the device augmentations alone at this arm's batch (CUDA events),
+    # then 5 more steps of the loop under the profiler, no checkpoint
+    raw = torch.from_numpy(np.stack([dataset[i][0]["raw"] for i in
+                                     range(batch)])).cuda()
+    res["augs_ms"] = cuda_ms(lambda: cli.train_transform_device(
+        raw, run.aug_gen, img_size=args.img_size,
+        patch_size=int(args.patch_size[0]), frame_aug=args.frame_aug,
+        frame_transforms=args.frame_transforms), 10)
+    args.steps_per_epoch, run.checkpoint_fn = 5, None
+    res["profile"] = profile_steps(lambda: cli.train_one_epoch(args, run, 2),
+                                   n=1, steps_per_run=5)
+    print(f"  device augs alone {res['augs_ms']:.2f} ms a batch; first "
+          f"interval {intervals[0]:.2f} ms, the others' median "
+          f"{float(np.median(intervals[1:])):.2f} ms", flush=True)
+    res["_run"], res["_args"] = run, args
+    return res
+
+
+def _want(patch: dict, sp: dict | None = None):
+    """Counts of a loop of ``n_patch`` patch and ``n_sp`` superpixel steps:
+    ``patch`` and ``sp`` the per-step counts of each path."""
+    def want(n_patch, n_sp):
+        base = dict.fromkeys(sp_counts(), 0)
+        for per, n in ((patch, n_patch), (sp or {}, n_sp)):
+            for k, v in per.items():
+                base[k] += v * n
+        return base
+    return want
+
+
+def train_cli_phase(n_steps: int) -> dict:
+    """The trainer on the card, three arms, each beside its bare step
+    run in this process: (a) ``train.sh``'s config of record (3 warm-up and
+    max(20, n_steps) timed steps, both paths) against the bare ``sp_dil``
+    step at 44 node slots and the bare patch step at batch 6; then one
+    ``--resume`` step from the ``checkpoint.pth`` (a) wrote, which must
+    continue at its step; (b) the flagship patch loop (3 + n_steps) against
+    ``train_arm``'s default step; (c) teacher-student at (b)'s shape from a
+    seeded CRW teacher written by ``save_checkpoint`` and read by the CLI
+    (#4 x15 a step, the teacher bitwise unchanged) against the bare
+    teacher-student step."""
+    import shutil
+    import tempfile
+
+    from videowalk_tpu_torch.cli import train as cli
+    from videowalk_tpu_torch.utils.arguments import train_args
+    from videowalk_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                      save_checkpoint)
+
+    saved = sp_counts()
+    workdir = tempfile.mkdtemp(prefix="train_cli_")
+    videos = moving_textures(CLI_VIDEOS, CLI_FRAMES, RAW, seed=5)
+    walk = dict(walk_fwd=1, walk_bwd=1)
+    patch_step = dict(walk, **dict(ARMS)[DEFAULT_ARM])
+    sp_step = dict(walk, slic_fused=1, dilate_l1=1, **SP_LAUNCHES["auto"])
+    res = {}
+    try:
+        a = cli_train_arm("config_of_record", CLI_ARMS["config_of_record"], 3,
+                          max(20, n_steps), workdir, videos,
+                          _want(patch_step, sp_step))
+        if not all(a["steps_by_path"].values()):
+            fail(f"train_cli config_of_record: a path never ran: {a['paths']}")
+        if set(a["warmup_paths"]) != {"patch", "sp"}:
+            fail(f"train_cli config_of_record: warm-up took "
+                 f"{a['warmup_paths']}, not both paths")
+        run, args = a.pop("_run"), a.pop("_args")
+        if run.state.model.cfg.max_sp_num != 44:
+            fail(f"train.sh's flags give {run.state.model.cfg.max_sp_num} "
+                 f"node slots, want 44")
+        del run
+        torch.cuda.empty_cache()
+        ck = a["checkpoint"]
+        resumed = cli.main(train_args(
+            CLI_ARMS["config_of_record"] + [
+                "--output-dir", os.path.join(workdir, "resumed"),
+                "--logs-dir", os.path.join(workdir, "resumed", "logs"),
+                "--resume", ck["path"], "--epochs", "3",
+                "--steps-per-epoch", "1"]),
+            dataset=InMemoryClips(videos, SP_CLIP))
+        a["resume"] = dict(saved_step=ck["step"], saved_epoch=ck["epoch"],
+                           step_after=resumed.step)
+        if resumed.step != ck["step"] + 1:
+            fail(f"train_cli: --resume from step {ck['step']} ended at step "
+                 f"{resumed.step} after one step")
+        print(f"train_cli --resume: {a['resume']}", flush=True)
+        del resumed
+        torch.cuda.empty_cache()
+        bare = dict(
+            sp_dil=sp_train_arm("sp_dil_44", "superpixel", True, "auto",
+                                n_steps, max_sp=44),
+            patch=sp_train_arm("patch", "patch", False, "auto", n_steps))
+        share = a["steps_by_path"]["sp"] / a["steps"]
+        a["bare_ms"] = {k: v["step_ms"] for k, v in bare.items()}
+        a["bare_mix_ms"] = (share * bare["sp_dil"]["step_ms"]
+                            + (1 - share) * bare["patch"]["step_ms"])
+        res["config_of_record"] = a
+
+        b = cli_train_arm("flagship_patch", CLI_ARMS["flagship_patch"], 3,
+                          n_steps, workdir, videos, _want(patch_step))
+        for k in ("_run", "_args"):
+            b.pop(k)
+        torch.cuda.empty_cache()
+        b["bare_ms"] = train_arm(*DEFAULT_ARM, dict(ARMS)[DEFAULT_ARM],
+                                 n_steps)["step_ms"]
+        res["flagship_patch"] = b
+
+        cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
+                        edgedrop_rate=EDGEDROP, dtype=torch.bfloat16)
+        teacher = os.path.join(workdir, "teacher.pth")
+        save_checkpoint(teacher, seeded_crw(cfg, seed=2))
+        c = cli_train_arm("teacher_student", CLI_ARMS["teacher_student"] + [
+            "--path-to-pretrained", teacher], 3, n_steps, workdir, videos,
+            _want(TS_LAUNCHES))
+        run = c.pop("_run")
+        c.pop("_args")
+        kept = load_checkpoint(teacher)["model"]
+        got = run.state.model.teacher.state_dict()
+        moved = [k for k, v in kept.items() if not torch.equal(got[k].cpu(), v)]
+        if moved:
+            fail(f"train_cli teacher_student: the teacher moved: {moved[:5]}")
+        c["teacher_tensors_unchanged"] = len(kept)
+        del run
+        torch.cuda.empty_cache()
+        c["bare_ms"] = train_arm(*DEFAULT_ARM, TS_LAUNCHES, n_steps,
+                                 teacher_student=True)["step_ms"]
+        res["teacher_student"] = c
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        set_sp_counts(saved)
+    print("trainer loop vs bare step (same process):", flush=True)
+    for name, r in res.items():
+        bare = r.get("bare_mix_ms", r.get("bare_ms"))
+        print(f"  {name:17s} loop {r['step_ms']:8.2f} ms/step "
+              f"{r['clips_per_s']:6.2f} clips/s; bare {bare:8.2f} ms/step; "
+              f"loop overhead {r['step_ms'] - bare:+.2f} ms/step", flush=True)
+    return res
+
+
 PHASES = dict(prop=lambda a: kernel_vs_plain(),
               eval=lambda a: end_to_end(a.targets),
               small_eval=lambda a: small_card_vs_cpu(),
@@ -2115,7 +2445,8 @@ PHASES = dict(prop=lambda a: kernel_vs_plain(),
               sp_train=lambda a: sp_train_phase(a.steps),
               small_sp_train=lambda a: small_sp_step_card_vs_cpu(),
               ts_train=lambda a: ts_train_phase(a.steps),
-              small_ts_train=lambda a: small_ts_step_card_vs_cpu())
+              small_ts_train=lambda a: small_ts_step_card_vs_cpu(),
+              train_cli=lambda a: train_cli_phase(a.steps))
 
 
 def main() -> int:
@@ -2185,6 +2516,7 @@ def main() -> int:
     small_sp_train = small_sp_step_card_vs_cpu()
     ts_train = ts_train_phase(args.steps)
     small_ts_train = small_ts_step_card_vs_cpu()
+    train_cli = train_cli_phase(args.steps)
 
     kernels = [dict(
         name="prop_sparse_topk", route="cuda",
@@ -2251,6 +2583,7 @@ def main() -> int:
                            slic=slic_res, dilation=dil, sp_train=sp_train,
                            small_sp_train=small_sp_train,
                            ts_train=ts_train, small_ts_train=small_ts_train,
+                           train_cli=train_cli,
                            kernels=kernels, ptxas=logs,
                            wgmma_verdicts=verdicts), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

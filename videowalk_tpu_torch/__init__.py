@@ -7,12 +7,14 @@ every Pallas TPU kernel on a ported path is a CUDA C++ kernel for Hopper
 (``sm_90a``) under ``ops/csrc/``, built at first use (``ops/_build.py``).
 
 Ported so far: the DAVIS label-propagation eval path
-(``python -m videowalk_tpu_torch.cli.test``) and the CRW training step
-(``parallel.make_train_step``) in patch, superpixel and teacher-student
-mode:
+(``python -m videowalk_tpu_torch.cli.test``) and CRW training in patch,
+superpixel and teacher-student mode, from the step
+(``parallel.make_train_step``) up to the trainer
+(``python -m videowalk_tpu_torch.cli.train``) and its data layer:
 
 utils     device resolution, checkpoints (.pth loading and writing,
-          flax-tree import, full-state resume), colors
+          flax-tree import, full-state resume), argument parsers, train
+          meters, colors
 core      walk-loss math: affinities, ZeroSoftmax, palindrome products,
           Sinkhorn-Knopp and the sk-targets loss, superpixel masks
 models    ResNet-18 trunk (flax-semantics BN, bf16 compute, reflect convs
@@ -22,9 +24,12 @@ models    ResNet-18 trunk (flax-semantics BN, bf16 compute, reflect convs
 ops       CUDA kernels + their plain PyTorch versions: block-sparse top-k
           propagation, fused palindrome walk (forward and backward),
           3x3 reflect conv (forward, + BN moments, the BN-input chain,
-          dx, dW) and its route, SLIC, L1 dilation
+          dx, dW) and its route, SLIC, L1 dilation; batched device
+          augmentations (plain PyTorch)
 parallel  optimizer, train state, train step
 eval      context bank + autoregressive propagation, prediction dumping
-data      DAVIS-style VOS dataset
-cli       the ``test`` entry point
+data      Kinetics clip index and dataset, frame-folder datasets, host
+          augmentations, threaded loader, prefetch to the card; DAVIS-style
+          VOS dataset
+cli       the ``train`` and ``test`` entry points
 """

@@ -1,0 +1,398 @@
+"""Trainer (counterpart of ``videowalk_tpu/cli/train.py``; reference
+``code/train.py``).
+
+    python -m videowalk_tpu_torch.cli.train --data-path /data/kinetics/ \\
+        --frame-aug grid --dropout 0.1 --clip-len 4 --temp 0.05 \\
+        --model-type scratch --batch-size 6 --lr 0.0003 --prob 0.7 \\
+        --sp-method slic --num-sp 36 --compactness 50 --dilate-superpixels \\
+        --dilation-kernel-shape L1 --dilation-kernel-size 55 --epochs 20 \\
+        --sp-backend device --dtype bfloat16 --augs-backend device
+
+dataset + metadata cache -> ``RandomClipSampler`` -> threaded loader ->
+prefetch to the card -> ``CRW`` or ``CRWTeacherStudent`` -> Adam under a
+per-step MultiStepLR -> the epoch loop: a Bernoulli choice per step
+between the patch path and the superpixel path (drawn on the host from
+``RandomState(seed + epoch)`` in the JAX trainer's order), device
+augmentations, SLIC on the card for superpixel steps, the loss and LR read
+only every ``--print-freq`` steps, stochastic (p=0.005) and per-epoch
+``.pth`` checkpoints, resume and partial reload. It runs on the card unless
+``--device cpu`` is given; there every kernel takes its plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import time
+from typing import Any, Callable, Iterable
+
+import numpy as np
+import torch
+
+from videowalk_tpu_torch.data.augs import RawClipTransform, get_train_transforms
+from videowalk_tpu_torch.data.clips import RandomClipSampler, VideoClipIndex
+from videowalk_tpu_torch.data.kinetics import Kinetics400
+from videowalk_tpu_torch.data.loader import DataLoader
+from videowalk_tpu_torch.data.prefetch import DevicePrefetcher
+from videowalk_tpu_torch.data.video import VideoList
+from videowalk_tpu_torch.models import CRW, CRWConfig, CRWTeacherStudent
+from videowalk_tpu_torch.ops.augs_device import train_transform_device
+from videowalk_tpu_torch.ops.slic import slic_fused
+from videowalk_tpu_torch.parallel import (TrainState, create_train_state,
+                                          make_optimizer, make_train_step)
+from videowalk_tpu_torch.utils.arguments import check_supported_train
+from videowalk_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  partial_load,
+                                                  resume_schedule,
+                                                  save_checkpoint)
+from videowalk_tpu_torch.utils.device import resolve_device
+from videowalk_tpu_torch.utils.meters import MetricLogger, SmoothedValue
+
+# --steps-per-epoch's "unlimited" default: at or above it the flag was not
+# set and the shortfall guard is off
+_STEPS_UNLIMITED = int(1e10)
+
+
+def model_config(args) -> CRWConfig:
+    return CRWConfig(
+        model_type=args.model_type,
+        remove_layers=tuple(args.remove_layers),
+        head_depth=args.head_depth,
+        temperature=args.temp,
+        edgedrop_rate=args.dropout,
+        featdrop_rate=args.featdrop,
+        flip=args.flip,
+        sk_targets=args.sk_targets,
+        zero_diagonal=args.zero_diagonal,
+        head_bias=args.teacher_student,
+        use_zero_softmax=not args.teacher_student,
+        max_sp_num=args.max_sp_num,
+        dilate_superpixels=args.dilate_superpixels,
+        dilation_kernel_shape=args.dilation_kernel_shape,
+        dilation_kernel_size=args.dilation_kernel_size,
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+    )
+
+
+def make_dataset(args, transform):
+    """A Kinetics-style video tree (``<path>/train_256`` or
+    ``val_256`` under ``--fast-test``, else ``<path>`` itself), or a
+    ``VideoList`` filelist when ``--data-path`` is a file."""
+    traindir = os.path.join(
+        args.data_path, "train_256" if not args.fast_test else "val_256")
+    if ("kinetics" in args.data_path.lower() or os.path.isdir(traindir)
+            or os.path.isdir(args.data_path)):
+        cached = None
+        if args.cache_dataset and os.path.exists(args.cache_path):
+            print(f"Loading dataset metadata from {args.cache_path}")
+            cached = VideoClipIndex.load_metadata(args.cache_path)
+        ds = Kinetics400(
+            traindir if os.path.isdir(traindir) else args.data_path,
+            frames_per_clip=args.clip_len,
+            step_between_clips=1,
+            frame_rate=args.frame_skip,
+            transform=transform,
+            _precomputed_metadata=cached,
+            sp_method=args.sp_method,
+            num_components=args.num_sp,
+            prob=args.prob,
+            randomise_superpixels=args.randomise_superpixels,
+            randomise_superpixels_range=args.randomise_superpixels_range,
+            sp_backend=args.sp_backend,
+            seed=args.seed,
+        )
+        if cached is None and args.cache_path:
+            os.makedirs(os.path.dirname(args.cache_path) or ".", exist_ok=True)
+            ds.video_clips.save_metadata(args.cache_path)
+            print(f"Saved dataset metadata to {args.cache_path}")
+        return ds
+    return VideoList(filelist=args.data_path, clip_len=args.clip_len,
+                     is_train=True, frame_gap=args.frame_skip,
+                     transform=transform, random_clip=True, seed=args.seed)
+
+
+def check_step_shortfall(args, epoch: int, delivered: int) -> None:
+    """An explicit ``--steps-per-epoch`` is a step budget: an epoch whose
+    loader delivers fewer batches warns, or raises under
+    ``--strict-steps``."""
+    if not (args.steps_per_epoch < _STEPS_UNLIMITED
+            and delivered < args.steps_per_epoch):
+        return
+    msg = (f"epoch {epoch} delivered {delivered} batches but "
+           f"--steps-per-epoch requested {args.steps_per_epoch}: the "
+           f"loader is shorter than the request, so total trained steps "
+           f"fall short by the same ratio. Size --epochs from the real "
+           f"epoch length (printed at loader creation), or add data / "
+           f"raise --clips-per-video.")
+    if getattr(args, "strict_steps", False):
+        raise RuntimeError(msg)
+    print("WARNING: " + msg, flush=True)
+
+
+@dataclasses.dataclass
+class Training:
+    """What ``build`` makes and each epoch uses. ``step`` is
+    ``make_train_step()``'s (both paths; the superpixel path passes
+    ``sp_mask=``); ``step_gen`` draws edge dropout and featdrop,
+    ``aug_gen`` the device augmentations, both on the state's device."""
+
+    state: TrainState
+    step: Callable
+    loader: Iterable
+    dataset: Any
+    step_gen: torch.Generator
+    aug_gen: torch.Generator
+    checkpoint_fn: Callable | None
+    device_slic_fn: Callable
+
+
+def _on(x, device: torch.device) -> torch.Tensor:
+    """A batch leaf as a tensor on ``device``: a prefetched one is there
+    already; a host one is copied (from pinned memory, without a sync)."""
+    if torch.is_tensor(x):
+        return x.to(device, non_blocking=True)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def train_one_epoch(args, run: Training, epoch: int) -> TrainState:
+    """One epoch of ``run``: at most ``--steps-per-epoch`` steps, the
+    epoch's checkpoint at the end. Nothing in a step waits for the card:
+    the loss and LR are read every ``--print-freq`` steps and on the last
+    one, where a non-finite loss aborts."""
+    state = run.state
+    dev = state.device
+    metric_logger = MetricLogger(delimiter="  ")
+    metric_logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value}"))
+    metric_logger.add_meter("clips/s",
+                            SmoothedValue(window_size=10, fmt="{value:.3f}"))
+    header = f"Epoch: [{epoch}]"
+    # the path choices, n_active draws and checkpoint coins, in the JAX
+    # trainer's order
+    host_rng = np.random.RandomState(args.seed + epoch)
+    fetch_every = max(1, args.print_freq)
+    window_clips, window_t0 = 0, time.time()
+    device_augs = args.augs_backend == "device"
+    total_steps = min(args.steps_per_epoch, len(run.loader))
+
+    delivered = 0
+    for step_i, (views, _sp_mask, _label) in enumerate(
+            metric_logger.log_every(run.loader, args.print_freq, header,
+                                    total=total_steps)):
+        if step_i >= args.steps_per_epoch:
+            break
+        delivered += 1
+        if device_augs:
+            views = train_transform_device(
+                _on(views["raw"], dev), run.aug_gen, img_size=args.img_size,
+                patch_size=int(args.patch_size[0]),
+                frame_aug=args.frame_aug or "",
+                frame_transforms=args.frame_transforms)
+        grid = bool(host_rng.choice([True, False],
+                                    p=[args.prob, 1 - args.prob]))
+        if grid or args.teacher_student:
+            batch = _on(views["grid"], dev)
+            metrics = run.step(state, batch, run.step_gen)
+        else:
+            mask = run.device_slic_fn(_on(views["whole_unnorm"], dev),
+                                      host_rng)
+            batch = _on(views["whole"], dev)
+            metrics = run.step(state, batch, run.step_gen, sp_mask=mask)
+        window_clips += batch.shape[0]
+
+        if step_i % fetch_every == 0 or step_i + 1 >= total_steps:
+            loss = float(metrics["loss"])       # waits for this step
+            if not np.isfinite(loss):
+                where = args.output_dir or "<no --output-dir>"
+                raise FloatingPointError(
+                    f"non-finite loss {loss} at epoch {epoch} step {step_i} "
+                    f"(global step {state.step}). Re-run with --debug-nans "
+                    f"to locate the producing op, or lower --lr / raise "
+                    f"--temp; the last checkpoint in {where} is intact.")
+            # the LR of the next update, as the JAX trainer's
+            # multistep_lr(global_step)
+            metric_logger.update(loss=loss,
+                                 lr=state.optimizer.param_groups[0]["lr"])
+            metric_logger.meters["clips/s"].update(
+                window_clips / max(time.time() - window_t0, 1e-9))
+            window_clips, window_t0 = 0, time.time()
+
+        # stochastic checkpointing (reference train.py:76-77)
+        if (run.checkpoint_fn is not None
+                and host_rng.random_sample() < 0.005):
+            run.checkpoint_fn(state, epoch)
+
+    check_step_shortfall(args, epoch, delivered)
+    if run.checkpoint_fn is not None:
+        run.checkpoint_fn(state, epoch)
+    return state
+
+
+def build(args, device: torch.device, dataset=None) -> Training:
+    """The dataset (``make_dataset`` unless one is given: any object with
+    the ``Kinetics400`` item contract), loader, prefetcher, model, train
+    state, schedule, generators and the checkpoint and SLIC functions."""
+    print("Preparing training dataloader", end="\n" + "-" * 100 + "\n")
+    st = time.time()
+    if dataset is None:
+        transform = (RawClipTransform(args.img_size)
+                     if args.augs_backend == "device"
+                     else get_train_transforms(args))
+        dataset = make_dataset(args, transform)
+    if hasattr(dataset, "set_compactness"):
+        print("Set Compactness at:", args.compactness)
+        dataset.set_compactness(args.compactness)
+    print("Took", time.time() - st)
+
+    print("Creating data loaders", end="\n" + "-" * 100 + "\n")
+    sampler = (RandomClipSampler(dataset.video_clips, args.clips_per_video,
+                                 seed=args.seed)
+               if hasattr(dataset, "video_clips") else None)
+    loader = DataLoader(dataset, batch_size=args.batch_size, sampler=sampler,
+                        num_workers=max(1, args.workers // 2))
+    print(f"Epoch length: {len(loader)} batches", flush=True)
+    if sampler is not None:
+        # the JAX trainer initializes its model from the first clip of one
+        # sampler pass; drawing that pass here too keeps every epoch's
+        # clips equal to the JAX trainer's at the same seed
+        next(iter(sampler))
+
+    print("Creating model", end="\n" + "-" * 100 + "\n")
+    cfg = model_config(args)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        if args.teacher_student:
+            model = CRWTeacherStudent(cfg, alpha=args.alpha_teacher_student)
+        else:
+            model = CRW(cfg)
+    milestones = [len(loader) * m for m in args.lr_milestones]
+    optimizer = make_optimizer(args.lr, milestones, args.lr_gamma,
+                               optim=args.optim, momentum=args.momentum)
+    state = create_train_state(
+        model, optimizer, device=device,
+        frozen_prefixes=("teacher.",) if args.teacher_student else ())
+
+    if args.teacher_student:
+        # the reference loads the teacher unconditionally
+        # (teacherstudent.py:321-328): a random frozen teacher would train
+        # to plausible-looking losses
+        if not os.path.isfile(args.path_to_pretrained):
+            raise FileNotFoundError(
+                f"--teacher-student needs a pretrained teacher checkpoint; "
+                f"--path-to-pretrained={args.path_to_pretrained!r} is not a "
+                f"file")
+        ckpt = load_checkpoint(args.path_to_pretrained)
+        partial_load({"teacher." + k: v for k, v in ckpt["model"].items()},
+                     state.model)
+
+    if args.partial_reload:
+        partial_load(load_checkpoint(args.partial_reload)["model"],
+                     state.model)
+
+    if args.resume and os.path.isdir(args.resume):
+        raise NotImplementedError(
+            f"--resume {args.resume!r} is a directory (an orbax checkpoint "
+            f"of the JAX package), which this port does not read; resume "
+            f"from a .pth")
+    if args.resume and os.path.isfile(args.resume):
+        ckpt = load_checkpoint(args.resume)
+        partial_load(ckpt["model"], state.model, verbose=False)
+        opt = ckpt.get("optimizer")
+        if isinstance(opt, dict) and "param_groups" in opt:
+            state.optimizer.load_state_dict(opt)
+        elif opt is not None:
+            print(f"optimizer state not restored: {type(opt).__name__} is "
+                  f"not a torch optimizer's state (the JAX package writes "
+                  f"optax's)", flush=True)
+        step = resume_schedule(state.scheduler, ckpt.get("lr_scheduler"))
+        if step is not None:
+            state.step = step
+        args.start_epoch = int(ckpt.get("epoch", -1)) + 1
+        print(f"Resumed from {args.resume}: step={state.step}, "
+              f"start_epoch={args.start_epoch}", flush=True)
+
+    def device_slic_fn(unnorm: torch.Tensor, host_rng) -> torch.Tensor:
+        if args.randomise_superpixels:
+            B, T = unnorm.shape[:2]
+            half = args.randomise_superpixels_range // 2
+            n_active = host_rng.randint(args.num_sp - half,
+                                        args.num_sp + half, (B * T,))
+            return slic_fused(unnorm, args.max_sp_num, float(args.compactness),
+                              n_active=_on(n_active.astype(np.int32),
+                                           unnorm.device))
+        return slic_fused(unnorm, args.num_sp, float(args.compactness))
+
+    def checkpoint_fn(state_: TrainState, epoch_: int) -> None:
+        if not args.output_dir:
+            return
+        ck_args = {k: v for k, v in vars(args).items()
+                   if isinstance(v, (int, float, str, bool, list, tuple))}
+        for path in (os.path.join(args.output_dir, f"model_{epoch_}.pth"),
+                     os.path.join(args.output_dir, "checkpoint.pth")):
+            save_checkpoint(path, state_.model, state_.optimizer,
+                            state_.scheduler, epoch=epoch_, args=ck_args)
+
+    if args.prefetch > 0:
+        # only the views the step reads go to the card
+        if args.augs_backend == "device":
+            keys = {"raw"}
+        else:
+            keys = set()
+            if args.teacher_student or args.prob > 0:
+                keys.add("grid")
+            if args.prob < 1 and not args.teacher_student:
+                keys |= {"whole", "whole_unnorm"}
+        loader = DevicePrefetcher(loader, args.prefetch, keys=keys,
+                                  device=state.device)
+
+    gens = [torch.Generator(device=state.device).manual_seed(args.seed + s)
+            for s in (1234, 1235)]
+    return Training(state=state, step=make_train_step(), loader=loader,
+                    dataset=dataset, step_gen=gens[0],
+                    aug_gen=gens[1], checkpoint_fn=checkpoint_fn,
+                    device_slic_fn=device_slic_fn)
+
+
+def main(args, dataset=None) -> TrainState:
+    """Train as ``args`` say (``train_args``); returns the train state.
+    ``dataset`` replaces ``make_dataset``'s (any object with the
+    ``Kinetics400`` item contract)."""
+    check_supported_train(args)
+    device = resolve_device(args.device)
+    if args.teacher_student and args.prob != 1:
+        raise ValueError(    # the reference asserts it (train.py:136-137)
+            "Teacher-Student training is not yet compatible with "
+            "probabilistic sp | patch sampling")
+
+    print("Arguments", end="\n" + "-" * 100 + "\n")
+    for arg, value in vars(args).items():
+        print(f"{arg} = {value}")
+    print("-" * 100)
+    print("torch device:", device,
+          torch.cuda.get_device_name(device) if device.type == "cuda" else "")
+
+    anomaly = torch.is_anomaly_enabled()
+    # the reference's own setting (code/train.py:27), opt-in here: slow
+    torch.autograd.set_detect_anomaly(args.debug_nans or anomaly)
+    try:
+        run = build(args, device, dataset)
+        print("Start training", end="\n" + "-" * 100 + "\n")
+        start_time = time.time()
+        for epoch in range(args.start_epoch, args.epochs):
+            if hasattr(run.dataset, "set_epoch"):
+                run.dataset.set_epoch(epoch)
+            train_one_epoch(args, run, epoch)
+    finally:
+        torch.autograd.set_detect_anomaly(anomaly)
+    total = str(datetime.timedelta(seconds=int(time.time() - start_time)))
+    print(f"Training time {total}")
+    return run.state
+
+
+if __name__ == "__main__":
+    from videowalk_tpu_torch.utils.arguments import train_args
+
+    main(train_args())

@@ -1,1 +1,3 @@
-"""Host-side data: the DAVIS-style VOS dataset."""
+"""Host-side data: the Kinetics clip index and dataset, frame-folder
+datasets, the host augmentations, the threaded loader, the prefetcher that
+copies batches to the card, and the DAVIS-style VOS dataset."""

@@ -11,7 +11,10 @@
   ``videowalk_tpu/utils/checkpoint.py::flax_to_torch_state``.
 - ``save_checkpoint``: the reference's checkpoint dict ``{model,
   optimizer, lr_scheduler, epoch, args}`` (code/train.py:279-289), which
-  the reference and the JAX package's ``torch_to_flax_state`` read.
+  the reference and the JAX package's ``torch_to_flax_state`` read; its
+  ``lr_scheduler`` also holds the JAX trainer's ``step``, ``milestones`` and
+  ``gamma``, and ``resume_schedule`` reads the step of either package's
+  file.
 - ``load_checkpoint``: ``torch.load`` of a trusted local ``.pth``.
 - ``partial_load``: reference ``partial_load`` semantics (key rename shim,
   substring skip list, report of skipped and loaded keys).
@@ -24,6 +27,8 @@
 
 from __future__ import annotations
 
+import bisect
+from collections import Counter
 from typing import Any, Mapping
 
 import numpy as np
@@ -101,18 +106,61 @@ def state_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     return state
 
 
+def scheduler_state(scheduler) -> dict:
+    """The ``lr_scheduler`` entry of a ``.pth``: the scheduler's own
+    ``state_dict`` with the JAX package's keys beside it (``step``, the
+    updates taken; ``milestones`` as a sorted list; ``gamma``), so that the
+    JAX trainer resumes the file at its step (``videowalk_tpu/cli/train.py``
+    reads ``lr_scheduler["step"]``). As in the JAX package's file, these
+    keys do not survive torch's ``LRScheduler.load_state_dict`` (``step``
+    would shadow the method): resume through ``resume_schedule``."""
+    sd = scheduler.state_dict()
+    milestones = sd.get("milestones") or {}
+    return {**sd, "step": int(scheduler.last_epoch),
+            "milestones": sorted(Counter(milestones).elements()),
+            "gamma": sd.get("gamma")}
+
+
+def resume_schedule(scheduler, lr_scheduler: Mapping | None) -> int | None:
+    """Put ``scheduler`` (a ``MultiStepLR`` bound to its optimizer, built
+    with the run's milestones and gamma) at the step stored in a ``.pth``'s
+    ``lr_scheduler`` entry (written by this package or the JAX package) and
+    set its optimizer's LR to that step's; returns the step, or None when
+    the entry has none. As in the JAX trainer, only the step is read: the
+    schedule's shape comes from the run's flags."""
+    if not lr_scheduler or "step" not in lr_scheduler:
+        return None
+    step = int(lr_scheduler["step"])
+    scale = scheduler.gamma ** bisect.bisect_right(
+        sorted(scheduler.milestones.elements()), step)
+    scheduler.last_epoch = step
+    for group, base in zip(scheduler.optimizer.param_groups,
+                           scheduler.base_lrs):
+        group["lr"] = base * scale
+    scheduler._last_lr = [g["lr"] for g in scheduler.optimizer.param_groups]
+    return step
+
+
 def save_checkpoint(path: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer | None = None,
                     lr_scheduler=None, epoch: int = 0, args=None) -> None:
     """Write the reference's checkpoint dict to ``path``: ``model`` (the
-    reference-named ``state_dict`` as CPU tensors), ``optimizer`` and
-    ``lr_scheduler`` (their ``state_dict``, or None), ``epoch`` and
-    ``args``. JAX package: ``utils/checkpoint.py:227``."""
+    reference-named ``state_dict`` as CPU tensors), ``optimizer`` (its
+    ``state_dict`` and ``type``, the optimizer's class name, or None),
+    ``lr_scheduler`` (``scheduler_state``, or None), ``epoch`` and
+    ``args``. JAX package: ``utils/checkpoint.py:227``.
+
+    ``type`` also keeps the JAX trainer from taking this state for optax's:
+    it converts the entry's leaves to arrays and skips the entry when one
+    fails, as the name does (``videowalk_tpu/cli/train.py:525-530``)."""
     torch.save({
         "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-        "optimizer": None if optimizer is None else optimizer.state_dict(),
+        "optimizer": None if optimizer is None else {
+            **optimizer.state_dict(),
+            "type": f"{type(optimizer).__module__}."
+                    f"{type(optimizer).__qualname__}"},
         "lr_scheduler": (None if lr_scheduler is None
-                         else lr_scheduler.state_dict()),
+                         else scheduler_state(lr_scheduler)),
         "epoch": epoch,
         "args": {} if args is None else args,
     }, path)

@@ -23,6 +23,18 @@ card.
 4. Checks the result: finite predictions of the right shape, the first
    target equal to the frame-0 ground truth, one launch per target, and the
    card's end-to-end predictions against the CPU path on a small video.
+   Then the rest of the eval path in memory (``eval_tail``; the card's
+   machine has no cv2, PIL or imageio, so no file is read or written): the
+   DAVIS J&F of that video's predictions (bilinear upsample and argmax on
+   the card, J and F per object by ``eval/davis_metrics.py``'s array core,
+   ground truth against itself J = F = 1); JHMDB's geometry (320x320, 40x40
+   maps, 15 joints of moving squares as ``draw_labelmap_np`` heatmaps + the
+   background: 16 labels) and VIP's label width (20 classes at 480x854)
+   through ``cli.test.test()`` on a ``jhmdb`` / ``VIP`` filelist, #1
+   counted per target and held to its plain version on the eval's own
+   features at 16 and 20 labels, PCK by ``process_pose`` and the PCK core,
+   mIoU by ``fast_hist`` and ``show_result``; and ``--encode-dtype
+   bfloat16`` against f32 on the DAVIS frames (per-frame cosine > 0.99).
 
 5. Holds the fused walk kernels (forward and backward, ``ops/csrc/walk.cu``,
    four device launches each) against their plain PyTorch version with
@@ -140,6 +152,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -149,6 +162,13 @@ import torch
 from videowalk_tpu_torch.cli.test import build_model, encode_video, test
 from videowalk_tpu_torch.eval.propagation import context_index_bank
 from videowalk_tpu_torch.core.masks import make_dilation_kernel
+from videowalk_tpu_torch.data.jhmdb import (pose_label_buffer, pose_labels,
+                                            pose_lblset)
+from videowalk_tpu_torch.data.vos import IMAGENET_MEAN, IMAGENET_STD
+from videowalk_tpu_torch.eval.davis_metrics import f_measure, jaccard
+from videowalk_tpu_torch.eval.eval_pck import pck_scores
+from videowalk_tpu_torch.eval.eval_vip import fast_hist, show_result
+from videowalk_tpu_torch.eval.test_utils import process_pose
 from videowalk_tpu_torch.models import CRW, CRWConfig, CRWTeacherStudent
 from videowalk_tpu_torch.models.crw import superpixel_pool_weights
 from videowalk_tpu_torch.ops import _build
@@ -171,6 +191,10 @@ FP32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
 BF16_PEAK = 989e12       # H100 SXM dense bf16 FLOP/s (tensor cores)
 TF32_PEAK = 495e12       # H100 SXM dense TF32 FLOP/s (tensor cores)
 HBM_RATE = 3.35e12       # H100 SXM bytes/s
+# the eval tail's other geometries (the DAVIS config's videoLen, topk,
+# radius and T): JHMDB at cropSize 320 (40x40 maps, 15 joints +
+# background; eval_pck.py's FEAT_RES) and VIP's 20 classes at 480x854
+JHMDB_SIZE, JHMDB_JOINTS, VIP_CLASSES, TAIL_TARGETS = 320, 15, 20, 20
 # bench.py's flagship training step
 CLIP_LEN, N_PATCHES, PATCH, BATCH, WALK_TEMP, EDGEDROP = 8, 49, 64, 8, 0.05, 0.1
 # the fused-walk gate's sweep: (T, N, C) at batch 8
@@ -418,10 +442,13 @@ def scored_pairs(L: int) -> int:
     return total
 
 
-def synthetic_video(n_frames: int, h: int, w: int, seed: int):
+def synthetic_video(n_frames: int, h: int, w: int, seed: int,
+                    return_ids: bool = False):
     """Moving squares on a noisy background: uint8 frames (with the
     videoLen prefix of frame-0 copies) and one-hot labels (background + 2
-    objects) at feature resolution (8x8 area average)."""
+    objects) at feature resolution (8x8 area average); with ``return_ids``
+    the frames and each frame's per-pixel object ids ``(n_frames, h, w)``
+    instead."""
     rng = np.random.RandomState(seed)
     bg = rng.randint(0, 90, (h, w, 3)).astype(np.uint8)
     s = max(h // 5, 4)
@@ -438,6 +465,8 @@ def synthetic_video(n_frames: int, h: int, w: int, seed: int):
         imgs.append(img)
         ids.append(lbl)
     imgs = np.stack([imgs[0]] * N_CONTEXT + imgs)
+    if return_ids:
+        return imgs, np.stack(ids)
     onehot = np.eye(3, dtype=np.float32)[np.stack([ids[0]] * N_CONTEXT + ids)]
     hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
     onehot = np.pad(onehot, ((0, 0), (0, hp - h), (0, wp - w), (0, 0)),
@@ -457,7 +486,7 @@ def eval_args() -> types.SimpleNamespace:
 def run_eval(model, imgs, lbls, lblset):
     preds = {}
 
-    def keep(pred, lbl_map, img, prefix):
+    def keep(pred, lbl_map, img, prefix, **kw):
         preds[int(prefix.rsplit("_", 1)[1])] = pred
 
     stats = test([(imgs, imgs, lbls, None, lblset, {})], model, eval_args(),
@@ -520,6 +549,323 @@ def small_card_vs_cpu() -> dict:
     if not err <= 1e-4:
         fail("card and CPU paths disagree on the small video")
     return dict(encoder_max_abs_err=enc_err, pred_max_abs_err=err)
+
+
+def moving_squares(n_frames: int, h: int, w: int, n_obj: int, seed: int):
+    """``n_obj`` seeded colored squares moving at constant speeds over a
+    noisy background: uint8 frames ``(n_frames, h, w, 3)``, per-pixel ids
+    ``(n_frames, h, w)`` (0 the background, square j id j + 1, later squares
+    on top) and the squares' centres ``(n_frames, n_obj, 2)`` as (x, y)."""
+    rng = np.random.RandomState(seed)
+    bg = rng.randint(0, 90, (h, w, 3)).astype(np.uint8)
+    s = max(min(h, w) // 12, 8)
+    cols = rng.randint(60, 256, (n_obj, 3)).astype(np.uint8)
+    lim = np.array([w - s, h - s])
+    p0 = rng.rand(n_obj, 2) * lim
+    v = (rng.rand(n_obj, 2) - 0.5) * np.array([w, h]) / 60
+    frames = np.empty((n_frames, h, w, 3), np.uint8)
+    ids = np.zeros((n_frames, h, w), np.int64)
+    centres = np.zeros((n_frames, n_obj, 2))
+    for t in range(n_frames):
+        frames[t] = bg
+        pos = np.clip(p0 + v * t, 0, lim).astype(int)
+        for j, (x, y) in enumerate(pos):
+            frames[t, y:y + s, x:x + s] = cols[j]
+            ids[t, y:y + s, x:x + s] = j + 1
+        centres[t] = pos + (s - 1) / 2
+    return frames, ids, centres
+
+
+def area_labels(ids: np.ndarray, n_cls: int) -> np.ndarray:
+    """``(T, ceil(h/8), ceil(w/8), n_cls)`` f32 one-hot labels at feature
+    resolution (8x8 area average of the edge-padded ids), frame by
+    frame."""
+    out = []
+    for f in ids:
+        hp, wp = -(-f.shape[0] // 8) * 8, -(-f.shape[1] // 8) * 8
+        f = np.pad(f, ((0, hp - f.shape[0]), (0, wp - f.shape[1])),
+                   mode="edge")
+        oh = np.eye(n_cls, dtype=np.float32)[f]
+        out.append(oh.reshape(hp // 8, 8, wp // 8, 8, n_cls).mean((1, 3)))
+    return np.stack(out)
+
+
+def pixel_ids(preds, h: int, w: int) -> np.ndarray:
+    """Per-pixel ids ``(T, h, w)``: each soft label map ``(h', w', L)``
+    upsampled bilinearly to ``(h, w)`` on the card, then its argmax (the
+    file path's cv2 resize, without cv2)."""
+    out = []
+    for p in preds:
+        x = torch.from_numpy(np.ascontiguousarray(p)).cuda().permute(2, 0, 1)
+        up = torch.nn.functional.interpolate(x[None], size=(h, w),
+                                             mode="bilinear",
+                                             align_corners=False)
+        out.append(up[0].argmax(0))
+    return torch.stack(out).cpu().numpy()
+
+
+def tail_eval(model, imgs, imgs_orig, lbls, lblset, filelist: str,
+              save_path: str, img_paths=None) -> tuple[list, dict, int]:
+    """One video through ``cli.test.test()`` as the file path drives it
+    (``filelist`` picks the JHMDB keypoints or the VIP output layout;
+    ``save_path`` takes the keypoints and VIP's directories), with #1's
+    count zeroed just before and read just after: the predictions in
+    target order, the video's stats, the launches."""
+    preds = {}
+
+    def keep(pred, lbl_map, img, prefix, **kw):
+        preds[prefix] = pred
+
+    args = eval_args()
+    args.filelist = filelist
+    args.save_path = save_path
+    meta = dict(img_paths=img_paths) if img_paths else {}
+    torch.cuda.synchronize()
+    ps.prop_sparse.launches = 0
+    stats = test([(imgs, imgs_orig, lbls, lbls, lblset, meta)], model, args,
+                 dump=keep)
+    launches = ps.prop_sparse.launches
+    # prefixes end in "{vid}_{t}", or in "{t:06d}.jpg" under videos/
+    order = sorted(preds, key=lambda k: int(
+        os.path.basename(k).split(".")[0].split("_")[-1]))
+    return [preds[k] for k in order], stats[0], launches
+
+
+def prop_against_plain(model, imgs, lbls, n_targets: int, tag: str) -> dict:
+    """#1 against its plain version target by target on the eval's own
+    features and label buffer (the kernel's prediction written back, as
+    the eval writes it): |d| <= 1e-4 on >= 99.9% of label cells (a cell's
+    largest difference over its labels). These launches do not count."""
+    before = ps.prop_sparse.launches
+    feats = encode_video(model, imgs).permute(0, 2, 3, 1).contiguous()
+    buf = torch.from_numpy(np.ascontiguousarray(lbls)).cuda()
+    rows = context_index_bank(N_CONTEXT, LONG_MEM, n_targets)
+    kw = dict(n_long=len(LONG_MEM), topk=TOPK, temperature=TEMP,
+              radius=RADIUS)
+    errs = []
+    for i in range(n_targets):
+        t = int(rows[i, -1]) + 1
+        idx = torch.from_numpy(rows[i]).cuda()
+        got = ps.prop_sparse(feats, buf, idx, t, **kw)
+        want = ps.prop_sparse_plain(feats, buf, idx, t, **kw)
+        if not torch.isfinite(got).all():
+            fail(f"kernel output not finite at target {i} ({tag})")
+        errs.append((got - want).abs().amax(-1).cpu().numpy())
+        buf[t] = got.view(buf.shape[1:])
+    ps.prop_sparse.launches = before
+    err = np.concatenate(errs)
+    r = dict(max_abs_err=float(err.max()),
+             frac_over_1e4=float((err > 1e-4).mean()))
+    print(f"prop_sparse vs plain at {tag} ({buf.shape[-1]} labels, "
+          f"{tuple(buf.shape[1:3])} maps, {n_targets} targets): max|d| "
+          f"{r['max_abs_err']:.3e}, cells |d|>1e-4 {r['frac_over_1e4']:.5f} "
+          f"(tolerance: |d| <= 1e-4 on >= 99.9% of cells)", flush=True)
+    if r["frac_over_1e4"] > 1e-3:
+        fail(f"kernel disagrees with its plain version at {tag}")
+    return r
+
+
+def davis_tail(model, n_targets: int, h: int = 480, w: int = 854) -> dict:
+    """The DAVIS J&F chain in memory: the eval phase's video through
+    ``test()``, per-pixel ids from its predictions, J and F per object over
+    frames 1..N-2 with the port's array core; ground truth scored against
+    itself must give J = F = 1 exactly."""
+    imgs, lbls, lblset = synthetic_video(n_targets, h, w, seed=1)
+    _, gt = synthetic_video(n_targets, h, w, seed=1, return_ids=True)
+    run_eval(model, imgs[:N_CONTEXT + 2], lbls[:N_CONTEXT + 2], lblset)  # warm
+    torch.cuda.synchronize()
+    ps.prop_sparse.launches = 0
+    preds, st = run_eval(model, imgs, lbls, lblset)
+    if ps.prop_sparse.launches != n_targets:
+        fail(f"DAVIS tail: {ps.prop_sparse.launches} launches for "
+             f"{n_targets} targets")
+    t0 = time.perf_counter()
+    pred = pixel_ids(preds, h, w)
+    t1 = time.perf_counter()
+    js, fs = {1: [], 2: []}, {1: [], 2: []}
+    for t in range(1, n_targets - 1):
+        for o in js:
+            js[o].append(jaccard(pred[t] == o, gt[t] == o))
+            fs[o].append(f_measure(pred[t] == o, gt[t] == o))
+    t2 = time.perf_counter()
+    for t in range(n_targets):
+        for o in js:
+            if (jaccard(gt[t] == o, gt[t] == o) != 1.0
+                    or f_measure(gt[t] == o, gt[t] == o) != 1.0):
+                fail(f"ground truth against itself: J or F is not 1 "
+                     f"(frame {t}, object {o})")
+    J = float(np.mean([np.mean(v) for v in js.values()]))
+    F = float(np.mean([np.mean(v) for v in fs.values()]))
+    n = n_targets - 2
+    r = dict(J=J, F=F, JF=(J + F) / 2, targets=n_targets, launches=n_targets,
+             prop_ms_per_target=st["propagate_s"] * 1e3 / st["targets"],
+             upsample_ms_per_frame=(t1 - t0) * 1e3 / n_targets,
+             metric_ms_per_frame=(t2 - t1) * 1e3 / n)
+    print(f"DAVIS tail {h}x{w}, {n_targets} targets: J {J:.4f} F {F:.4f} "
+          f"J&F {r['JF']:.4f} (random weights: informative only; ground "
+          f"truth against itself J = F = 1); propagation "
+          f"{r['prop_ms_per_target']:.2f} ms/target, upsample + argmax "
+          f"{r['upsample_ms_per_frame']:.2f} ms/frame, J and F (2 objects) "
+          f"{r['metric_ms_per_frame']:.2f} ms/frame on the host",
+          flush=True)
+    return r
+
+
+def jhmdb_tail(model, n_targets: int, out: str, n: int = JHMDB_SIZE
+               ) -> dict:
+    """JHMDB's eval geometry: 320x320 frames (cropSize 320, 40x40 maps) of
+    15 moving squares, their centres the joints, drawn as
+    ``draw_labelmap_np`` heatmaps behind a background channel (16 labels),
+    normalized float frames as ``JhmdbSet`` gives them; through ``test()``
+    (keypoints by ``process_pose``), then the PCK core."""
+    frames, _, centres = moving_squares(n_targets, n, n, JHMDB_JOINTS, 4)
+    gt = centres.transpose(2, 1, 0)                  # (2, J, T), 0-indexed
+    lbls = pose_label_buffer(pose_labels(gt / 8.0, n // 8, n // 8, 0.5),
+                             N_CONTEXT)
+    orig = np.concatenate([frames[:1]] * N_CONTEXT + [frames]).astype(
+        np.float32) / 255.0
+    imgs = ((orig - np.asarray(IMAGENET_MEAN, np.float32))
+            / np.asarray(IMAGENET_STD, np.float32))
+    lblset = pose_lblset(JHMDB_JOINTS)
+    preds, st, launches = tail_eval(model, imgs, orig, lbls, lblset,
+                                    "jhmdb_synthetic", out)
+    if launches != n_targets or len(preds) != n_targets:
+        fail(f"JHMDB tail: {launches} launches, {len(preds)} predictions "
+             f"for {n_targets} targets")
+    kp = st["keypoints"]
+    if kp.shape != (2, JHMDB_JOINTS, n_targets) or not np.isfinite(kp).all():
+        fail(f"JHMDB tail: keypoints {kp.shape}")
+    t0 = time.perf_counter()
+    for p in preds:
+        process_pose(p, lblset)
+    t1 = time.perf_counter()
+    pck = pck_scores([gt], [kp], [(n, n)], feat_res=(n // 8, n // 8))
+    t2 = time.perf_counter()
+    vals = [pck[t] for t in sorted(pck)]
+    if not all(0.0 <= v <= 100.0 for v in vals) or vals != sorted(vals):
+        fail(f"JHMDB tail: PCK {pck}")
+    r = dict(pck={str(k): v for k, v in pck.items()}, launches=launches,
+             prop_ms_per_target=st["propagate_s"] * 1e3 / n_targets,
+             encode_ms_per_frame=st["encode_s"] * 1e3 / st["frames"],
+             pose_ms_per_target=(t1 - t0) * 1e3 / n_targets,
+             pck_ms_per_target=(t2 - t1) * 1e3 / n_targets,
+             vs_plain=prop_against_plain(model, imgs, lbls, n_targets,
+                                         f"JHMDB {n}x{n}"))
+    print(f"JHMDB tail {n}x{n} ({n // 8}x{n // 8} maps, 16 labels), {n_targets} targets: "
+          f"PCK@0.1-0.5 " + " ".join(f"{v:.1f}" for v in vals)
+          + f" (random weights: informative only); launches {launches}; "
+          f"propagation {r['prop_ms_per_target']:.3f} ms/target, encode "
+          f"{r['encode_ms_per_frame']:.3f} ms/frame; process_pose "
+          f"{r['pose_ms_per_target']:.3f}, PCK {r['pck_ms_per_target']:.3f} "
+          f"ms/target on the host", flush=True)
+    return r
+
+
+def vip_tail(model, n_targets: int, out: str, h: int = 480, w: int = 854
+             ) -> dict:
+    """VIP's label width: 19 moving squares and the background (20
+    classes) at 480x854 (the repository fixes no VIP crop: the DAVIS
+    frame size), through ``test()`` on a ``VIP`` filelist (its
+    ``videos/`` output layout), then ``fast_hist`` and ``show_result`` on
+    per-pixel ids."""
+    frames, ids, _ = moving_squares(n_targets, h, w, VIP_CLASSES - 1, 5)
+    lbls = area_labels(np.concatenate([ids[:1]] * N_CONTEXT + [ids]),
+                       VIP_CLASSES)
+    imgs = np.concatenate([frames[:1]] * N_CONTEXT + [frames])
+    paths = [f"VIP/videos/v0/{max(i - N_CONTEXT, 0):06d}.jpg"
+             for i in range(len(imgs))]
+    lblset = np.arange(VIP_CLASSES, dtype=np.uint8)[:, None]
+    preds, st, launches = tail_eval(model, imgs, imgs, lbls, lblset,
+                                    "VIP_synthetic", out, paths)
+    if launches != n_targets or len(preds) != n_targets:
+        fail(f"VIP tail: {launches} launches, {len(preds)} predictions for "
+             f"{n_targets} targets")
+    t0 = time.perf_counter()
+    pred = pixel_ids(preds, h, w)
+    t1 = time.perf_counter()
+    hist = np.zeros((VIP_CLASSES, VIP_CLASSES))
+    for t in range(n_targets):
+        hist += fast_hist(ids[t], pred[t], VIP_CLASSES)
+    res = show_result(hist)
+    t2 = time.perf_counter()
+    if not 0.0 <= res["mIoU"] <= 1.0 or hist.sum() != n_targets * h * w:
+        fail(f"VIP tail: {res}, {hist.sum()} pixels")
+    r = dict(res, launches=launches,
+             prop_ms_per_target=st["propagate_s"] * 1e3 / n_targets,
+             upsample_ms_per_target=(t1 - t0) * 1e3 / n_targets,
+             metric_ms_per_target=(t2 - t1) * 1e3 / n_targets,
+             vs_plain=prop_against_plain(model, imgs, lbls, n_targets,
+                                         f"VIP {h}x{w}"))
+    print(f"VIP tail {h}x{w} ({lbls.shape[1]}x{lbls.shape[2]} maps, 20 labels), {n_targets} targets: "
+          f"mIoU {res['mIoU']:.4f} overall acc {res['overall_acc']:.4f} "
+          f"(random weights: informative only); launches {launches}; "
+          f"propagation {r['prop_ms_per_target']:.3f} ms/target; upsample "
+          f"+ argmax {r['upsample_ms_per_target']:.2f}, fast_hist + "
+          f"show_result {r['metric_ms_per_target']:.2f} ms/target on the "
+          f"host", flush=True)
+    return r
+
+
+def bf16_encode(n_frames: int = 10, h: int = 480, w: int = 854) -> dict:
+    """``--encode-dtype bfloat16`` against f32 on the DAVIS frames: the
+    same seeded weights, a bf16 trunk, f32 features. Fails if a frame's
+    cosine to the f32 features is 0.99 or less (the bound the JAX package
+    holds its bf16 eval to)."""
+    imgs, _ = synthetic_video(n_frames, h, w, seed=1, return_ids=True)
+    frames = imgs[N_CONTEXT:]
+    res, feats = {}, {}
+    for dt in ("float32", "bfloat16"):
+        args = eval_args()
+        args.encode_dtype = dt
+        model = build_model(args, torch.device("cuda"), seed=0)
+        feats[dt] = encode_video(model, frames)
+        if feats[dt].dtype != torch.float32:
+            fail(f"--encode-dtype {dt}: features are {feats[dt].dtype}")
+        res[f"{dt}_ms_per_frame"] = cuda_ms(
+            lambda: encode_video(model, frames), 3, 1) / n_frames
+        del model
+    a = feats["bfloat16"].reshape(n_frames, -1).double()
+    b = feats["float32"].reshape(n_frames, -1).double()
+    cos = (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-12)
+    res.update(rel_l2=float((a - b).norm() / b.norm()),
+               min_cosine=float(cos.min()))
+    print(f"--encode-dtype bfloat16 vs float32 at {h}x{w} ({n_frames} "
+          f"frames): rel L2 {res['rel_l2']:.3e}, smallest per-frame cosine "
+          f"{res['min_cosine']:.6f} (bound > 0.99); encode "
+          f"{res['bfloat16_ms_per_frame']:.3f} ms/frame bf16, "
+          f"{res['float32_ms_per_frame']:.3f} f32", flush=True)
+    if not res["min_cosine"] > 0.99:
+        fail("bf16 encode: a frame's cosine to f32 is 0.99 or less")
+    return res
+
+
+def eval_tail_phase(card: str, n_targets: int = TAIL_TARGETS) -> dict:
+    """The rest of the eval path on the card, in memory (the card's
+    machine has no cv2, PIL or imageio): the DAVIS J&F chain, JHMDB PCK at
+    its eval geometry (16 labels), VIP mIoU at its label width (20), #1
+    launched once a target and held to its plain version at both widths,
+    and ``--encode-dtype bfloat16`` against f32."""
+    model = build_model(eval_args(), torch.device("cuda"), seed=0)
+    # the JHMDB keypoints and VIP's directories go to a scratch directory
+    # inside the checkout, removed after
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as out:
+        res = dict(davis=davis_tail(model, n_targets),
+                   jhmdb=jhmdb_tail(model, n_targets, out),
+                   vip=vip_tail(model, n_targets, out))
+    del model
+    res["bf16"] = bf16_encode()
+    print(f"eval tail on {card}: propagation ms/target DAVIS "
+          f"{res['davis']['prop_ms_per_target']:.3f}, JHMDB "
+          f"{res['jhmdb']['prop_ms_per_target']:.3f}, VIP "
+          f"{res['vip']['prop_ms_per_target']:.3f}; host metrics: J and F "
+          f"{res['davis']['metric_ms_per_frame']:.2f} ms/frame, "
+          f"process_pose + PCK {res['jhmdb']['pose_ms_per_target'] + res['jhmdb']['pck_ms_per_target']:.3f} "
+          f"ms/target, fast_hist + show_result "
+          f"{res['vip']['metric_ms_per_target']:.2f} ms/target; encode "
+          f"ms/frame bf16 {res['bf16']['bfloat16_ms_per_frame']:.3f}, f32 "
+          f"{res['bf16']['float32_ms_per_frame']:.3f}", flush=True)
+    return res
 
 
 def _walk_inputs(B, T, N, C, rate, seed, absent=None):
@@ -2446,7 +2792,8 @@ PHASES = dict(prop=lambda a: kernel_vs_plain(),
               small_sp_train=lambda a: small_sp_step_card_vs_cpu(),
               ts_train=lambda a: ts_train_phase(a.steps),
               small_ts_train=lambda a: small_ts_step_card_vs_cpu(),
-              train_cli=lambda a: train_cli_phase(a.steps))
+              train_cli=lambda a: train_cli_phase(a.steps),
+              eval_tail=lambda a: eval_tail_phase(a.card))
 
 
 def main() -> int:
@@ -2471,6 +2818,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    args.card = smi
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           torch.cuda.get_device_name(0), flush=True)
 
@@ -2505,6 +2853,7 @@ def main() -> int:
     kp = kernel_vs_plain()
     e2e = end_to_end(args.targets)
     small = small_card_vs_cpu()
+    tail = eval_tail_phase(smi)
     walk = walk_kernels_vs_plain()
     walk_sweep = walk_gate_sweep()
     rconv = rconv_kernels_vs_plain()
@@ -2577,7 +2926,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(dict(card=smi, build_s=build_s, kernel=kp,
-                           end_to_end=e2e, small=small, walk=walk,
+                           end_to_end=e2e, small=small, eval_tail=tail,
+                           walk=walk,
                            walk_sweep=walk_sweep,
                            rconv=rconv, train=train, small_train=small_train,
                            slic=slic_res, dilation=dil, sp_train=sp_train,

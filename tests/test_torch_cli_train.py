@@ -416,3 +416,32 @@ def test_strict_steps_raises_on_a_short_loader(kinetics, tmp_path,
         capsys.readouterr().out
     with pytest.raises(RuntimeError, match="delivered 10 batches"):
         cli.main(train_args(argv + ["--strict-steps"]))
+
+
+def test_resumed_run_ends_bitwise_where_the_uninterrupted_run_ends(
+        kinetics, tmp_path):
+    """Two epochs of 2 steps with ``--dropout 0.1`` and the device
+    augmentations, uninterrupted, against one epoch, its ``checkpoint.pth``
+    and ``--resume`` for the second: the edge-dropout and aug streams are
+    keyed by the global step, and the sampler's pass by the epoch, so both
+    end in the same model and optimizer state, bit for bit."""
+    def run(out, *extra):
+        return cli.main(train_args(_argv(
+            kinetics, str(tmp_path / out), "--prob", "1.0",
+            "--augs-backend", "device", "--seed", "5", *extra)))
+
+    whole = run("whole", "--epochs", "2")
+    run("first", "--epochs", "1")
+    resumed = run("resumed", "--epochs", "2", "--resume",
+                  str(tmp_path / "first" / "ck" / "checkpoint.pth"))
+    assert whole.step == resumed.step == 4
+    a, b = whole.model.state_dict(), resumed.model.state_dict()
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    sa, sb = whole.optimizer.state_dict(), resumed.optimizer.state_dict()
+    assert sa["param_groups"] == sb["param_groups"]
+    for i, st in sa["state"].items():
+        for k, v in st.items():
+            assert torch.equal(torch.as_tensor(v),
+                               torch.as_tensor(sb["state"][i][k])), (i, k)

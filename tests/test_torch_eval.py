@@ -88,14 +88,24 @@ def test_eval_slice_matches_jax(fixture, tmp_path, monkeypatch, norm_mask):
 
 
 def test_unported_flags_raise():
+    """The flags still unported raise, naming themselves; the JHMDB and VIP
+    filelists, ``--pca-vis``, ``--texture`` and ``--encode-dtype bfloat16``
+    pass the check."""
     from videowalk_tpu_torch.cli.test import main
-    from videowalk_tpu_torch.utils.arguments import test_args
+    from videowalk_tpu_torch.utils.arguments import check_supported, test_args
 
-    for argv in (["--data-parallel"], ["--pca-vis"], ["--texture"],
-                 ["--model-type", "uvc"], ["--distributed"],
-                 ["--filelist", "jhmdb_vallist.txt"]):
-        with pytest.raises(NotImplementedError):
+    for argv, flag in ((["--data-parallel"], "--data-parallel"),
+                       (["--model-type", "uvc"], "--model-type uvc"),
+                       (["--distributed"], "--distributed"),
+                       (["--profile-dir", "t"], "--profile-dir"),
+                       (["--prop-backend", "xla"], "--prop-backend xla")):
+        with pytest.raises(NotImplementedError, match=flag):
             main(test_args(argv + ["--device", "cpu"]))
+    for argv in (["--pca-vis"], ["--texture"],
+                 ["--encode-dtype", "bfloat16"],
+                 ["--filelist", "jhmdb_vallist.txt"],
+                 ["--filelist", "VIP_vallist.txt"]):
+        check_supported(test_args(argv))
     args = test_args(["--cropSize", "-1"])
     assert args.device == "cuda" and args.imgSize == -1
 

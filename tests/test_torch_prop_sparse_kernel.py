@@ -102,6 +102,25 @@ def test_kernel_matches_plain_on_card(H, W, C, radius, topk, n_long,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,n_lbl", [
+    (40, 40, 256, 16),      # JHMDB at cropSize 320: 15 joints + background
+    (13, 19, 64, 16),       # ragged tiles
+    (30, 45, 256, 20),      # VIP's 20 classes
+    (17, 21, 32, 20),
+])
+def test_kernel_matches_plain_at_pose_and_parsing_label_widths(H, W, C,
+                                                               n_lbl):
+    """The eval's other label widths: 16 (JHMDB) and 20 (VIP) channels."""
+    _need_card()
+    feats, lab = _random(4 + 3, H, W, C, n_lbl, seed=n_lbl + H)
+    before = ps.prop_sparse.launches
+    err = _run_targets(feats, lab, 4, [0], 3, topk=10, temperature=0.05,
+                       radius=12.0)
+    assert ps.prop_sparse.launches == before + 3
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("H,W,radius,topk", [
     (8, 8, 3.0, 6), (13, 19, 5.5, 10), (24, 24, 12.0, 32)])
 def test_forced_ties_go_to_the_lowest_candidate_on_card(H, W, radius, topk):

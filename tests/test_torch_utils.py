@@ -79,8 +79,10 @@ def test_dump_predictions_matches_jax(tmp_path):
     pred = rng.rand(6, 8, 3).astype(np.float32)
     img = rng.randint(0, 256, (48, 64, 3)).astype(np.uint8)
     lblset = np.array([[0, 0, 0], [128, 0, 0], [0, 128, 0]], np.uint8)
-    blend_t, lbl_t = dump_predictions(pred, lblset, img, str(tmp_path / "t"))
-    blend_j, lbl_j, _ = jax_dump(pred, lblset, img, str(tmp_path / "j"))
+    blend_t, lbl_t, heat_t = dump_predictions(pred, lblset, img,
+                                              str(tmp_path / "t"))
+    blend_j, lbl_j, heat_j = jax_dump(pred, lblset, img, str(tmp_path / "j"))
+    assert heat_t is None and heat_j is None
     np.testing.assert_array_equal(blend_t, blend_j)
     np.testing.assert_array_equal(lbl_t, lbl_j)
     for suffix in ("_blend.jpg", "_mask.png"):

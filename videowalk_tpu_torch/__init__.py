@@ -6,15 +6,16 @@ module layout so each counterpart is easy to find, and it imports neither
 every Pallas TPU kernel on a ported path is a CUDA C++ kernel for Hopper
 (``sm_90a``) under ``ops/csrc/``, built at first use (``ops/_build.py``).
 
-Ported so far: the DAVIS label-propagation eval path
-(``python -m videowalk_tpu_torch.cli.test``) and CRW training in patch,
+Ported so far: the label-propagation eval path
+(``python -m videowalk_tpu_torch.cli.test`` on DAVIS, JHMDB and VIP, with
+DAVIS J&F, PCK and mIoU and the sweep runner) and CRW training in patch,
 superpixel and teacher-student mode, from the step
 (``parallel.make_train_step``) up to the trainer
 (``python -m videowalk_tpu_torch.cli.train``) and its data layer:
 
 utils     device resolution, checkpoints (.pth loading and writing,
           flax-tree import, full-state resume), argument parsers, train
-          meters, colors
+          meters, colors, the PCA feature images
 core      walk-loss math: affinities, ZeroSoftmax, palindrome products,
           Sinkhorn-Knopp and the sk-targets loss, superpixel masks
 models    ResNet-18 trunk (flax-semantics BN, bf16 compute, reflect convs
@@ -28,8 +29,10 @@ ops       CUDA kernels + their plain PyTorch versions: block-sparse top-k
           augmentations (plain PyTorch)
 parallel  optimizer, train state, train step
 eval      context bank + autoregressive propagation, prediction dumping
+          and pose keypoints; DAVIS palette conversion, J&F, JHMDB PCK,
+          VIP mIoU (numpy array cores, file shells), the sweep runner
 data      Kinetics clip index and dataset, frame-folder datasets, host
           augmentations, threaded loader, prefetch to the card; DAVIS-style
-          VOS dataset
+          VOS dataset (texture, LAB), JHMDB pose dataset
 cli       the ``train`` and ``test`` entry points
 """

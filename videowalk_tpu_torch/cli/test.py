@@ -1,9 +1,14 @@
 """Evaluation entry point: k-NN label propagation (counterpart of
 ``videowalk_tpu/cli/test.py``; reference ``code/test.py``).
 
-Per video: encoder features in minibatches -> L2 norm -> context bank ->
-autoregressive propagation through the block-sparse kernel, one launch per
-target frame -> dump blend jpg / mask png per target.
+Per video: encoder features in minibatches (an f32 trunk, or a bf16 one
+under ``--encode-dtype bfloat16``, f32 features either way) -> L2 norm ->
+context bank -> autoregressive propagation through the block-sparse kernel,
+one launch per target frame -> dump blend jpg / mask png per target. A
+filelist naming ``jhmdb`` reads ``JhmdbSet`` and also writes each video's
+keypoints (``{vid_idx}.dat``); one naming ``VIP`` writes its masks under
+``videos/`` as the dataset lays them out. ``--pca-vis`` writes PCA images
+of every 10th frame's features under ``pca/``.
 
     python -m videowalk_tpu_torch.cli.test --device cuda --filelist ... \\
         --model-type scratch --cropSize -1 --videoLen 20 --long-mem 0 \\
@@ -33,11 +38,13 @@ from videowalk_tpu_torch.utils.device import resolve_device
 def build_model(args, device: torch.device, seed: int = 0) -> CRW:
     """The CRW model in eval mode on ``device``, weights initialized from
     ``seed`` (a checkpoint loaded afterwards overrides them)."""
+    bf16 = getattr(args, "encode_dtype", "float32") == "bfloat16"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = CRW(CRWConfig(model_type=args.model_type,
                               remove_layers=tuple(args.remove_layers),
-                              head_depth=args.head_depth))
+                              head_depth=args.head_depth,
+                              dtype=torch.bfloat16 if bf16 else torch.float32))
     return model.to(device).eval()
 
 
@@ -54,8 +61,9 @@ def encode_video(model: CRW, imgs: np.ndarray, batch_size: int = 5,
       imgs: (N, H, W, 3) frames: raw uint8 (normalized on the device in
         f32: ``(x / 255 - mean) / std``) or normalized float32.
     Returns:
-      (N, C, H', W') features on the model's device, L2-normalized over C
-      with ``max(norm, 1e-12)`` when ``l2``.
+      (N, C, H', W') f32 features (whatever the trunk's compute type) on the
+      model's device, L2-normalized over C with ``max(norm, 1e-12)`` when
+      ``l2``.
     """
     device = next(model.parameters()).device
     trunk = model.encoder.model
@@ -71,7 +79,7 @@ def encode_video(model: CRW, imgs: np.ndarray, batch_size: int = 5,
             x = frames[b:b + batch_size]
             if x.dtype == torch.uint8:
                 x = (x.to(torch.float32) / 255.0 - mean) / std
-            feats.append(trunk(x.permute(0, 3, 1, 2)))
+            feats.append(trunk(x.permute(0, 3, 1, 2)).float())
         feats = torch.cat(feats)
         if l2:
             norm = torch.linalg.vector_norm(feats, dim=1, keepdim=True)
@@ -79,17 +87,36 @@ def encode_video(model: CRW, imgs: np.ndarray, batch_size: int = 5,
     return feats
 
 
+def dump_pca_vis(feats: np.ndarray, save_path: str, vid_idx: int) -> None:
+    """``--pca-vis``: PCA images of every 10th frame's features, upsampled
+    4x, as ``pca/{vid_idx}_{frame}.png``."""
+    import imageio
+
+    from videowalk_tpu_torch.utils.visualize import pca_feats
+
+    pf = pca_feats(feats[::10])                  # (n, 3, H', W') in [0, 1]
+    outdir = os.path.join(save_path, "pca")
+    os.makedirs(outdir, exist_ok=True)
+    for i, frame in enumerate(pf):
+        img = (np.kron(frame.transpose(1, 2, 0), np.ones((4, 4, 1)))
+               * 255).astype(np.uint8)
+        imageio.imwrite(os.path.join(outdir, f"{vid_idx}_{i * 10}.png"), img)
+
+
 def test(loader, model: CRW, args, dump=None):
     """Evaluate every video of ``loader`` (tuples as ``VOSDataset`` yields
-    them). ``dump(pred, lbl_map, img, outpath)`` is called per target
-    frame (default ``test_utils.dump_predictions``).
+    them). ``dump(pred, lbl_map, img, outpath, img_is_unit_scale=False)`` is
+    called per target frame (default ``test_utils.dump_predictions``).
     Returns one dict of counts and seconds per video (host clock, each phase
-    ending in a device synchronize)."""
+    ending in a device synchronize); on a JHMDB filelist it also holds the
+    keypoints ``(2, J, targets)``."""
     dump = dump or test_utils.dump_predictions
     n_context = args.videoLen
     device = next(model.parameters()).device
+    filelist = getattr(args, "filelist", "")
+    pose = "jhmdb" in filelist.lower()
     stats = []
-    for vid_idx, (imgs, imgs_orig, lbls_resize, _lbls, lbl_map, _meta) \
+    for vid_idx, (imgs, imgs_orig, lbls_resize, _lbls, lbl_map, meta) \
             in enumerate(loader):
         N = imgs.shape[0]
         print(f"******* Vid {vid_idx} ({N} frames) *******", flush=True)
@@ -99,6 +126,8 @@ def test(loader, model: CRW, args, dump=None):
         _sync(device)
         t_enc = time.perf_counter()
         print("computed features", t_enc - t0, flush=True)
+        if getattr(args, "pca_vis", False):
+            dump_pca_vis(feats.cpu().numpy(), args.save_path, vid_idx)
 
         key_indices = context_index_bank(n_context, list(args.long_mem),
                                          N - n_context)
@@ -118,6 +147,7 @@ def test(loader, model: CRW, args, dump=None):
         preds = preds.cpu().numpy()            # synchronizes
         t_prop = time.perf_counter()
         print(t_prop - t_enc, "propagation (on-device)", flush=True)
+        keypts = []
         with ThreadPoolExecutor(max_workers=2) as writers:
             futures = []
             for t in range(preds.shape[0]):
@@ -128,16 +158,29 @@ def test(loader, model: CRW, args, dump=None):
                                              1e-12)
                 frame = imgs_orig[t + n_context]     # uint8 or float in [0, 1]
                 cur_img = frame if frame.dtype == np.uint8 else frame * 255
+                if pose:
+                    keypts.append(test_utils.process_pose(pred, lbl_map)[0])
+                if "VIP" in filelist:
+                    outpath = os.path.join(
+                        args.save_path, "videos" + meta["img_paths"][
+                            t + n_context].split("videos")[-1])
+                    os.makedirs(os.path.dirname(outpath), exist_ok=True)
+                else:
+                    outpath = os.path.join(args.save_path, f"{vid_idx}_{t}")
                 futures.append(writers.submit(
-                    dump, pred, lbl_map, cur_img,
-                    os.path.join(args.save_path, f"{vid_idx}_{t}")))
+                    dump, pred, lbl_map, cur_img, outpath,
+                    img_is_unit_scale=False))
             for f in futures:
                 f.result()
+        st = dict(frames=N, targets=int(preds.shape[0]))
+        if keypts:
+            st["keypoints"] = np.stack(keypts, axis=-1)
+            st["keypoints"].dump(os.path.join(args.save_path,
+                                              f"{vid_idx}.dat"))
         t_end = time.perf_counter()
         print(f"******* Vid {vid_idx} TOOK {t_end - t0} *******", flush=True)
-        stats.append(dict(frames=N, targets=int(preds.shape[0]),
-                          encode_s=t_enc - t0, propagate_s=t_prop - t_enc,
-                          total_s=t_end - t0))
+        stats.append(dict(st, encode_s=t_enc - t0,
+                          propagate_s=t_prop - t_enc, total_s=t_end - t0))
     return stats
 
 
@@ -148,10 +191,12 @@ def main(args):
           torch.cuda.get_device_name(device) if device.type == "cuda" else "")
     model = build_model(args, device)
     args.mapScale = test_utils.infer_downscale(model.spec.map_scale)
+    args.use_lab = args.model_type == "uvc"
 
-    from videowalk_tpu_torch.data.vos import VOSDataset
+    from videowalk_tpu_torch.data import jhmdb, vos
 
-    dataset = VOSDataset(args)
+    dataset = (vos.VOSDataset if "jhmdb" not in args.filelist
+               else jhmdb.JhmdbSet)(args)
     if args.resume and os.path.isfile(args.resume):
         print("==> Resuming from checkpoint..")
         ckpt = load_checkpoint(args.resume)

@@ -158,6 +158,15 @@ def _on(x, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def seed_step_streams(run: Training, seed: int, step: int) -> None:
+    """Key the edge-dropout/featdrop stream and the device-aug stream of the
+    next step by ``(seed, global step)``, as the JAX trainer folds the
+    global step into its keys: a resumed run draws what the uninterrupted
+    run drew at the same step. Seeding a CUDA generator waits for nothing."""
+    for gen, stream in ((run.step_gen, 1234), (run.aug_gen, 1235)):
+        gen.manual_seed(hash((seed + stream, step)) & 0xFFFF_FFFF_FFFF_FFFF)
+
+
 def train_one_epoch(args, run: Training, epoch: int) -> TrainState:
     """One epoch of ``run``: at most ``--steps-per-epoch`` steps, the
     epoch's checkpoint at the end. Nothing in a step waits for the card:
@@ -185,6 +194,7 @@ def train_one_epoch(args, run: Training, epoch: int) -> TrainState:
         if step_i >= args.steps_per_epoch:
             break
         delivered += 1
+        seed_step_streams(run, args.seed, state.step)
         if device_augs:
             views = train_transform_device(
                 _on(views["raw"], dev), run.aug_gen, img_size=args.img_size,
@@ -313,6 +323,11 @@ def build(args, device: torch.device, dataset=None) -> Training:
         args.start_epoch = int(ckpt.get("epoch", -1)) + 1
         print(f"Resumed from {args.resume}: step={state.step}, "
               f"start_epoch={args.start_epoch}", flush=True)
+    if sampler is not None:
+        # epoch e reads the sampler's pass e + 1: a run that starts at a
+        # later epoch skips the passes of the epochs before it
+        for _ in range(args.start_epoch):
+            iter(sampler)
 
     def device_slic_fn(unnorm: torch.Tensor, host_rng) -> torch.Tensor:
         if args.randomise_superpixels:
@@ -348,12 +363,12 @@ def build(args, device: torch.device, dataset=None) -> Training:
         loader = DevicePrefetcher(loader, args.prefetch, keys=keys,
                                   device=state.device)
 
-    gens = [torch.Generator(device=state.device).manual_seed(args.seed + s)
-            for s in (1234, 1235)]
-    return Training(state=state, step=make_train_step(), loader=loader,
-                    dataset=dataset, step_gen=gens[0],
-                    aug_gen=gens[1], checkpoint_fn=checkpoint_fn,
-                    device_slic_fn=device_slic_fn)
+    run = Training(state=state, step=make_train_step(), loader=loader,
+                   dataset=dataset, step_gen=torch.Generator(state.device),
+                   aug_gen=torch.Generator(state.device),
+                   checkpoint_fn=checkpoint_fn, device_slic_fn=device_slic_fn)
+    seed_step_streams(run, args.seed, state.step)
+    return run
 
 
 def main(args, dataset=None) -> TrainState:

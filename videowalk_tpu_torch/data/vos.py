@@ -9,10 +9,11 @@
 - label set from frame 0's unique colors (one channel when the palette is
   consecutive);
 - one-hot and feature-resolution label caches saved next to the data
-  (``*_onehot.npy`` / ``*_size{h}x{w}.npy``).
+  (``*_onehot.npy`` / ``*_size{h}x{w}.npy``);
+- the striped ``--texture`` label mode and LAB color (``use_lab``, set for
+  ``uvc``): the L channel in [-1, 1] in all three channels.
 
-cv2 is imported when a video is read. The striped ``--texture`` mode and
-LAB color (``uvc``) are not ported.
+cv2 is imported when a video is read.
 """
 
 from __future__ import annotations
@@ -22,10 +23,27 @@ import os
 
 import numpy as np
 
-from videowalk_tpu_torch.utils.colors import pack_rgb
+from videowalk_tpu_torch.utils.colors import PAIRED, pack_rgb
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def load_image(path: str) -> np.ndarray:
+    """BGR file -> float32 RGB (H, W, 3) in [0, 1]."""
+    import cv2
+
+    img = cv2.imread(path)
+    if img is None:
+        raise IOError(f"cannot read image: {path}")
+    return (img.astype(np.float32) / 255.0)[:, :, ::-1].copy()
+
+
+def resize_hw(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bilinear resize to (h, w)."""
+    import cv2
+
+    return cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)
 
 
 def make_lbl_set(lbls: np.ndarray) -> np.ndarray:
@@ -46,6 +64,22 @@ def onehot_from_lblset(lbl: np.ndarray, lblset: np.ndarray) -> np.ndarray:
     return np.stack([np.all(lbl == ll, axis=-1) for ll in lblset], axis=-1)
 
 
+def texturize(onehot: np.ndarray) -> np.ndarray:
+    """Striped-label mode (reference vos.py:77-101): the rows where any
+    object appears are split into up to 10 horizontal stripes."""
+    hidxs = [h for h in range(onehot.shape[0])
+             if np.any(onehot[h, :, 1:] == 1)]
+    nstripes = min(10, len(hidxs))
+    out = np.zeros((*onehot.shape[:2], nstripes + 1))
+    out[:, :, 0] = 1
+    for i, h in enumerate(hidxs):
+        cidx = int(i // (len(hidxs) / nstripes))
+        w = np.any(onehot[h, :, 1:] == 1, axis=-1)
+        out[h][w] = 0
+        out[h][w, cidx + 1] = 1
+    return out
+
+
 def try_np_load(p):
     """A label cache, or None when it is missing or unreadable."""
     try:
@@ -56,9 +90,8 @@ def try_np_load(p):
 
 class VOSDataset:
     def __init__(self, args):
-        if getattr(args, "texture", False) or getattr(args, "use_lab", False):
-            raise NotImplementedError(
-                "--texture and LAB color (uvc) are not ported yet")
+        self.texture = bool(getattr(args, "texture", False))
+        self.use_lab = bool(getattr(args, "use_lab", False))
         self.filelist = args.filelist
         self.imgSize = args.imgSize
         self.videoLen = args.videoLen
@@ -92,21 +125,28 @@ class VOSDataset:
 
         img_paths, lbl_paths = self.make_paths(self.jpgfiles[index],
                                                self.lblfiles[index])
-        raw_u8 = self.imgSize <= 0
+        raw_u8 = self.imgSize <= 0 and not self.use_lab
 
         def _decode_one(pair):
             ip, lp = pair
-            bgr = cv2.imread(ip)
-            if bgr is None:
-                raise IOError(f"cannot read image: {ip}")
             lblimg = cv2.imread(lp)
             if raw_u8:
+                bgr = cv2.imread(ip)
+                if bgr is None:
+                    raise IOError(f"cannot read image: {ip}")
                 img = np.ascontiguousarray(bgr[:, :, ::-1])   # uint8 RGB
                 return img, img, lblimg
-            img = (bgr.astype(np.float32) / 255.0)[:, :, ::-1].copy()
-            n = self.imgSize
-            img = cv2.resize(img, (n, n), interpolation=cv2.INTER_LINEAR)
-            lblimg = cv2.resize(lblimg, (n, n), interpolation=cv2.INTER_NEAREST)
+            img = load_image(ip)
+            if self.imgSize > 0:
+                n = self.imgSize
+                img = resize_hw(img, n, n)
+                lblimg = cv2.resize(lblimg, (n, n),
+                                    interpolation=cv2.INTER_NEAREST)
+            if self.use_lab:
+                u8 = (img * 255).astype(np.uint8)[:, :, ::-1]   # RGB->BGR
+                lab = cv2.cvtColor(u8, cv2.COLOR_BGR2LAB)
+                lab = (lab.astype(np.float32) - 128.0) / 128.0
+                return np.stack([lab[..., 0]] * 3, axis=-1), img, lblimg
             norm = ((img - np.asarray(IMAGENET_MEAN, np.float32))
                     / np.asarray(IMAGENET_STD, np.float32))
             return norm, img, lblimg
@@ -149,6 +189,15 @@ class VOSDataset:
                     except OSError:
                         pass
                 cache[p] = resized
+            if self.texture:
+                # frame 0's stripes for the videoLen prefix, zeros after;
+                # the label set from cm.Paired
+                striped = texturize(cache[p])
+                lblset = np.array([[0, 0, 0]] + [
+                    PAIRED[j] for j in range(striped.shape[-1])]) * 255.0
+                resizes = [striped] * self.videoLen + [
+                    np.zeros(striped.shape)] * (len(lbl_paths) - self.videoLen)
+                break
             resizes.append(cache[p])
 
         if raw_u8:

@@ -1,1 +1,2 @@
-"""Utilities: device resolution, checkpoints, argument parsing, colors."""
+"""Utilities: device resolution, checkpoints, argument parsing, colors,
+the PCA feature images."""

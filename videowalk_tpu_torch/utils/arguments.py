@@ -23,17 +23,11 @@ def check_supported(args) -> None:
     for flag, on in (
             ("--data-parallel", getattr(args, "data_parallel", False)),
             ("--distributed", getattr(args, "distributed", False)),
-            ("--pca-vis", getattr(args, "pca_vis", False)),
-            ("--texture", getattr(args, "texture", False)),
-            ("--encode-dtype bfloat16",
-             getattr(args, "encode_dtype", "float32") != "float32"),
             ("--profile-dir", bool(getattr(args, "profile_dir", ""))),
             ("--prop-backend " + str(getattr(args, "prop_backend", "auto")),
              getattr(args, "prop_backend", "auto") not in ("auto", "sparse")),
             ("--model-type " + args.model_type,
-             args.model_type not in ("scratch", "scratch_zeropad")),
-            ("a JHMDB/VIP --filelist", "jhmdb" in args.filelist.lower()
-             or "VIP" in args.filelist)):
+             args.model_type not in ("scratch", "scratch_zeropad"))):
         if on:
             bad.append(flag)
     if bad:

@@ -139,6 +139,19 @@ card.
    written by ``save_checkpoint`` (#4 x15 a step, the teacher bitwise
    unchanged). Each gives ms a step by the host clock and by path (CUDA
    events) beside the bare step of its config run in this process.
+16. The encoder variants (``encoders``): the flagship step with the
+   ``scratch50`` ResNet-50 trunk (default route: #5, #9, #10 15 times a
+   step, #4 and #6-#8 never; 29.30 TFLOP a step; profiled), a small f32
+   ``scratch50`` step card vs CPU, remat off, ``layer1`` and ``all`` on the
+   flagship step (the first two losses and the BN statistics after the
+   first step within 1e-6 of the off arm; #5 once more a step for each
+   routed conv a rematerialized stage recomputes; step ms and peak
+   memory), a seeded ResNet-50 under torchvision's key names written to a
+   temporary ``.pth`` and loaded through ``--pretrained-path``
+   (``imagenet50``) into ``cli.test.test()`` at the Eval config (layer4
+   removed, C = 1024: #1 streams its query tile, once a target, held to
+   its plain version on the eval's features), and #1 against its plain
+   version on random and near-tie features at C = 1024 and 2048.
 
 Prints one JSON line of kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -148,6 +161,7 @@ no result). It needs a CUDA card and the repository around it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -171,6 +185,7 @@ from videowalk_tpu_torch.eval.eval_vip import fast_hist, show_result
 from videowalk_tpu_torch.eval.test_utils import process_pose
 from videowalk_tpu_torch.models import CRW, CRWConfig, CRWTeacherStudent
 from videowalk_tpu_torch.models.crw import superpixel_pool_weights
+from videowalk_tpu_torch.models.resnet import remat_stage_set, resnet50
 from videowalk_tpu_torch.ops import _build
 from videowalk_tpu_torch.ops import prop_sparse as ps
 from videowalk_tpu_torch.ops import rconv as rc
@@ -301,8 +316,8 @@ def lowfreq_features(rng: np.random.RandomState, h: int, w: int, c: int,
         + (base[y0 + 1][:, x0] * (1 - fx) + base[y0 + 1][:, x0 + 1] * fx) * fy)
 
 
-def prop_inputs(kind: str, n_targets: int):
-    """Features ``(N, H, W, C)`` (unit rows) and the label buffer ``(N, H,
+def prop_inputs(kind: str, n_targets: int, c: int = C):
+    """Features ``(N, H, W, c)`` (unit rows) and the label buffer ``(N, H,
     W, NL)`` with frames 0..N_CONTEXT given. ``random``: independent unit
     vectors and one-hot labels of random cells (near-ties rare). ``near_tie``:
     every frame a copy of one smooth texture rolled by one cell every two
@@ -314,11 +329,11 @@ def prop_inputs(kind: str, n_targets: int):
     N = N_CONTEXT + n_targets
     lab = np.zeros((N, H, W, NL), np.float32)
     if kind == "random":
-        f = rng.randn(N, H, W, C).astype(np.float32)
+        f = rng.randn(N, H, W, c).astype(np.float32)
         lab[:N_CONTEXT + 1] = np.eye(NL, dtype=np.float32)[
             rng.randint(0, NL, (H, W))]
     else:
-        tex = lowfreq_features(rng, H, W, C)
+        tex = lowfreq_features(rng, H, W, c)
         regions = np.eye(NL, dtype=np.float32)[
             lowfreq_features(rng, H, W, NL).argmax(-1)]
         f = np.stack([np.roll(tex, t // 2, axis=1) for t in range(N)])
@@ -353,23 +368,26 @@ def topk_set_differs(feats, rows, kw) -> float:
     return float(differs.float().mean())
 
 
-def kernel_vs_plain(n_targets: int = 4) -> dict:
+def kernel_vs_plain(n_targets: int = 4, c: int = C) -> dict:
     """Phase 2: kernel and plain version target by target on one shared
     label buffer (each target's kernel prediction written back, as the
-    eval writes it), on the random and the near-tie feature sets; the share
-    of queries whose top-k ids differ; times on the random set."""
+    eval writes it), on the random and the near-tie feature sets of ``c``
+    channels; the share of queries whose top-k ids differ; times on the
+    random set."""
     rows = context_index_bank(N_CONTEXT, LONG_MEM, n_targets)
     kw = dict(n_long=len(LONG_MEM), topk=TOPK, temperature=TEMP,
               radius=RADIUS)
-    for c, k, r in ((C, TOPK, RADIUS), (512, 32, RADIUS), (576, 10, RADIUS),
-                    (20, 32, 12.5), (256, 10, 40.0)):
-        src = int(ps._lib().prop_sparse_smem_bytes(c, k, ps.sparse_halo(r)))
-        if src != ps.smem_bytes(c, k, r):
-            fail(f"prop_sparse.smem_bytes({c}, {k}, {r}) = "
-                 f"{ps.smem_bytes(c, k, r)}, the source's {src}")
-    res = {}
+    for cc, k, r in ((C, TOPK, RADIUS), (512, 32, RADIUS), (576, 10, RADIUS),
+                     (608, 10, RADIUS), (1024, TOPK, RADIUS),
+                     (2048, 32, RADIUS), (20, 32, 12.5), (256, 10, 40.0)):
+        src = int(ps._lib().prop_sparse_smem_bytes(cc, k, ps.sparse_halo(r)))
+        if src != ps.smem_bytes(cc, k, r):
+            fail(f"prop_sparse.smem_bytes({cc}, {k}, {r}) = "
+                 f"{ps.smem_bytes(cc, k, r)}, the source's {src}")
+    res = dict(channels=c, query_tile=(
+        "streamed" if ps.streams_query(c, TOPK, RADIUS) else "resident"))
     for kind in ("random", "near_tie"):
-        feats, buf = prop_inputs(kind, n_targets)
+        feats, buf = prop_inputs(kind, n_targets, c)
         errs = []
         for i in range(n_targets):
             t = int(rows[i, -1]) + 1
@@ -385,7 +403,8 @@ def kernel_vs_plain(n_targets: int = 4) -> dict:
         r = dict(max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
                  frac_over_1e4=float((err > 1e-4).mean()),
                  topk_differs=topk_set_differs(feats, rows, kw))
-        print(f"prop_sparse vs plain at DAVIS-480p, {kind} features "
+        print(f"prop_sparse vs plain at DAVIS-480p, C={c} ({res['query_tile']} "
+              f"query tile), {kind} features "
               f"({n_targets} targets, autoregressive): max|d| "
               f"{r['max_abs_err']:.3e} mean|d| {r['mean_abs_err']:.3e} cells "
               f"|d|>1e-4 {r['frac_over_1e4']:.5f} (tolerance: |d| <= 1e-4 on "
@@ -393,7 +412,7 @@ def kernel_vs_plain(n_targets: int = 4) -> dict:
               f"{r['topk_differs']:.5f}", flush=True)
         if r["frac_over_1e4"] > 1e-3:
             fail(f"kernel disagrees with its plain version on more than 0.1% "
-                 f"of cells by more than 1e-4 ({kind} features)")
+                 f"of cells by more than 1e-4 ({kind} features, C={c})")
         if kind == "random":
             idx = torch.from_numpy(rows[-1]).cuda()
             t_last = int(rows[-1, -1]) + 1
@@ -402,14 +421,14 @@ def kernel_vs_plain(n_targets: int = 4) -> dict:
             r["plain_ms"] = cuda_ms(lambda: ps.prop_sparse_plain(
                 feats, buf, idx, t_last, **kw), 3, 1)
             print(f"prop_sparse {r['ms']:.3f} ms/target (median of 20), "
-                  f"plain {r['plain_ms']:.3f} ms/target", flush=True)
+                  f"plain {r['plain_ms']:.3f} ms/target at C={c}", flush=True)
         res[kind] = r
         del feats, buf
     L = rows.shape[1]
     pairs = ps.valid_pairs(H, W, RADIUS, len(LONG_MEM), L - len(LONG_MEM))
     scored = scored_pairs(L)
-    flops = 2.0 * C * pairs
-    nbytes = 4.0 * ((L + 1) * H * W * C + L * H * W * NL + H * W * NL) + 4 * L
+    flops = 2.0 * c * pairs
+    nbytes = 4.0 * ((L + 1) * H * W * c + L * H * W * NL + H * W * NL) + 4 * L
     res.update(res.pop("random"))
     res.update(pairs=pairs, scored_pairs=scored, gflop=flops / 1e9,
                ops_ms=flops / FP32_PEAK * 1e3,
@@ -418,7 +437,7 @@ def kernel_vs_plain(n_targets: int = 4) -> dict:
     res["bound_ms"] = max(res["ops_ms"], res["bytes_ms"])
     res["bound_by"] = "operations" if res["ops_ms"] >= res["bytes_ms"] \
         else "bytes"
-    print(f"prop_sparse bound {res['bound_ms']:.3f} ms "
+    print(f"prop_sparse bound at C={c} {res['bound_ms']:.3f} ms "
           f"({res['gflop']:.1f} GFLOP f32 over {pairs} valid pairs; "
           f"{res['tf32_ms']:.3f} ms for the same as 3xTF32 on the tensor "
           f"cores); "
@@ -1563,6 +1582,26 @@ def conv_fwd_flops_per_image() -> int:
     return f
 
 
+def bottleneck_fwd_flops_per_image() -> int:
+    """Forward conv FLOPs of the modified ResNet-50 (``scratch50``) on one
+    64 px patch, as ``conv_fwd_flops_per_image`` counts ResNet-18's: per
+    Bottleneck the 1x1 at the input's size, the 3x3 (stride on it), the
+    expanding 1x1 and block 0's projection; 29.30 TFLOP a flagship step
+    (three passes)."""
+    f = 2 * 32 * 32 * 49 * 3 * 64                      # stem 7x7/2
+    cin, hw = 64, 16
+    for planes, n_blocks, stride in ((64, 3, 1), (128, 4, 2), (256, 6, 1),
+                                     (512, 3, 1)):
+        for b in range(n_blocks):
+            o = hw // (stride if b == 0 else 1)
+            f += (2 * hw * hw * cin * planes + 2 * o * o * 9 * planes * planes
+                  + 2 * o * o * planes * 4 * planes)
+            if b == 0:
+                f += 2 * o * o * cin * 4 * planes      # projection
+            cin, hw = 4 * planes, o
+    return f
+
+
 def seeded_crw(cfg: CRWConfig, seed: int) -> CRW:
     """The model, initialized on the CPU from ``seed``."""
     with torch.random.fork_rng(devices=[]):
@@ -1660,12 +1699,14 @@ def profile_steps(run, n: int = 3, steps_per_run: int = 1) -> dict:
 
 def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
               n_warmup: int = 3, profile: bool = False,
-              teacher_student: bool = False) -> dict:
+              teacher_student: bool = False,
+              model_type: str = "scratch") -> dict:
     """``bench.py``'s flagship training step with the reflect convs routed
     by ``rconv`` / ``bn_fuse``: seeded init, ``n_warmup`` steps, then
     ``n_steps`` timed ones with every kernel count zeroed just before and
     read just after. Each walk kernel must run once a step and each
-    reflect-conv kernel ``expect[name]`` times a step.
+    reflect-conv kernel ``expect[name]`` times a step. ``model_type``
+    ``scratch50`` takes the ResNet-50 trunk (and its FLOP count).
 
     ``teacher_student``: the same step of ``CRWTeacherStudent`` (``seeded_ts``)
     with the teacher frozen; no walk kernel may run, every teacher
@@ -1673,7 +1714,7 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
     the FLOPs count the teacher's forward beside the student's forward and
     backward."""
     dev = torch.device("cuda")
-    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
+    cfg = CRWConfig(model_type=model_type, temperature=WALK_TEMP,
                     edgedrop_rate=EDGEDROP, dtype=torch.bfloat16,
                     rconv=rconv, bn_fuse=bn_fuse)
     if teacher_student:
@@ -1705,6 +1746,7 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
     want = dict(walk_fwd=walks, walk_bwd=walks,
                 **{k: v * n_steps for k, v in expect.items()})
     tag = (("teacher-student, " if teacher_student else "")
+           + ("" if model_type == "scratch" else f"{model_type}, ")
            + f"rconv={rconv!r}, bn_fuse={bn_fuse!r}")
     if launches != want:
         fail(f"{tag}: kernel launches {launches} in {n_steps} steps, want "
@@ -1714,8 +1756,11 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
     if not all(np.isfinite(losses + parts)):
         fail(f"{tag}: non-finite training loss: {losses} {parts}")
     passes = 4 if teacher_student else 3     # + the teacher's forward
-    flops = passes * conv_fwd_flops_per_image() * BATCH * CLIP_LEN * N_PATCHES
+    per_image = (bottleneck_fwd_flops_per_image() if model_type == "scratch50"
+                 else conv_fwd_flops_per_image())
+    flops = passes * per_image * BATCH * CLIP_LEN * N_PATCHES
     res = dict(model="teacher_student" if teacher_student else "crw",
+               model_type=model_type,
                rconv=rconv, bn_fuse=bn_fuse, steps=n_steps, step_ms=dt * 1e3,
                clips_per_s=BATCH / dt, tflop_per_step=flops / 1e12,
                mfu=flops / dt / BF16_PEAK,
@@ -1771,55 +1816,88 @@ def train_step_phase(n_steps: int) -> dict:
     return arms
 
 
-def small_step_card_vs_cpu() -> dict:
+def _grad_rel_l2(got: dict, want: dict) -> float:
+    """Relative L2 distance of two gradient sets, over all parameters."""
+    num = sum(float(((got[k].double() - want[k].double()) ** 2).sum())
+              for k in want)
+    return (num / sum(float((want[k].double() ** 2).sum())
+                      for k in want)) ** 0.5
+
+
+def small_step_card_vs_cpu(model_type: str = "scratch",
+                           expect: dict | None = None,
+                           f64_reference: bool = False) -> dict:
     """Phase 7: one f32 forward/backward with every supported reflect conv
-    routed and every block on the BN-input chain (the default routes),
+    routed and every block on the BN-input chain (the default routes; a
+    ``scratch50`` trunk's Bottlenecks take #5 and no chain, ``expect``),
     card (kernels) vs CPU
     (plain versions), same weights, same 64 px clips, same edge-drop masks.
     Tolerances: loss rtol 1e-4 and q atol 1e-4 (f32 convolutions by
     different algorithms); gradients 2e-2 relative in L2 over all
     parameters (the early layers' f32 gradients are badly conditioned at
     random weights; the CPU tests measure the same spread against JAX and
-    f64)."""
+    f64).
+
+    ``f64_reference``: the same step also in f64 on the CPU, and the
+    gradient bound is the card's distance to those f64 gradients: 2e-2, or
+    1.5x the CPU's own f32 distance to them where that is larger. (The
+    ``scratch50`` trunk's f32 gradients at these weights are 2.4e-2 from
+    f64 on the CPU alone, so no f32 evaluation meets 2e-2 against
+    another.)"""
     B, T, N = 2, 4, 4
-    cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP)
+    cfg = CRWConfig(model_type=model_type, temperature=WALK_TEMP)
+    expect = dict(ARMS)[DEFAULT_ARM] if expect is None else expect
     rng = np.random.RandomState(6)
     x = torch.from_numpy(rng.randn(B, T, N, PATCH, PATCH, 3).astype(np.float32))
     masks = [torch.from_numpy(rng.rand(B, T - 1, N, N) < EDGEDROP)
              for _ in range(2)]
     out = {}
     before = (wk.walk_fwd.launches, wk.walk_bwd.launches, rconv_counts())
-    for name in ("cuda", "cpu"):
-        dev = torch.device(name)
-        model = seeded_crw(cfg, seed=3).to(dev)
-        q, loss, _ = model(x.to(dev), train=True,
+    runs = (("cuda", torch.float32), ("cpu", torch.float32)) + (
+        (("cpu64", torch.float64),) if f64_reference else ())
+    for name, dtype in runs:
+        dev = torch.device(name.removesuffix("64"))
+        model = seeded_crw(dataclasses.replace(cfg, dtype=dtype),
+                           seed=3).to(dev, dtype)
+        q, loss, _ = model(x.to(dev, dtype), train=True,
                            walk_masks=[m.to(dev) for m in masks])
         loss.backward()
         out[name] = (q.detach().cpu(), float(loss.detach()),
                      {k: p.grad.cpu() for k, p in model.named_parameters()})
-    launched = dict(walk_fwd=wk.walk_fwd.launches - before[0],
-                    walk_bwd=wk.walk_bwd.launches - before[1],
-                    **{k: v - before[2][k] for k, v in rconv_counts().items()})
+        if name == "cuda":
+            launched = dict(
+                walk_fwd=wk.walk_fwd.launches - before[0],
+                walk_bwd=wk.walk_bwd.launches - before[1],
+                **{k: v - before[2][k] for k, v in rconv_counts().items()})
     wk.walk_fwd.launches, wk.walk_bwd.launches = before[:2]  # not the path's
     set_rconv_counts(before[2])
     (qc, lc, gc), (qh, lh, gh) = out["cuda"], out["cpu"]
-    num = sum(float(((gc[k] - gh[k]) ** 2).sum()) for k in gh)
-    den = sum(float((gh[k] ** 2).sum()) for k in gh)
     res = dict(loss_cuda=lc, loss_cpu=lh, loss_rel=abs(lc - lh) / abs(lh),
                q_max_abs_err=float((qc - qh).abs().max()),
-               grad_rel_l2=(num / den) ** 0.5, kernel_launches=launched)
-    print(f"small f32 step (B,T,N)=({B},{T},{N}) {PATCH}px, default "
-          f"routes, card "
+               grad_rel_l2=_grad_rel_l2(gc, gh), kernel_launches=launched)
+    grad_ok = res["grad_rel_l2"] <= 2e-2
+    bound = "grads 2e-2"
+    if f64_reference:
+        g64 = out["cpu64"][2]
+        res.update(card_vs_f64=_grad_rel_l2(gc, g64),
+                   cpu_vs_f64=_grad_rel_l2(gh, g64))
+        res["f64_bound"] = max(2e-2, 1.5 * res["cpu_vs_f64"])
+        grad_ok = res["card_vs_f64"] <= res["f64_bound"]
+        bound = (f"grads to f64: card {res['card_vs_f64']:.2e}, the CPU's "
+                 f"f32 {res['cpu_vs_f64']:.2e}, bound "
+                 f"{res['f64_bound']:.2e}")
+    print(f"small f32 {model_type} step (B,T,N)=({B},{T},{N}) {PATCH}px, "
+          f"default routes, card "
           f"vs CPU: loss {lc:.6f} vs {lh:.6f} (rel {res['loss_rel']:.2e}), q "
           f"max|d| {res['q_max_abs_err']:.2e}, grads rel L2 "
           f"{res['grad_rel_l2']:.2e} (tolerance: loss rtol 1e-4, q 1e-4, "
-          f"grads 2e-2); kernel launches on the card {launched}", flush=True)
-    if launched != dict(walk_fwd=1, walk_bwd=1, **dict(ARMS)[DEFAULT_ARM]):
-        fail("the card's small step did not go through the walk and the "
-             "reflect-conv kernels")
+          f"{bound}); kernel launches on the card {launched}", flush=True)
+    if launched != dict(walk_fwd=1, walk_bwd=1, **expect):
+        fail(f"the card's small {model_type} step did not go through the "
+             f"walk and the reflect-conv kernels")
     if not (res["loss_rel"] <= 1e-4 and res["q_max_abs_err"] <= 1e-4
-            and res["grad_rel_l2"] <= 2e-2):
-        fail("card and CPU training steps disagree")
+            and grad_ok):
+        fail(f"card and CPU {model_type} training steps disagree")
     return res
 
 
@@ -2779,6 +2857,242 @@ def train_cli_phase(n_steps: int) -> dict:
     return res
 
 
+# the scratch50 trunk's routed 3x3s (conv2 of each Bottleneck but
+# layer2.0's, which has stride 2) by stage: 15 a step on #5, #9, #10 under
+# the default route (no BN-input chain in a Bottleneck)
+R50_ROUTED = dict(layer1=3, layer2=3, layer3=6, layer4=3)
+R50_LAUNCHES = _launches(fwd_stats=15, dx=15, dw=15)
+R50_EVAL_TARGETS, R50_PLAIN_TARGETS = 20, 8
+
+
+def remat_arm(stages: str | None, n_steps: int, n_warmup: int = 1) -> tuple:
+    """The ``scratch50`` flagship step with ``remat_stages=stages`` (None:
+    remat off), seeded as ``train_arm``. Two steps first under cuDNN's
+    deterministic algorithms: the first step's loss, gradients and the BN
+    running statistics after it, and the second step's loss, are what the
+    arms compare. Then (``n_steps`` > 0) ``n_warmup`` steps and ``n_steps``
+    timed ones with the counts zeroed just before and read just after: #5
+    launches once a routed conv a step and again for each conv a
+    rematerialized stage recomputes; #9, #10 and the walk as without remat.
+    Returns the numbers, the statistics and the gradients."""
+    dev = torch.device("cuda")
+    cfg = CRWConfig(model_type="scratch50", temperature=WALK_TEMP,
+                    edgedrop_rate=EDGEDROP, dtype=torch.bfloat16,
+                    remat=stages is not None, remat_stages=stages)
+    model = seeded_crw(cfg, seed=0)
+    state = create_train_state(model, make_optimizer(lr=3e-4), device=dev)
+    step = make_train_step()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = torch.randn((BATCH, CLIP_LEN, N_PATCHES, PATCH, PATCH, 3),
+                        generator=gen, device=dev)
+    torch.backends.cudnn.deterministic = True
+    try:
+        first = [float(step(state, batch, gen)["loss"])]
+        stats = {k: v.clone() for k, v in model.named_buffers()
+                 if "running" in k}
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        first.append(float(step(state, batch, gen)["loss"]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    name = "off" if stages is None else stages
+    res = dict(stages=name, first_losses=first)
+    if not np.all(np.isfinite(first)):
+        fail(f"scratch50 remat {name}: non-finite loss {first}")
+    if n_steps:
+        for _ in range(n_warmup):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wk.walk_fwd.launches = wk.walk_bwd.launches = 0
+        set_rconv_counts(dict.fromkeys(R50_LAUNCHES, 0))
+        t0 = time.perf_counter()
+        losses = [float(step(state, batch, gen)["loss"])
+                  for _ in range(n_steps)]
+        dt = (time.perf_counter() - t0) / n_steps
+        launches = dict(walk_fwd=wk.walk_fwd.launches,
+                        walk_bwd=wk.walk_bwd.launches, **rconv_counts())
+        recomputed = 0 if stages is None else sum(
+            R50_ROUTED[s] for s in remat_stage_set(stages))
+        want = dict(walk_fwd=n_steps, walk_bwd=n_steps,
+                    **{k: v * n_steps for k, v in R50_LAUNCHES.items()})
+        want["fwd_stats"] += recomputed * n_steps
+        if launches != want:
+            fail(f"scratch50 remat {name}: launches {launches} in {n_steps} "
+                 f"steps, want {want}")
+        if not np.all(np.isfinite(losses)):
+            fail(f"scratch50 remat {name}: non-finite loss {losses}")
+        res.update(steps=n_steps, step_ms=dt * 1e3, clips_per_s=BATCH / dt,
+                   recomputed_convs=recomputed,
+                   max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches_per_step={k: v / n_steps
+                                      for k, v in launches.items()})
+        print(f"scratch50 step, remat {name}: {res['step_ms']:.2f} ms/step "
+              f"over {n_steps} steps, peak {res['max_memory_gib']:.2f} GiB; "
+              f"#5 {res['launches_per_step']['fwd_stats']:.0f} a step (15 + "
+              f"{recomputed} recomputed); first losses {first}", flush=True)
+    tracked = {int(v) for k, v in model.named_buffers()
+               if k.endswith("num_batches_tracked")}
+    if tracked != {state.step}:
+        fail(f"scratch50 remat {name}: BN statistics updated {tracked} "
+             f"times in {state.step} steps")
+    del state, batch, model
+    torch.cuda.empty_cache()
+    return res, stats, grads
+
+
+def _rel(a: dict, b: dict) -> float:
+    """The largest relative max-difference of ``a``'s tensors to ``b``'s."""
+    return max(float((v.double() - b[k].double()).abs().max()
+                     / b[k].double().abs().max().clamp_min(1e-30))
+               for k, v in a.items())
+
+
+def remat_arms(n_steps: int) -> dict:
+    """Remat off, ``layer1`` and ``all`` on the ``scratch50`` flagship step,
+    one after another in this process, and the first two steps of the off
+    arm once more. Against the off arm, within 1e-6 relative: the first
+    step's loss and the BN running statistics after it (what a recompute
+    that updated the statistics again, or computed another forward, would
+    move); every BN's update count equals the steps taken (``remat_arm``).
+    The first step's gradients within 5e-2 relative in L2: the backward of
+    the reflect pads and of the stem's max pool accumulates with atomics on
+    the card, and the trunk's BN backward magnifies that order, so two runs
+    of one arm part by ~4e-3 (the repeated off arm measures it, and the
+    second loss's spread, which those gradients move through Adam); a
+    wrong backward parts by O(1)."""
+    res, stats, grads = {}, {}, {}
+    for stages, n in ((None, n_steps), ("off again", 0), ("layer1", n_steps),
+                      ("all", n_steps)):
+        name = stages or "off"
+        r, stats[name], grads[name] = remat_arm(
+            None if stages == "off again" else stages, n)
+        res[name] = dict(r, stages=name)
+    off = res["off"]
+    for name in ("off again", "layer1", "all"):
+        r = res[name]
+        r.update(
+            loss_rel=abs(r["first_losses"][0] - off["first_losses"][0])
+            / abs(off["first_losses"][0]),
+            bn_stats_rel=_rel(stats[name], stats["off"]),
+            grad_rel_l2=_grad_rel_l2(grads[name], grads["off"]),
+            second_loss_rel=abs(r["first_losses"][1] - off["first_losses"][1])
+            / abs(off["first_losses"][1]))
+        print(f"remat {name} vs off: first loss rel {r['loss_rel']:.2e}, BN "
+              f"running statistics rel {r['bn_stats_rel']:.2e} (tolerance "
+              f"1e-6); first step's gradients rel L2 {r['grad_rel_l2']:.2e} "
+              f"(tolerance 5e-2); second loss rel {r['second_loss_rel']:.2e}"
+              + (f"; {r['step_ms']:.2f} vs {off['step_ms']:.2f} ms/step, "
+                 f"{r['max_memory_gib']:.2f} vs {off['max_memory_gib']:.2f} "
+                 f"GiB" if "step_ms" in r else ""), flush=True)
+        if not (r["loss_rel"] <= 1e-6 and r["bn_stats_rel"] <= 1e-6
+                and r["grad_rel_l2"] <= 5e-2):
+            fail(f"remat {name} disagrees with remat off")
+    return res
+
+
+def torchvision_resnet50_state(seed: int) -> dict:
+    """A ResNet-50 ``state_dict`` under torchvision's key names, built by
+    hand from the port's trunk (no torchvision here) plus the ``fc`` head
+    the trunk drops: He-scaled kernels, BN weights near 1, small biases and
+    running means, running variances in [0.5, 1.5]."""
+    rng = np.random.RandomState(seed)
+    shapes = {k: tuple(v.shape) for k, v in resnet50().state_dict().items()}
+    shapes.update({"fc.weight": (1000, 2048), "fc.bias": (1000,)})
+    out = {}
+    for k, shape in shapes.items():
+        if k.endswith("num_batches_tracked"):
+            out[k] = torch.tensor(0, dtype=torch.int64)
+            continue
+        if k.endswith("running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif len(shape) > 1:
+            v = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        elif k.endswith("weight"):
+            v = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            v = 0.1 * rng.randn(*shape)
+        out[k] = torch.from_numpy(v.astype(np.float32))
+    return out
+
+
+def resnet50_eval(n_targets: int = R50_EVAL_TARGETS) -> dict:
+    """The Eval cell with a ResNet-50: a seeded ``imagenet50`` file written
+    to a temporary ``.pth`` and loaded through ``--pretrained-path``
+    (``cli.test.build_model``), layer4 removed (C = 1024), the eval video at
+    480x854 through ``cli.test.test()``; #1 once a target (its count zeroed
+    just before and read just after), then held to its plain version on the
+    eval's own features."""
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "imagenet50.pth")
+        torch.save(torchvision_resnet50_state(seed=11), path)
+        args = eval_args()
+        args.model_type, args.pretrained_path = "imagenet50", path
+        model = build_model(args, torch.device("cuda"), seed=0)
+    if model.spec.hid_dim != 1024:
+        fail(f"imagenet50 without layer4: {model.spec.hid_dim} channels")
+    imgs, lbls, lblset = synthetic_video(n_targets, 480, 854, seed=1)
+    run_eval(model, imgs[:N_CONTEXT + 2], lbls[:N_CONTEXT + 2], lblset)  # warm
+    torch.cuda.synchronize()
+    ps.prop_sparse.launches = 0                      # counts: main path only
+    preds, st = run_eval(model, imgs, lbls, lblset)
+    launches = ps.prop_sparse.launches
+    if len(preds) != n_targets or launches != n_targets:
+        fail(f"ResNet-50 eval: {len(preds)} predictions, {launches} kernel "
+             f"launches for {n_targets} targets")
+    for p in preds:
+        if p.shape != (H, W, 3) or not np.isfinite(p).all():
+            fail(f"ResNet-50 eval: bad prediction {p.shape}")
+    if not np.array_equal(preds[0], lbls[0]):
+        fail("ResNet-50 eval: first target is not the frame-0 ground truth")
+    res = dict(channels=1024, frames=st["frames"], targets=st["targets"],
+               launches=launches,
+               encode_ms_per_frame=st["encode_s"] * 1e3 / st["frames"],
+               prop_ms_per_target=st["propagate_s"] * 1e3 / st["targets"],
+               e2e_ms_per_frame=st["total_s"] * 1e3 / st["targets"],
+               vs_plain=prop_against_plain(
+                   model, imgs[:N_CONTEXT + R50_PLAIN_TARGETS],
+                   lbls[:N_CONTEXT + R50_PLAIN_TARGETS], R50_PLAIN_TARGETS,
+                   "ResNet-50 DAVIS 480x854, C=1024"))
+    print(f"ResNet-50 (imagenet50 from --pretrained-path, C=1024) eval "
+          f"480x854, {st['frames']} frames ({n_targets} targets): encode "
+          f"{res['encode_ms_per_frame']:.2f} ms/frame, propagation "
+          f"{res['prop_ms_per_target']:.2f} ms/target, end to end "
+          f"{res['e2e_ms_per_frame']:.2f} ms/frame; launches {launches}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def encoders_phase(card: str, n_steps: int) -> dict:
+    """The encoder variants on the card: the ``scratch50`` flagship step
+    (default route, profiled), a small f32 ``scratch50`` step card vs CPU,
+    the remat arms, the ResNet-50 eval at C = 1024, and #1 against its
+    plain version on random and near-tie features at C = 1024 and 2048."""
+    res = dict(train=train_arm(*DEFAULT_ARM, R50_LAUNCHES, n_steps,
+                               profile=True, model_type="scratch50"))
+    res["small_train"] = small_step_card_vs_cpu("scratch50", R50_LAUNCHES,
+                                                f64_reference=True)
+    res["remat"] = remat_arms(min(n_steps, 5))
+    res["eval"] = resnet50_eval()
+    res["prop1024"] = kernel_vs_plain(4, 1024)
+    res["prop2048"] = kernel_vs_plain(3, 2048)
+    t = res["train"]
+    print(f"encoders on {card}: scratch50 step {t['step_ms']:.2f} ms, "
+          f"{t['clips_per_s']:.2f} clips/s, MFU {100 * t['mfu']:.2f}% "
+          f"({t['tflop_per_step']:.2f} TFLOP/step), {t['max_memory_gib']:.2f} "
+          f"GiB; remat " + ", ".join(
+              f"{k} {v['step_ms']:.2f} ms {v['max_memory_gib']:.2f} GiB"
+              for k, v in res["remat"].items() if "step_ms" in v)
+          + f"; ResNet-50 eval {res['eval']['e2e_ms_per_frame']:.2f} ms a "
+          f"target frame; #1 at C=1024 {res['prop1024']['ms']:.3f} ms "
+          f"(bound {res['prop1024']['bound_ms']:.3f}), at C=2048 "
+          f"{res['prop2048']['ms']:.3f} ms (bound "
+          f"{res['prop2048']['bound_ms']:.3f})", flush=True)
+    return res
+
+
 PHASES = dict(prop=lambda a: kernel_vs_plain(),
               eval=lambda a: end_to_end(a.targets),
               small_eval=lambda a: small_card_vs_cpu(),
@@ -2793,7 +3107,8 @@ PHASES = dict(prop=lambda a: kernel_vs_plain(),
               ts_train=lambda a: ts_train_phase(a.steps),
               small_ts_train=lambda a: small_ts_step_card_vs_cpu(),
               train_cli=lambda a: train_cli_phase(a.steps),
-              eval_tail=lambda a: eval_tail_phase(a.card))
+              eval_tail=lambda a: eval_tail_phase(a.card),
+              encoders=lambda a: encoders_phase(a.card, a.steps))
 
 
 def main() -> int:
@@ -2866,6 +3181,7 @@ def main() -> int:
     ts_train = ts_train_phase(args.steps)
     small_ts_train = small_ts_step_card_vs_cpu()
     train_cli = train_cli_phase(args.steps)
+    encoders = encoders_phase(smi, args.steps)
 
     kernels = [dict(
         name="prop_sparse_topk", route="cuda",
@@ -2933,7 +3249,7 @@ def main() -> int:
                            slic=slic_res, dilation=dil, sp_train=sp_train,
                            small_sp_train=small_sp_train,
                            ts_train=ts_train, small_ts_train=small_ts_train,
-                           train_cli=train_cli,
+                           train_cli=train_cli, encoders=encoders,
                            kernels=kernels, ptxas=logs,
                            wgmma_verdicts=verdicts), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

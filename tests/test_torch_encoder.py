@@ -82,9 +82,24 @@ def test_state_dict_names_are_the_reference_names():
 
 
 def test_queued_model_types_raise():
+    """No model type is queued any more: the reference's eight build with
+    the JAX factory's trunk, width and padding; an unknown one raises."""
+    from videowalk_tpu.models.encoder import make_encoder as jax_make_encoder
+
     from videowalk_tpu_torch.models.encoder import make_encoder
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_encoder("imagenet50")
+    for model_type in ("scratch", "scratch_zeropad", "scratch50",
+                       "imagenet18", "imagenet50", "moco50", "timecycle",
+                       "uvc"):
+        spec = make_encoder(model_type, ("layer4",))
+        jspec = jax_make_encoder(model_type, ("layer4",))
+        assert (spec.hid_dim, spec.map_scale) == (jspec.hid_dim,
+                                                  jspec.map_scale)
+        trunk = spec.module.model
+        assert (trunk.conv1.reflect_pad > 0) == (
+            jspec.module.model.padding_mode == "reflect"), model_type
+        assert len(trunk.layer3) == (6 if model_type.endswith("50")
+                                     or model_type in ("moco50", "timecycle")
+                                     else 2), model_type
     with pytest.raises(ValueError):
         make_encoder("nope")

@@ -89,13 +89,12 @@ def test_eval_slice_matches_jax(fixture, tmp_path, monkeypatch, norm_mask):
 
 def test_unported_flags_raise():
     """The flags still unported raise, naming themselves; the JHMDB and VIP
-    filelists, ``--pca-vis``, ``--texture`` and ``--encode-dtype bfloat16``
-    pass the check."""
+    filelists, ``--pca-vis``, ``--texture``, ``--encode-dtype bfloat16``
+    and every model type pass the check."""
     from videowalk_tpu_torch.cli.test import main
     from videowalk_tpu_torch.utils.arguments import check_supported, test_args
 
     for argv, flag in ((["--data-parallel"], "--data-parallel"),
-                       (["--model-type", "uvc"], "--model-type uvc"),
                        (["--distributed"], "--distributed"),
                        (["--profile-dir", "t"], "--profile-dir"),
                        (["--prop-backend", "xla"], "--prop-backend xla")):
@@ -104,7 +103,10 @@ def test_unported_flags_raise():
     for argv in (["--pca-vis"], ["--texture"],
                  ["--encode-dtype", "bfloat16"],
                  ["--filelist", "jhmdb_vallist.txt"],
-                 ["--filelist", "VIP_vallist.txt"]):
+                 ["--filelist", "VIP_vallist.txt"]) + tuple(
+                     ["--model-type", t] for t in (
+                         "scratch50", "imagenet18", "imagenet50", "moco50",
+                         "timecycle", "uvc")):
         check_supported(test_args(argv))
     args = test_args(["--cropSize", "-1"])
     assert args.device == "cuda" and args.imgSize == -1

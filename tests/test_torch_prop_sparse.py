@@ -60,6 +60,22 @@ def test_propagation_matches_pallas_interpret(H, W, radius, topk, seed,
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("C", [1024, 2048])
+def test_wide_features_match_pallas_interpret(C):
+    """ResNet-50's feature widths (1024 without layer4, 2048 with it),
+    which the CUDA kernel takes with its query tile streamed: the plain
+    version against the Pallas kernel in interpret mode on small frames,
+    the tolerance above."""
+    n_context, N_targets, H, W = 3, 4, 9, 12
+    feats, labels0 = _setup(3, n_context, N_targets, C, H, W, 4)
+    key_indices = context_index_bank(n_context, [0], N_targets)
+    got, want = _both(feats, labels0, key_indices, n_context=n_context,
+                      n_long=1, topk=5, temperature=0.05, radius=4.0)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert ps.sparse_supported(C, 10, 4, 12.0) and ps.streams_query(
+        C, 10, 12.0)
+
+
 def test_first_target_is_ground_truth():
     H, W = 8, 8
     n_context, N_targets, C, n_lbl = 3, 4, 8, 4
@@ -120,11 +136,14 @@ def test_valid_pairs_counts_the_disk():
 
 def test_gate_follows_shared_memory():
     """The gate is the source's shared-memory budget (``smem_bytes`` mirrors
-    ``prop_sparse_smem_bytes``) and its halo is the disk's reach."""
+    ``prop_sparse_smem_bytes``) and its halo is the disk's reach. Past C =
+    576 (k = 10, r = 12) the query tile streams, so every width fits."""
     assert ps.sparse_supported(256, 10, 4, 12.0)      # DAVIS
     assert ps.sparse_supported(512, 10, 4, 12.0)      # layer4 kept
     assert ps.sparse_supported(512, 32, 4, 12.0)
-    assert not ps.sparse_supported(1024, 10, 4, 12.0)  # past one block's memory
+    for c in (1024, 2048):                            # ResNet-50
+        assert ps.sparse_supported(c, 10, 4, 12.0)
+        assert ps.sparse_supported(c, 32, 20, 12.0)
     # DAVIS: the query tile, two stages of 256 keys x 32 channels, the
     # lists of 10, two chunks' key cells, offsets and slots, eight warps'
     # scratch, 8 + 2 * 11 union rows, two counters
@@ -133,7 +152,13 @@ def test_gate_follows_shared_memory():
                                             + 8 * 64 * 4 + 30 * 16 + 16)
     assert ps.smem_bytes(20, 10, 12.0) == ps.smem_bytes(32, 10, 12.0)
     assert ps.sparse_supported(576, 10, 4, 12.0)
-    assert not ps.sparse_supported(608, 10, 4, 12.0)
+    assert not ps.streams_query(576, 10, 12.0)          # the resident tile
+    assert ps.sparse_supported(608, 10, 4, 12.0)
+    assert ps.streams_query(608, 10, 12.0)
+    # streamed: two stages of 64 queries x 32 channels, whatever C is
+    assert ps.smem_bytes(1024, 10, 12.0) == ps.smem_bytes(2048, 10, 12.0) \
+        == (4 * (2 * 64 * 32 + 2 * 256 * 32) + 64 * 10 * 8 + 2 * 256 * 12
+            + 8 * 64 * 4 + 30 * 16 + 16)
     assert not ps.sparse_supported(254, 10, 4, 12.0)   # rows not 16 bytes
     assert not ps.sparse_supported(256, 33, 4, 12.0)   # k past the kernel's bound
     assert (ps.sparse_halo(12.0), ps.sparse_halo(12.5), ps.sparse_halo(5.5),

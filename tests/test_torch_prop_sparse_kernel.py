@@ -152,3 +152,29 @@ def test_kernel_repeats_bitwise_on_card():
     kw = dict(n_long=1, topk=10, temperature=0.05, radius=12.0)
     first = ps.prop_sparse(feats, lab, ctx, 5, **kw)
     assert torch.equal(first, ps.prop_sparse(feats, lab, ctx, 5, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,radius", [
+    (30, 45, 1024, 12.0),   # ResNet-50 without layer4; DAVIS's radius
+    (17, 21, 2048, 5.5),    # with layer4; ragged tiles
+    (16, 24, 612, 4.0),     # just past the resident tile; a channel tail
+])
+def test_kernel_matches_plain_with_the_query_tile_streamed(H, W, C, radius):
+    """Widths whose query tile does not fit one block (``streams_query``):
+    random unit features within 1e-4 of the plain version, and exact ties
+    (four channels at 1/2 among C) to the same candidates within 1e-6."""
+    _need_card()
+    assert ps.streams_query(C, 10, radius)
+    feats, lab = _random(3 + 3, H, W, C, 4, seed=C)
+    before = ps.prop_sparse.launches
+    err = _run_targets(feats, lab, 3, [0], 3, topk=10, temperature=0.05,
+                       radius=radius)
+    assert ps.prop_sparse.launches == before + 3
+    assert err <= 1e-4, err
+    tied, lab = _tied(3 + 3, H, W, 5, seed=C)
+    wide = torch.zeros(tied.shape[:3] + (C,))
+    wide[..., :: C // 8][..., :8] = tied
+    err = _run_targets(wide, lab, 3, [0], 3, topk=10, temperature=0.5,
+                       radius=radius)
+    assert err <= 1e-6, err

@@ -8,7 +8,9 @@ one launch per target frame -> dump blend jpg / mask png per target. A
 filelist naming ``jhmdb`` reads ``JhmdbSet`` and also writes each video's
 keypoints (``{vid_idx}.dat``); one naming ``VIP`` writes its masks under
 ``videos/`` as the dataset lays them out. ``--pca-vis`` writes PCA images
-of every 10th frame's features under ``pca/``.
+of every 10th frame's features under ``pca/``. A pretrained model type
+(``imagenet18``, ``imagenet50``, ``moco50``, ``timecycle``, ``uvc``) loads
+its encoder from ``--pretrained-path`` first; ``--resume`` loads over it.
 
     python -m videowalk_tpu_torch.cli.test --device cuda --filelist ... \\
         --model-type scratch --cropSize -1 --videoLen 20 --long-mem 0 \\
@@ -33,11 +35,15 @@ from videowalk_tpu_torch.models import CRW, CRWConfig
 from videowalk_tpu_torch.utils.arguments import check_supported
 from videowalk_tpu_torch.utils.checkpoint import load_checkpoint, partial_load
 from videowalk_tpu_torch.utils.device import resolve_device
+from videowalk_tpu_torch.utils.pretrained import (PRETRAINED_TYPES,
+                                                  apply_pretrained_encoder)
 
 
 def build_model(args, device: torch.device, seed: int = 0) -> CRW:
     """The CRW model in eval mode on ``device``, weights initialized from
-    ``seed`` (a checkpoint loaded afterwards overrides them)."""
+    ``seed``, then, for a pretrained model type, its encoder from
+    ``--pretrained-path`` (a checkpoint loaded afterwards overrides
+    them)."""
     bf16 = getattr(args, "encode_dtype", "float32") == "bfloat16"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -45,6 +51,11 @@ def build_model(args, device: torch.device, seed: int = 0) -> CRW:
                               remove_layers=tuple(args.remove_layers),
                               head_depth=args.head_depth,
                               dtype=torch.bfloat16 if bf16 else torch.float32))
+    if args.model_type in PRETRAINED_TYPES:
+        path = getattr(args, "pretrained_path", "")
+        apply_pretrained_encoder(model, args.model_type, path, verbose=False)
+        print(f"Loaded pretrained {args.model_type} encoder from {path}",
+              flush=True)
     return model.to(device).eval()
 
 

@@ -37,6 +37,7 @@ from videowalk_tpu_torch.data.loader import DataLoader
 from videowalk_tpu_torch.data.prefetch import DevicePrefetcher
 from videowalk_tpu_torch.data.video import VideoList
 from videowalk_tpu_torch.models import CRW, CRWConfig, CRWTeacherStudent
+from videowalk_tpu_torch.models.resnet import remat_stage_set
 from videowalk_tpu_torch.ops.augs_device import train_transform_device
 from videowalk_tpu_torch.ops.slic import slic_fused
 from videowalk_tpu_torch.parallel import (TrainState, create_train_state,
@@ -47,6 +48,8 @@ from videowalk_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                   resume_schedule,
                                                   save_checkpoint)
 from videowalk_tpu_torch.utils.device import resolve_device
+from videowalk_tpu_torch.utils.pretrained import (PRETRAINED_TYPES,
+                                                  apply_pretrained_encoder)
 from videowalk_tpu_torch.utils.meters import MetricLogger, SmoothedValue
 
 # --steps-per-epoch's "unlimited" default: at or above it the flag was not
@@ -72,7 +75,30 @@ def model_config(args) -> CRWConfig:
         dilation_kernel_shape=args.dilation_kernel_shape,
         dilation_kernel_size=args.dilation_kernel_size,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        remat=args.remat,
+        remat_stages=args.remat_stages,
     )
+
+
+def resolve_remat_args(args) -> None:
+    """``--remat-stages`` at startup, in place (the JAX
+    ``resolve_remat_args``): an explicit stage list is checked now, so a
+    typo fails before any step, and is inert, with a warning, without
+    ``--remat``; bare ``--remat`` takes ``layer1``, the JAX package's
+    default (its batch-32 ladder's winner, measured on a TPU and not yet on
+    the card); ``--remat-stages all`` is full remat."""
+    if args.remat_stages is not None:
+        remat_stage_set(args.remat_stages)
+        if not args.remat:
+            print("WARNING: --remat-stages is inert without --remat "
+                  "(selective remat only chooses WHICH stages remat)",
+                  flush=True)
+    elif args.remat:
+        args.remat_stages = "layer1"
+        print("NOTE: --remat without --remat-stages uses 'layer1' (the JAX "
+              "package's measured default, a TPU result). Pass "
+              "--remat-stages all for full remat if activations do not "
+              "fit.", flush=True)
 
 
 def make_dataset(args, transform):
@@ -285,6 +311,15 @@ def build(args, device: torch.device, dataset=None) -> Training:
         model, optimizer, device=device,
         frozen_prefixes=("teacher.",) if args.teacher_student else ())
 
+    if args.model_type in PRETRAINED_TYPES:
+        # the reference's make_encoder loads these inside construction
+        # (code/utils/__init__.py:300-351); a teacher, a partial reload or
+        # a resume below overrides them
+        apply_pretrained_encoder(state.model, args.model_type,
+                                 args.pretrained_path, verbose=False)
+        print(f"Loaded pretrained {args.model_type} encoder weights from "
+              f"{args.pretrained_path}", flush=True)
+
     if args.teacher_student:
         # the reference loads the teacher unconditionally
         # (teacherstudent.py:321-328): a random frozen teacher would train
@@ -376,6 +411,7 @@ def main(args, dataset=None) -> TrainState:
     ``dataset`` replaces ``make_dataset``'s (any object with the
     ``Kinetics400`` item contract)."""
     check_supported_train(args)
+    resolve_remat_args(args)
     device = resolve_device(args.device)
     if args.teacher_student and args.prob != 1:
         raise ValueError(    # the reference asserts it (train.py:136-137)

@@ -82,6 +82,10 @@ class CRWConfig:
     # from the conv's epilogue; 'auto' also folds bn1's affine and ReLU into
     # a routed conv2's operand (the BN-input chain); 'off' does neither
     bn_fuse: str = "auto"
+    # rematerialize the trunk's blocks in the backward pass: the stages of
+    # remat_stages (a comma list; None, "" or "all": every stage)
+    remat: bool = False
+    remat_stages: str | None = None
 
 
 def fused_walk_route(cfg: CRWConfig, T: int, N: int, C: int) -> bool:
@@ -210,7 +214,8 @@ class CRW(nn.Module):
             raise ValueError(f"fused_walk={cfg.fused_walk!r}: want auto | on | off")
         self.cfg = cfg
         self.spec = make_encoder(cfg.model_type, cfg.remove_layers, cfg.dtype,
-                                 cfg.rconv, cfg.bn_fuse)
+                                 cfg.rconv, cfg.bn_fuse, cfg.remat,
+                                 cfg.remat_stages)
         self.encoder = self.spec.module
         self.selfsim_fc = Head(self.spec.hid_dim, cfg.head_depth,
                                bias=cfg.head_bias)

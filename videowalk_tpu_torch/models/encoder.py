@@ -13,12 +13,20 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from videowalk_tpu_torch.models.resnet import ResNet, resnet18
+from videowalk_tpu_torch.models.resnet import ResNet, resnet18, resnet50
 
-# model types whose port is still queued (ROADMAP.md, Queue 1 item 5:
-# ResNet-50 trunks and the pretrained imports)
-_QUEUED_TYPES = ("scratch50", "imagenet18", "imagenet50", "moco50",
-                 "timecycle", "uvc")
+# model type -> (trunk, padding); the pretrained types take their weights
+# from a local checkpoint afterwards (utils/pretrained.py)
+_TRUNKS = {
+    "scratch": (resnet18, "reflect"),
+    "scratch_zeropad": (resnet18, "zeros"),
+    "scratch50": (resnet50, "reflect"),
+    "imagenet18": (resnet18, "zeros"),
+    "imagenet50": (resnet50, "zeros"),
+    "moco50": (resnet50, "zeros"),
+    "timecycle": (resnet50, "zeros"),
+    "uvc": (resnet18, "zeros"),
+}
 
 
 class From3D(nn.Module):
@@ -57,22 +65,22 @@ def map_scale(trunk: ResNet) -> int:
 def make_encoder(model_type: str = "scratch",
                  remove_layers: Sequence[str] = (),
                  dtype: torch.dtype = torch.float32, rconv: str = "auto",
-                 bn_fuse: str = "auto") -> EncoderSpec:
-    """``scratch``: ResNet-18, reflect padding, stride-1 layer3/4;
-    ``scratch_zeropad``: the same with zeros padding. ``dtype`` is the
-    trunk's compute type (parameters stay f32); ``rconv`` and ``bn_fuse``
-    route its reflect convs (``models/resnet.py``). Rematerialization
-    (``remat_stages``) is still queued (ROADMAP.md, Queue 1 item 5)."""
-    if model_type == "scratch":
-        trunk = resnet18("reflect", tuple(remove_layers), dtype, rconv,
-                         bn_fuse)
-    elif model_type == "scratch_zeropad":
-        trunk = resnet18("zeros", tuple(remove_layers), dtype, rconv, bn_fuse)
-    elif model_type in _QUEUED_TYPES:
-        raise NotImplementedError(
-            f"model type {model_type!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 5: ResNet-50 trunks and pretrained imports)")
-    else:
+                 bn_fuse: str = "auto", remat: bool = False,
+                 remat_stages: str | None = None) -> EncoderSpec:
+    """An encoder by the reference's model-type name (reference
+    ``code/utils/__init__.py:300-351``): ``scratch`` ResNet-18 with reflect
+    padding, ``scratch_zeropad`` the same with zeros, ``scratch50``
+    ResNet-50 with reflect padding; ``imagenet18`` and ``uvc`` ResNet-18,
+    ``imagenet50``, ``moco50`` and ``timecycle`` ResNet-50, all with zeros
+    padding, whose weights ``utils/pretrained.py`` imports from a local
+    file. Every trunk has stride-1 layer3/4. ``dtype`` is the trunk's
+    compute type (parameters stay f32); ``rconv`` and ``bn_fuse`` route its
+    reflect convs, ``remat`` / ``remat_stages`` rematerialize its stages
+    (``models/resnet.py``)."""
+    if model_type not in _TRUNKS:
         raise ValueError(f"invalid model_type: {model_type!r}")
+    build, padding = _TRUNKS[model_type]
+    trunk = build(padding, tuple(remove_layers), dtype, rconv, bn_fuse,
+                  remat, remat_stages)
     return EncoderSpec(module=From3D(trunk), hid_dim=trunk.hid_dim,
                        map_scale=map_scale(trunk))

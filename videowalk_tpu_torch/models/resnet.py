@@ -1,7 +1,8 @@
-"""ResNet-18 trunk with the reference's ``modify()`` semantics.
+"""ResNet-18 and ResNet-50 trunks with the reference's ``modify()``
+semantics.
 
-Counterpart of ``videowalk_tpu/models/resnet.py`` (torchvision BasicBlock
-semantics, reference ``code/resnet.py``):
+Counterpart of ``videowalk_tpu/models/resnet.py`` (torchvision
+``BasicBlock`` and ``Bottleneck`` semantics, reference ``code/resnet.py``):
 
 - stride-1 layer3/4 (every conv of those stages, the 1x1 projection too);
 - reflect padding is ``F.pad(mode="reflect")`` + an unpadded conv; zeros
@@ -39,16 +40,26 @@ is the JAX package's ``VIDEOWALK_BN_FUSE``:
   never written;
 - ``"off"``: the unfused BN everywhere.
 
-Eval mode takes neither fold.
+Eval mode takes neither fold. A ``Bottleneck`` takes the moment fold on
+its 3x3 (``conv2``) and no BN-input chain, as in the JAX package.
+
+``remat`` / ``remat_stages`` rematerialize the blocks of the listed stages
+in the backward pass (``torch.utils.checkpoint``, the JAX ``nn.remat``).
+The recomputed forward does not update the BN running statistics again:
+they move once a step, as under JAX's recompute. Launch counters count a
+recomputed kernel twice.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from videowalk_tpu_torch.ops.rconv import (reflect_conv3x3,
                                            reflect_conv3x3_bnin_stats,
@@ -59,6 +70,41 @@ from videowalk_tpu_torch.ops.reflect_conv import (check_rconv_mode,
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1      # torch convention: new = 0.9 * running + 0.1 * batch
 STAGE_WIDTHS = (64, 128, 256, 512)
+ALL_STAGES = frozenset({"layer1", "layer2", "layer3", "layer4"})
+
+# set while torch.utils.checkpoint recomputes a block's forward
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = False
+
+
+def _remat_contexts():
+    """``checkpoint``'s ``context_fn``: nothing around the first forward,
+    ``_recomputing`` around the recompute."""
+    return contextlib.nullcontext(), _recomputing()
+
+
+def remat_stage_set(remat_stages: str | None) -> frozenset:
+    """The stages ``remat_stages`` names: ``None``, ``""`` and ``"all"`` are
+    every stage, else a comma list. An unknown name raises: a typo would
+    buy no memory and cost the recompute (the JAX ``_remat_stage_set``,
+    whose ``VIDEOWALK_REMAT_STAGES`` knob is an argument here)."""
+    if remat_stages is None or remat_stages in ("", "all"):
+        return ALL_STAGES
+    stages = frozenset(s.strip() for s in remat_stages.split(",") if s.strip())
+    bad = stages - ALL_STAGES
+    if bad:
+        raise ValueError(
+            f"remat_stages contains unknown stage(s) {sorted(bad)}; "
+            f"valid: {sorted(ALL_STAGES)} or 'all'")
+    return stages
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -70,7 +116,8 @@ class BatchNorm(nn.BatchNorm2d):
     - output ``(y - mean) * (rsqrt(var + eps) * weight) + bias`` in f32,
       cast back to ``dtype`` (flax's ``_normalize`` order);
     - running statistics ``0.9 * running + 0.1 * batch`` with that *biased*
-      variance (``nn.BatchNorm2d`` uses the unbiased one), updated in place.
+      variance (``nn.BatchNorm2d`` uses the unbiased one), updated in place,
+      and not again when a rematerialized block recomputes its forward.
 
     ``moments=(s1, s2)`` (train mode) are the f32 per-channel sums of ``x``
     and ``x²`` over N·H·W, from the conv's epilogue (the JAX package's
@@ -98,6 +145,8 @@ class BatchNorm(nn.BatchNorm2d):
             count = x.numel() // x.shape[1]
             mean, ex2 = moments[0] / count, moments[1] / count
         var = torch.clamp(ex2 - mean * mean, min=0.0)
+        if getattr(_recompute, "on", False):
+            return mean, var
         with torch.no_grad():
             self.running_mean.mul_(1 - self.momentum).add_(
                 mean.detach(), alpha=self.momentum)
@@ -184,6 +233,35 @@ def check_bn_fuse(bn_fuse: str) -> None:
         raise ValueError(f"bn_fuse={bn_fuse!r}: want auto | stats | off")
 
 
+def _conv_moments(conv: PadConv2d, x: torch.Tensor, train: bool,
+                  bn_fuse: str):
+    """The conv's raw output and the following BN's moments: from the
+    conv's epilogue where the conv routes to the kernels, BN is in train
+    mode and ``bn_fuse`` is not off, else ``None`` (the BN then reduces its
+    own; the JAX ``_conv_moments`` / ``_conv_bn``)."""
+    if train and bn_fuse != "off" and conv.routes(x):
+        y, s1, s2 = conv.forward_stats(x)
+        return y, (s1, s2)
+    return conv(x), None
+
+
+def _projection(cin: int, cout: int, stride: int, padding_mode: str,
+                dtype: torch.dtype) -> nn.ModuleList:
+    """The shortcut's 1x1 conv + BN (``downsample.0`` / ``downsample.1``)."""
+    return nn.ModuleList([
+        PadConv2d(cin, cout, 1, stride, 0, padding_mode, dtype, "off"),
+        BatchNorm(cout, dtype)])
+
+
+def _shortcut(downsample: nn.ModuleList | None, x: torch.Tensor,
+              train: bool) -> torch.Tensor:
+    """``x``, or its projection where the block has one."""
+    if downsample is None:
+        return x
+    conv, bn = downsample
+    return bn(conv(x), train)
+
+
 class BasicBlock(nn.Module):
     """Two 3x3 convs + identity/projection shortcut (ResNet-18 block)."""
 
@@ -203,23 +281,11 @@ class BasicBlock(nn.Module):
         self.bn2 = BatchNorm(filters, dtype)
         self.downsample = None
         if stride != 1 or cin != filters:
-            self.downsample = nn.ModuleList([
-                PadConv2d(cin, filters, 1, stride, 0, padding_mode, dtype,
-                          "off"),
-                BatchNorm(filters, dtype)])
-
-    def _conv_moments(self, conv: PadConv2d, x: torch.Tensor, train: bool):
-        """The conv's raw output and the following BN's moments: from the
-        conv's epilogue where the conv routes to the kernels, BN is in
-        train mode and ``bn_fuse`` is not off, else ``None`` (the BN then
-        reduces its own; the JAX ``_conv_moments`` / ``_conv_bn``)."""
-        if train and self.bn_fuse != "off" and conv.routes(x):
-            y, s1, s2 = conv.forward_stats(x)
-            return y, (s1, s2)
-        return conv(x), None
+            self.downsample = _projection(cin, filters, stride, padding_mode,
+                                          dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y1, m1 = self._conv_moments(self.conv1, x, train)
+        y1, m1 = _conv_moments(self.conv1, x, train, self.bn_fuse)
         if train and self.bn_fuse == "auto" and self.conv2.routes(y1):
             # the BN-input chain: conv1's raw output goes straight into
             # conv2's kernel, which applies bn1's affine and the ReLU to its
@@ -229,13 +295,48 @@ class BasicBlock(nn.Module):
             y = self.bn2(y, train, moments=(s1, s2))
         else:
             y = F.relu(self.bn1(y1, train, moments=m1))
-            y, m2 = self._conv_moments(self.conv2, y, train)
+            y, m2 = _conv_moments(self.conv2, y, train, self.bn_fuse)
             y = self.bn2(y, train, moments=m2)
-        residual = x
-        if self.downsample is not None:
-            conv, bn = self.downsample
-            residual = bn(conv(x), train)
-        return F.relu(y + residual)
+        return F.relu(y + _shortcut(self.downsample, x, train))
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck (ResNet-50 block), torchvision
+    semantics: the stride on the 3x3, expansion 4, a projection shortcut
+    where the stride or the width changes. The 3x3 is a ``PadConv2d``
+    (the reflect-conv kernels where it routes, with bn2's moments from its
+    epilogue in train mode unless ``bn_fuse`` is off); the 1x1s and the
+    projection are plain convs."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, stride: int, padding_mode: str,
+                 dtype: torch.dtype = torch.float32, rconv: str = "auto",
+                 bn_fuse: str = "auto"):
+        super().__init__()
+        check_bn_fuse(bn_fuse)
+        self.bn_fuse = bn_fuse
+        cout = filters * self.expansion
+        self.conv1 = PadConv2d(cin, filters, 1, 1, 0, padding_mode, dtype,
+                               "off")
+        self.bn1 = BatchNorm(filters, dtype)
+        self.conv2 = PadConv2d(filters, filters, 3, stride, 1, padding_mode,
+                               dtype, rconv)
+        self.bn2 = BatchNorm(filters, dtype)
+        self.conv3 = PadConv2d(filters, cout, 1, 1, 0, padding_mode, dtype,
+                               "off")
+        self.bn3 = BatchNorm(cout, dtype)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = _projection(cin, cout, stride, padding_mode,
+                                          dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x), train))
+        y, m2 = _conv_moments(self.conv2, y, train, self.bn_fuse)
+        y = F.relu(self.bn2(y, train, moments=m2))
+        y = self.bn3(self.conv3(y), train)
+        return F.relu(y + _shortcut(self.downsample, x, train))
 
 
 class ResNet(nn.Module):
@@ -244,7 +345,11 @@ class ResNet(nn.Module):
     ``stage_strides`` is the per-stage first-block stride; ``(1, 2, 1, 1)``
     is torchvision's ``(1, 2, 2, 2)`` after ``modify()``. 256x256 input ->
     32x32 map (map scale 8) with those strides. ``rconv`` and ``bn_fuse``
-    route the blocks' reflect convs (module docstring).
+    route the blocks' reflect convs (module docstring). ``block`` is
+    ``BasicBlock`` or ``Bottleneck``; ``hid_dim`` is the last kept stage's
+    width times its expansion. With ``remat``, the blocks of the stages in
+    ``remat_stage_set(remat_stages)`` recompute their forward in the
+    backward pass.
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
@@ -252,12 +357,15 @@ class ResNet(nn.Module):
                  padding_mode: str = "zeros",
                  remove_layers: Sequence[str] = (),
                  dtype: torch.dtype = torch.float32, rconv: str = "auto",
-                 bn_fuse: str = "auto"):
+                 bn_fuse: str = "auto", block: type = BasicBlock,
+                 remat: bool = False, remat_stages: str | None = None):
         super().__init__()
         check_rconv_mode(rconv)
         check_bn_fuse(bn_fuse)
         self.stage_strides = tuple(stage_strides)
         self.remove_layers = tuple(remove_layers)
+        self.remat_stages = remat_stage_set(remat_stages) if remat \
+            else frozenset()
         self.conv1 = PadConv2d(3, 64, 7, 2, 3, padding_mode, dtype, "off")
         self.bn1 = BatchNorm(64, dtype)
         cin = 64
@@ -269,9 +377,9 @@ class ResNet(nn.Module):
                 continue
             blocks = []
             for b in range(n_blocks):
-                blocks.append(BasicBlock(cin, width, stride if b == 0 else 1,
-                                         padding_mode, dtype, rconv, bn_fuse))
-                cin = width
+                blocks.append(block(cin, width, stride if b == 0 else 1,
+                                    padding_mode, dtype, rconv, bn_fuse))
+                cin = width * block.expansion
             setattr(self, name, nn.ModuleList(blocks))
             self.stages.append(name)
         self.hid_dim = cin
@@ -281,14 +389,29 @@ class ResNet(nn.Module):
         x = F.relu(self.bn1(self.conv1(x), train))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self.stages:
-            for block in getattr(self, name):
-                x = block(x, train)
+            remat = name in self.remat_stages and torch.is_grad_enabled()
+            for blk in getattr(self, name):
+                if remat:
+                    x = checkpoint(blk, x, train, use_reentrant=False,
+                                   context_fn=_remat_contexts)
+                else:
+                    x = blk(x, train)
         return x
 
 
 def resnet18(padding_mode: str = "zeros", remove_layers: Sequence[str] = (),
              dtype: torch.dtype = torch.float32, rconv: str = "auto",
-             bn_fuse: str = "auto") -> ResNet:
+             bn_fuse: str = "auto", remat: bool = False,
+             remat_stages: str | None = None) -> ResNet:
     """ResNet-18 trunk (reference ``code/resnet.py`` ctor + ``modify``)."""
     return ResNet((2, 2, 2, 2), (1, 2, 1, 1), padding_mode, remove_layers,
-                  dtype, rconv, bn_fuse)
+                  dtype, rconv, bn_fuse, BasicBlock, remat, remat_stages)
+
+
+def resnet50(padding_mode: str = "zeros", remove_layers: Sequence[str] = (),
+             dtype: torch.dtype = torch.float32, rconv: str = "auto",
+             bn_fuse: str = "auto", remat: bool = False,
+             remat_stages: str | None = None) -> ResNet:
+    """ResNet-50 trunk (reference ``code/resnet.py`` ctor + ``modify``)."""
+    return ResNet((3, 4, 6, 3), (1, 2, 1, 1), padding_mode, remove_layers,
+                  dtype, rconv, bn_fuse, Bottleneck, remat, remat_stages)

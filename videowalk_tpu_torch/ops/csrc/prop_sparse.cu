@@ -33,6 +33,16 @@
 // channels through two shared-memory stages filled by cp.async (the next
 // step's copies overlap this step's FMAs; one barrier a step).
 //
+//   Wide features. The resident query tile takes 64 x C floats, which fits
+//   one block's shared memory up to C = 576 (k = 10, r = 12). Wider
+//   features (ResNet-50: 1024 without layer4, 2048 with it) take the
+//   streamed form, STREAM_Q: each step's 32-channel slice of the 64 queries
+//   rides the keys' two cp.async stages (2 x 64 x 32 floats, 16 KB), so the
+//   tile is read again from L2 once a key chunk (256 KB a chunk at C =
+//   1024, beside 268M FMAs). Each dot keeps its channel order, so both
+//   forms give the same bits; the host takes the resident one wherever it
+//   fits.
+//
 //   Candidates. Short-frame candidates are only those some query of the
 //   tile can take: the union of the 64 queries' disks, offsets (oy, ox)
 //   from the tile's corner whose distance to the tile's nearest query is
@@ -80,14 +90,24 @@ constexpr int SMEM_OPTIN = 232448;  // shared memory one Hopper block may use
 
 __host__ __device__ constexpr int padded(int C) { return (C + CS - 1) / CS * CS; }
 
-// Dynamic shared memory of a launch (bytes): the query tile (C rounded up
-// to a step), two key stages of KC x CS, the top-k lists (values, then
-// ids), two chunks' key cells, offsets and slots, the warps' scratch, the
+// Dynamic shared memory of a launch (bytes) with the query tile resident
+// (C rounded up to a step) or streamed (two stages of NQ x CS): the query
+// floats, two key stages of KC x CS, the top-k lists (values, then ids),
+// two chunks' key cells, offsets and slots, the warps' scratch, the
 // union's row table, two counters.
-__host__ __device__ constexpr size_t smem_bytes(int C, int topk, int rr) {
-  return 4 * ((size_t)NQ * padded(C) + 2 * KC * CS) + (size_t)NQ * topk * 8
+__host__ __device__ constexpr size_t smem_form_bytes(int C, int topk, int rr,
+                                                     bool stream_q) {
+  return 4 * ((stream_q ? (size_t)2 * NQ * CS : (size_t)NQ * padded(C))
+              + 2 * KC * CS) + (size_t)NQ * topk * 8
          + (size_t)2 * KC * 12 + (size_t)(NT / 32) * 64 * 4
          + (size_t)(TQ + 2 * rr) * 16 + 16;
+}
+// The streamed form where the resident one does not fit one block.
+__host__ __device__ constexpr bool streams_query(int C, int topk, int rr) {
+  return smem_form_bytes(C, topk, rr, false) > SMEM_OPTIN;
+}
+__host__ __device__ constexpr size_t smem_bytes(int C, int topk, int rr) {
+  return smem_form_bytes(C, topk, rr, streams_query(C, topk, rr));
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -109,6 +129,7 @@ __device__ __forceinline__ bool above(float v, int id, float w, int jd) {
   return v > w || (v == w && id < jd);
 }
 
+template <bool STREAM_Q>
 __global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
     const float* __restrict__ feats,    // (N, HW, C) L2-normalized features
     const float* __restrict__ labels,   // (N, HW, NL) label buffer
@@ -117,11 +138,12 @@ __global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
     int H, int W, int C, int NL, int L, int n_long, int t_query, int topk,
     float inv_t, float r2, int rr) {
   extern __shared__ float4 smem4[];
-  const int CQ = padded(C);             // query row stride, floats
+  const int CQ = padded(C);             // channels a dot runs over
+  const int QS = STREAM_Q ? CS : CQ;    // query row stride in q_s, floats
   const int C4 = C / 4;                 // 16-byte chunks of a feature row
   const int HW = H * W;
-  float* q_s = reinterpret_cast<float*>(smem4);        // NQ x CQ
-  float* k_s = q_s + NQ * CQ;                           // 2 x KC x CS
+  float* q_s = reinterpret_cast<float*>(smem4);  // NQ x CQ, or 2 x NQ x CS
+  float* k_s = q_s + (STREAM_Q ? 2 * NQ * CS : NQ * CQ);  // 2 x KC x CS
   float* lv = k_s + 2 * KC * CS;                        // NQ x topk values
   int* li = reinterpret_cast<int*>(lv + NQ * topk);     // ... and ids
   int* kcell = li + NQ * topk;                          // [2][KC]: -1 none
@@ -166,16 +188,19 @@ __global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
   __syncthreads();
   const int nrows = counts[0], nsc = counts[1];
 
-  // ---- the query tile (cells past the frame load zeros; their threshold
-  // is +inf, so they never insert, and they are never written; channels
-  // past C are zero, so the last step adds exact zeros) and the lists
+  // ---- the query tile, resident (streamed: a slice a step, with the keys);
+  // cells past the frame load zeros (their threshold is +inf, so they never
+  // insert, and they are never written); channels past C are zero, so the
+  // last step adds exact zeros. Then the lists.
   const float* qf = feats + (size_t)t_query * HW * C;
-  for (int i = tid; i < NQ * (CQ / 4); i += NT) {
-    const int q = i / (CQ / 4), c4 = i % (CQ / 4);
-    const int y = ty0 + q / TQ, x = tx0 + q % TQ;
-    const bool ok = y < H && x < W && c4 < C4;
-    cp_async16(q_s + q * CQ + 4 * c4,
-               ok ? qf + ((size_t)y * W + x) * C + 4 * c4 : feats, ok);
+  if (!STREAM_Q) {
+    for (int i = tid; i < NQ * (CQ / 4); i += NT) {
+      const int q = i / (CQ / 4), c4 = i % (CQ / 4);
+      const int y = ty0 + q / TQ, x = tx0 + q % TQ;
+      const bool ok = y < H && x < W && c4 < C4;
+      cp_async16(q_s + q * CQ + 4 * c4,
+                 ok ? qf + ((size_t)y * W + x) * C + 4 * c4 : feats, ok);
+    }
   }
   for (int i = tid; i < NQ * topk; i += NT) {
     const int q = i / topk, j = i % topk;
@@ -222,7 +247,8 @@ __global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
     kslot[p * KC + tid] = my_slot;
   };
   // step s's copies into stage s & 1: this thread's key, CS channels,
-  // 16-byte chunk c4 of row tid at c4 ^ (tid & 7)
+  // 16-byte chunk c4 of row tid at c4 ^ (tid & 7); streamed, also the
+  // queries' CS channels (two 16-byte chunks a thread)
   auto issue = [&](int s) {
     const int chunk = s / steps_a_chunk, c0 = (s % steps_a_chunk) * CS;
     if (c0 == 0) locate(chunk);
@@ -233,6 +259,19 @@ __global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
     for (int c4 = 0; c4 < CS / 4; ++c4) {
       const bool ok = my_cell >= 0 && c0 / 4 + c4 < C4;
       cp_async16(dst + 4 * (c4 ^ (tid & 7)), ok ? src + 4 * c4 : feats, ok);
+    }
+    if (STREAM_Q) {
+      static_assert(NQ * (CS / 4) % NT == 0, "query chunks a thread");
+#pragma unroll
+      for (int r = 0; r < NQ * (CS / 4) / NT; ++r) {
+        const int i = tid + r * NT;
+        const int q = i / (CS / 4), c4 = i % (CS / 4);
+        const int y = ty0 + q / TQ, x = tx0 + q % TQ;
+        const bool ok = y < H && x < W && c0 / 4 + c4 < C4;
+        cp_async16(q_s + ((s & 1) * NQ + q) * CS + 4 * c4,
+                   ok ? qf + ((size_t)y * W + x) * C + c0 + 4 * c4 : feats,
+                   ok);
+      }
     }
     cp_async_commit();
   };
@@ -254,13 +293,14 @@ __global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
     }
     // ---- CS channels of 8 queries x 8 keys, f32 FMAs in channel order
     const float* ks = k_s + ((s & 1) * KC + lane) * CS;
-    const float* qs = q_s + q0 * CQ + cs * CS;
+    const float* qs = q_s + (STREAM_Q ? ((s & 1) * NQ + q0) * CS
+                                      : q0 * CQ + cs * CS);
 #pragma unroll
     for (int c4 = 0; c4 < CS / 4; ++c4) {
       float4 qv[8], kv[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        qv[i] = reinterpret_cast<const float4*>(qs + i * CQ)[c4];
+        qv[i] = reinterpret_cast<const float4*>(qs + i * QS)[c4];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         kv[j] = reinterpret_cast<const float4*>(ks + j * 32 * CS)[c4 ^ (lane & 7)];
@@ -374,7 +414,8 @@ __global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
 extern "C" {
 
 // Dynamic shared memory one launch needs, in bytes, at C channels, k kept
-// and a short-frame halo rr.
+// and a short-frame halo rr (the streamed form's where the resident query
+// tile does not fit).
 size_t prop_sparse_smem_bytes(int C, int topk, int rr) {
   return smem_bytes(C, topk, rr);
 }
@@ -387,12 +428,13 @@ int prop_sparse_launch(const float* feats, const float* labels, const int* ctx,
                        int rr, void* stream) {
   const size_t smem = smem_bytes(C, topk, rr);
   if (smem > SMEM_OPTIN) return (int)cudaErrorInvalidValue;
+  auto kernel = streams_query(C, topk, rr) ? prop_sparse_kernel<true>
+                                           : prop_sparse_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      prop_sparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + TQ - 1) / TQ, (H + TQ - 1) / TQ);
-  prop_sparse_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       feats, labels, ctx, out, H, W, C, NL, L, n_long, t_query, topk, inv_t,
       r2, rr);
   return (int)cudaGetLastError();

@@ -19,9 +19,12 @@ launches the hand-written Hopper kernel ``csrc/prop_sparse.cu`` or raises.
 Bound on the card: operations. At DAVIS-480p (C=256, 60x107, 1 long + 20
 short frames, r=12) a target needs ~6420 x 15.5k valid (query, candidate)
 pairs x 256 FMAs ~ 51 GFLOP of f32 products (0.76 ms at the f32 peak),
-while its unique key bytes (~140 MB) are mostly reused from L2. Per 8x8 query tile it scores the long frames' every cell and, in each
-short frame, the union of the tile's disks (``disk_union_offsets``), and
-keeps a running top-k per query (see the source's note); the TPU layout
+while its unique key bytes (~140 MB) are mostly reused from L2. Per 8x8
+query tile it scores the long frames' every cell and, in each short frame,
+the union of the tile's disks (``disk_union_offsets``), and keeps a running
+top-k per query (see the source's note); the tile's queries stay in shared
+memory where they fit and stream beside the keys where they do not
+(``streams_query``: ResNet-50's 1024 and 2048 channels). The TPU layout
 constraints (128-lane label padding, 128-aligned C, 4-aligned halo, padded
 raster) do not apply. Its gate is its shared-memory budget.
 """
@@ -61,23 +64,39 @@ def disk_union_offsets(radius: float, tile: int = TQ) -> np.ndarray:
     return np.stack([oy[keep], ox[keep]], axis=1)
 
 
-def smem_bytes(C: int, topk: int, radius: float) -> int:
-    """Dynamic shared memory of one launch (mirrors the source's
-    ``prop_sparse_smem_bytes``): the query tile (rows of C rounded up to 32
-    floats), two key stages of 256 keys x 32 channels, the top-k lists
-    (values and ids), two chunks' key cells, tile offsets and slots, eight
-    warps' 64-float scratch, the disk union's row table (``TQ + 2 * halo``
-    rows of 16 bytes), two counters."""
+def _smem_form_bytes(C: int, topk: int, radius: float,
+                     stream_q: bool) -> int:
     nq, kc, cs = TQ * TQ, 256, 32
     rows = TQ + 2 * sparse_halo(radius)
-    return (4 * (nq * (-(-C // cs) * cs) + 2 * kc * cs) + nq * topk * 8
-            + 2 * kc * 12 + 8 * 64 * 4 + rows * 16 + 16)
+    q = 2 * nq * cs if stream_q else nq * (-(-C // cs) * cs)
+    return (4 * (q + 2 * kc * cs) + nq * topk * 8 + 2 * kc * 12 + 8 * 64 * 4
+            + rows * 16 + 16)
+
+
+def streams_query(C: int, topk: int, radius: float) -> bool:
+    """Whether the kernel streams the query tile (32 channels a step,
+    beside the keys) because the resident tile does not fit one block's
+    shared memory: C > 576 at k = 10 and r = 12 (ResNet-50's 1024 and
+    2048). Both forms give the same bits."""
+    return _smem_form_bytes(C, topk, radius, False) > SMEM_LIMIT
+
+
+def smem_bytes(C: int, topk: int, radius: float) -> int:
+    """Dynamic shared memory of one launch (mirrors the source's
+    ``prop_sparse_smem_bytes``): the query tile, resident (rows of C
+    rounded up to 32 floats) or, where that does not fit, streamed (two
+    stages of 64 queries x 32 channels); two key stages of 256 keys x 32
+    channels, the top-k lists (values and ids), two chunks' key cells, tile
+    offsets and slots, eight warps' 64-float scratch, the disk union's row
+    table (``TQ + 2 * halo`` rows of 16 bytes), two counters."""
+    return _smem_form_bytes(C, topk, radius, streams_query(C, topk, radius))
 
 
 def sparse_supported(C: int, topk: int, n_lbl: int, radius: float) -> bool:
     """Shape gate of the CUDA kernel: 16-byte rows (C % 4 == 0), k within the
-    kernel's bound, and the launch within one block's shared memory (C <=
-    576 at k = 10 and r = 12)."""
+    kernel's bound, and the launch within one block's shared memory (any C
+    with the query tile streamed; the halo's row table bounds the
+    radius)."""
     return (C % 4 == 0 and 1 <= topk <= MAX_TOPK and n_lbl >= 1
             and smem_bytes(C, topk, radius) <= SMEM_LIMIT)
 

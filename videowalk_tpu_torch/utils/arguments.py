@@ -25,9 +25,7 @@ def check_supported(args) -> None:
             ("--distributed", getattr(args, "distributed", False)),
             ("--profile-dir", bool(getattr(args, "profile_dir", ""))),
             ("--prop-backend " + str(getattr(args, "prop_backend", "auto")),
-             getattr(args, "prop_backend", "auto") not in ("auto", "sparse")),
-            ("--model-type " + args.model_type,
-             args.model_type not in ("scratch", "scratch_zeropad"))):
+             getattr(args, "prop_backend", "auto") not in ("auto", "sparse"))):
         if on:
             bad.append(flag)
     if bad:
@@ -111,14 +109,10 @@ def check_supported_train(args) -> None:
              args.sp_backend == "host" and args.sp_method != "none"),
             ("--visualize", args.visualize),
             ("--profile-dir", bool(args.profile_dir)),
-            ("--remat", args.remat),
-            ("--remat-stages", args.remat_stages is not None),
             ("--ckpt-format " + args.ckpt_format, args.ckpt_format != "pth"),
             ("an image-folder --data-path",
              "kinetics" not in args.data_path.lower()
-             and is_image_folder(root)),
-            ("--model-type " + args.model_type,
-             args.model_type not in ("scratch", "scratch_zeropad"))):
+             and is_image_folder(root))):
         if on:
             bad.append(flag)
     if bad:
@@ -243,8 +237,12 @@ def train_args(argv=None):
                         help="encoder compute dtype: float32 | bfloat16")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--profile-dir", default="", type=str)
-    parser.add_argument("--remat", default=False, action="store_true")
-    parser.add_argument("--remat-stages", default=None, type=str)
+    parser.add_argument("--remat", default=False, action="store_true",
+                        help="rematerialize encoder blocks in the backward "
+                             "pass (less activation memory, more compute)")
+    parser.add_argument("--remat-stages", default=None, type=str,
+                        help="with --remat: comma list of stages to remat; "
+                             "'' or 'all' = every stage; absent = layer1")
     parser.add_argument("--augs-backend", default="host", type=str,
                         help="host (numpy/cv2 in loader threads) | device "
                              "(batched 3-view transform on the card)")

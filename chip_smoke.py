@@ -152,6 +152,18 @@ card.
    removed, C = 1024: #1 streams its query tile, once a target, held to
    its plain version on the eval's features), and #1 against its plain
    version on random and near-tie features at C = 1024 and 2048.
+17. Superpixel training from host masks (``host_sp``): ``train.sh``'s flags
+   with ``--sp-backend host --augs-backend host`` through the trainer's
+   loop over views made once by the device transform (no file read, no host
+   machine) and ids made in the loader's threads by
+   ``data/superpixels.py::host_sp_mask`` (native SLIC, and the per-clip
+   SLIC/FH mix), beside the same flags with SLIC on the card: each
+   superpixel step gets the loader's ids, #12 never launches and #11 once
+   a step, #11 equals its plain version on those ids and on dense FH ids
+   past the 44 slots; step ms (host clock, CUDA events), device busy and
+   idle share, host ms a frame of SLIC and FH; then a ``--profile-dir``
+   run whose trace of steps 5-9 must name the hand kernels (their device
+   time printed beside this run's kernel line).
 
 Prints one JSON line of kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -176,6 +188,9 @@ import torch
 from videowalk_tpu_torch.cli.test import build_model, encode_video, test
 from videowalk_tpu_torch.eval.propagation import context_index_bank
 from videowalk_tpu_torch.core.masks import make_dilation_kernel
+from videowalk_tpu_torch.data.superpixels import (compute_sp_FH,
+                                                  compute_sp_slic,
+                                                  host_sp_mask)
 from videowalk_tpu_torch.data.jhmdb import (pose_label_buffer, pose_labels,
                                             pose_lblset)
 from videowalk_tpu_torch.data.vos import IMAGENET_MEAN, IMAGENET_STD
@@ -2620,10 +2635,13 @@ class InMemoryClips:
 
 
 def cli_train_arm(name: str, argv: list, n_warmup: int, n_steps: int,
-                  workdir: str, videos: np.ndarray, expect) -> dict:
+                  workdir: str, videos: np.ndarray, expect, dataset=None,
+                  on_build=None) -> dict:
     """One arm of the trainer's loop: ``train_args(argv)`` as the CLI parses
-    it, ``cli.train.build`` with an in-memory dataset (its loader and
-    prefetcher as the CLI builds them), one epoch of ``n_warmup`` steps
+    it, ``cli.train.build`` with an in-memory dataset (``InMemoryClips`` of
+    ``videos`` unless ``dataset(args)`` makes another; its loader and
+    prefetcher as the CLI builds them; ``on_build(run)`` may wrap the run's
+    step and loader), one epoch of ``n_warmup`` steps
     (writes ``checkpoint.pth``), then a timed epoch of ``n_steps`` with
     every kernel count zeroed just before and read just after.
     ``expect(n_patch, n_sp)`` gives the counts the path must show. Times:
@@ -2640,8 +2658,11 @@ def cli_train_arm(name: str, argv: list, n_warmup: int, n_steps: int,
                               os.path.join(out, "logs"),
                               "--steps-per-epoch", str(n_warmup)])
     check_supported_train(args)
-    dataset = InMemoryClips(videos, args.clip_len)
+    dataset = (InMemoryClips(videos, args.clip_len) if dataset is None
+               else dataset(args))
     run = cli.build(args, torch.device("cuda"), dataset)
+    if on_build is not None:
+        on_build(run)
     marks, real_step = [], run.step
 
     def step(state, batch, gen, sp_mask=None):
@@ -2721,17 +2742,19 @@ def cli_train_arm(name: str, argv: list, n_warmup: int, n_steps: int,
     del ck
     # the device augmentations alone at this arm's batch (CUDA events),
     # then 5 more steps of the loop under the profiler, no checkpoint
-    raw = torch.from_numpy(np.stack([dataset[i][0]["raw"] for i in
-                                     range(batch)])).cuda()
-    res["augs_ms"] = cuda_ms(lambda: cli.train_transform_device(
-        raw, run.aug_gen, img_size=args.img_size,
-        patch_size=int(args.patch_size[0]), frame_aug=args.frame_aug,
-        frame_transforms=args.frame_transforms), 10)
+    if args.augs_backend == "device":
+        raw = torch.from_numpy(np.stack([dataset[i][0]["raw"] for i in
+                                         range(batch)])).cuda()
+        res["augs_ms"] = cuda_ms(lambda: cli.train_transform_device(
+            raw, run.aug_gen, img_size=args.img_size,
+            patch_size=int(args.patch_size[0]), frame_aug=args.frame_aug,
+            frame_transforms=args.frame_transforms), 10)
+        print(f"  device augs alone {res['augs_ms']:.2f} ms a batch",
+              flush=True)
     args.steps_per_epoch, run.checkpoint_fn = 5, None
     res["profile"] = profile_steps(lambda: cli.train_one_epoch(args, run, 2),
                                    n=1, steps_per_run=5)
-    print(f"  device augs alone {res['augs_ms']:.2f} ms a batch; first "
-          f"interval {intervals[0]:.2f} ms, the others' median "
+    print(f"  first interval {intervals[0]:.2f} ms, the others' median "
           f"{float(np.median(intervals[1:])):.2f} ms", flush=True)
     res["_run"], res["_args"] = run, args
     return res
@@ -2854,6 +2877,321 @@ def train_cli_phase(n_steps: int) -> dict:
         print(f"  {name:17s} loop {r['step_ms']:8.2f} ms/step "
               f"{r['clips_per_s']:6.2f} clips/s; bare {bare:8.2f} ms/step; "
               f"loop overhead {r['step_ms'] - bare:+.2f} ms/step", flush=True)
+    return res
+
+
+# the trainer on host superpixels (--sp-backend host): train.sh's flags with
+# the loader's SLIC (arm host_slic) or its per-clip SLIC/FH mix at prob 0.7
+# (host_random), beside the same flags with SLIC on the card (device_slic)
+HOST_SP_ITEMS = 72                 # 12 batches of 6: outlasts every epoch
+HOST_SP_ARGV = ["--sp-backend", "host", "--augs-backend", "host"]
+FH_DENSE = dict(scale=0.2, min_size=30)   # ~100 FH ids a frame: past 44
+HOST_SP_TRACE = (("rconv_slab", "reflect_conv_"), ("walk_", "walk_"),
+                 ("dilate", "dilate_l1"))
+
+
+class InMemoryViews:
+    """``Kinetics400``'s item contract under ``--augs-backend host
+    --sp-backend host``, over views made once: ``dataset[i] -> ({"grid",
+    "whole", "whole_unnorm"} numpy, host ids, i)``. No file is read and
+    no host augmentation runs (they need cv2): the views of each
+    ``InMemoryClips`` window come from the port's device transform
+    (``host_views``); ``__getitem__`` makes the ids as ``Kinetics400`` does,
+    with ``data/superpixels.py::host_sp_mask`` and the item's own
+    ``RandomState([seed, epoch, i])``, in the loader's threads. The label
+    is the item's index, so that a batch's ids can be made again."""
+
+    def __init__(self, views: dict, args, seed: int):
+        self.views = views
+        self.sp_method, self.sp_backend = args.sp_method, args.sp_backend
+        self.num_components, self.prob = args.num_sp, args.prob
+        self.randomise_superpixels = args.randomise_superpixels
+        self.randomise_superpixels_range = args.randomise_superpixels_range
+        self.compactness, self.base_seed, self._epoch = 100, seed, 0
+
+    def __len__(self):
+        return len(self.views["whole"])
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def set_compactness(self, compactness) -> None:
+        self.compactness = compactness
+
+    def view(self, i: int) -> dict:
+        return {k: v[i] for k, v in self.views.items()}
+
+    def rng(self, i: int) -> np.random.RandomState:
+        return np.random.RandomState([self.base_seed, self._epoch, int(i)])
+
+    def __getitem__(self, i: int):
+        v = self.view(i)
+        return v, host_sp_mask(v, self, self.rng(i)), int(i)
+
+
+def host_views(videos: np.ndarray, n_items: int, seed: int) -> dict:
+    """The ``grid``, ``whole`` and ``whole_unnorm`` views of the first
+    ``n_items`` ``InMemoryClips`` windows (clips of ``SP_CLIP``) by the
+    device transform at ``train.sh``'s flags (crop, 256 px, a grid of 64 px
+    patches), a batch at a time on the card, as host numpy arrays."""
+    from videowalk_tpu_torch.ops.augs_device import train_transform_device
+
+    clips = InMemoryClips(videos, SP_CLIP)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    out = {}
+    for i0 in range(0, n_items, SP_BATCH):
+        raw = torch.from_numpy(np.stack([
+            clips[i][0]["raw"] for i in range(i0, min(n_items, i0 + SP_BATCH))
+        ])).cuda()
+        v = train_transform_device(raw, gen, img_size=SP_IMG,
+                                   patch_size=PATCH, frame_aug="grid",
+                                   frame_transforms="crop")
+        for k in ("grid", "whole", "whole_unnorm"):
+            out.setdefault(k, []).append(v[k].cpu().numpy())
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+class _BatchLog:
+    """The run's loader, logging each batch's labels and ids as it yields
+    them."""
+
+    def __init__(self, loader):
+        self.loader, self.batches = loader, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for item in self.loader:
+            self.batches.append((np.asarray(item[2]), item[1]))
+            yield item
+
+
+def dilation_on_ids(ids: torch.Tensor, n_slots: int, tag: str) -> dict:
+    """#11 against its plain version on the one-hot of ``ids (B, T, h, w)``
+    over ``n_slots`` node slots (an id at or past them sets no slot), as
+    ``superpixel_pool_weights`` builds it: equality. Its launch is not
+    counted."""
+    before = dilate_l1.launches
+    slots = torch.arange(n_slots, device=ids.device)
+    onehot = (ids[:, :, None] == slots[:, None, None]).to(torch.bfloat16)
+    onehot = onehot.reshape(-1, *ids.shape[-2:])
+    got, want = dilate_l1(onehot, DIL_K), dilate_l1_plain(onehot, DIL_K)
+    dilate_l1.launches = before
+    diff = int((got != want).sum())
+    res = dict(max_id=int(ids.max()),
+               ids_past_slots=int((ids >= n_slots).sum()), differing=diff)
+    if diff:
+        fail(f"host_sp: #11 differs from its plain version on {diff} "
+             f"elements of the {tag} ids")
+    return res
+
+
+def trace_kernels(path: str) -> dict:
+    """{kernel name: [device µs of each launch]} of a Chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out.setdefault(e["name"], []).append(float(e["dur"]))
+    return out
+
+
+def host_frame_ms(frames: np.ndarray) -> dict:
+    """Median host ms of one frame of ``compute_sp_slic`` (native) and of
+    ``compute_sp_FH`` over ``frames``, with cv2 where it is installed and
+    with the port's own normalize, Lab and blur (cv2's handle set to
+    None)."""
+    from videowalk_tpu_torch.data import superpixels
+
+    real = superpixels._cv2
+    res = {}
+    for cv2_on in ((True, False) if real() is not None else (False,)):
+        if not cv2_on:
+            superpixels._cv2 = lambda: None
+        try:
+            for what, fn in (("slic_native", lambda f: compute_sp_slic(
+                    f, NUM_SP, COMPACTNESS)), ("fh", compute_sp_FH)):
+                fn(frames[0])
+                ts = []
+                for f in frames:
+                    t = time.perf_counter()
+                    fn(f)
+                    ts.append((time.perf_counter() - t) * 1e3)
+                res[f"{what}_{'cv2' if cv2_on else 'no_cv2'}"] = float(
+                    np.median(ts))
+        finally:
+            superpixels._cv2 = real
+    print(f"host_sp: one 256x256 frame on the host (median of {len(frames)}; "
+          f"with cv2 where installed, and without): " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in res.items()), flush=True)
+    return res
+
+
+def seed_with_sp_in(steps, prob: float) -> int:
+    """The first seed whose epoch-0 path draws (a path, then the checkpoint
+    coin, a step) take a superpixel step among ``steps``."""
+    for seed in range(100):
+        rs = np.random.RandomState(seed)
+        paths = []
+        for _ in range(max(steps) + 1):
+            paths.append(bool(rs.choice([True, False], p=[prob, 1 - prob])))
+            rs.random_sample()
+        if not all(paths[i] for i in steps):
+            return seed
+    fail("no seed takes a superpixel step in the traced window")
+
+
+def host_sp_phase(n_steps: int, table_ms: dict | None = None) -> dict:
+    """Superpixel training from host masks (``--sp-backend host``) through
+    the trainer's loop: ``train.sh``'s flags over ``InMemoryViews`` with the
+    loader's SLIC (``host_slic``) and its per-clip SLIC/FH mix
+    (``host_random``), each 3 warm-up and ``n_steps`` timed steps beside
+    the same flags with SLIC on the card (``device_slic``) in this process.
+    Checks: each superpixel step got exactly the ids the loader made for
+    that batch (found by identity among the logged batches; the first two
+    steps' ids made again from the items), #12 launched 0 times and #11
+    once a superpixel step, #11 equal to its plain version on those ids and
+    on dense FH ids of the same frames (ids past the 44 slots), finite
+    losses. Then the host ms of one 256x256 frame of ``compute_sp_slic``
+    (native) and ``compute_sp_FH``, and a ``--profile-dir`` run through
+    ``main`` whose trace of steps 5-9 must name the hand kernels; each
+    one's device time there is printed beside ``table_ms`` (this run's
+    kernel line) where given."""
+    import shutil
+
+    from videowalk_tpu_torch.cli import train as cli
+    from videowalk_tpu_torch.utils.arguments import train_args
+
+    saved = sp_counts()
+    workdir = tempfile.mkdtemp(prefix="host_sp_")
+    videos = moving_textures(CLI_VIDEOS, CLI_FRAMES, RAW, seed=5)
+    t0 = time.perf_counter()
+    views = host_views(videos, HOST_SP_ITEMS, seed=6)
+    print(f"host_sp: views of {HOST_SP_ITEMS} clips made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    walk = dict(walk_fwd=1, walk_bwd=1)
+    patch_step = dict(walk, **dict(ARMS)[DEFAULT_ARM])
+    host_step = dict(walk, dilate_l1=1, **SP_LAUNCHES["auto"])
+    res = {}
+    try:
+        a = cli_train_arm("device_slic", CLI_ARMS["config_of_record"], 3,
+                          n_steps, workdir, videos,
+                          _want(patch_step, dict(host_step, slic_fused=1)))
+        for k in ("_run", "_args"):
+            a.pop(k)
+        res["device_slic"] = a
+        torch.cuda.empty_cache()
+        for method in ("slic", "random"):
+            name, log = f"host_{method}", {"steps": []}
+
+            def on_build(run, log=log):
+                run.loader = log["loader"] = _BatchLog(run.loader)
+                real = run.step
+
+                def step(state, batch, gen, sp_mask=None):
+                    if sp_mask is not None:
+                        log["steps"].append(sp_mask)
+                    return real(state, batch, gen, sp_mask=sp_mask)
+                run.step = step
+
+            r = cli_train_arm(
+                name, CLI_ARMS["config_of_record"] + HOST_SP_ARGV + [
+                    "--sp-method", method], 3, n_steps, workdir, videos,
+                _want(patch_step, host_step),
+                dataset=lambda args: InMemoryViews(views, args, seed=7),
+                on_build=on_build)
+            run = r.pop("_run")
+            r.pop("_args")
+            ds = run.dataset
+            if not r["steps_by_path"]["sp"]:
+                fail(f"host_sp {name}: no superpixel step in the timed "
+                     f"epoch")
+            by_id = {id(m): lab for lab, m in log["loader"].batches}
+            labels = []
+            for m in log["steps"]:
+                if id(m) not in by_id:
+                    fail(f"host_sp {name}: a superpixel step got ids that "
+                         f"no loader batch carried")
+                labels.append(by_id[id(m)])
+            for m, lab in list(zip(log["steps"], labels))[:2]:
+                want = np.stack([host_sp_mask(ds.view(i), ds, ds.rng(i))
+                                 for i in lab])
+                if not np.array_equal(m.cpu().numpy(), want):
+                    fail(f"host_sp {name}: a step's ids differ from the "
+                         f"host function's for its batch {lab.tolist()}")
+            r["sp_steps_checked"] = len(log["steps"])
+            slots = run.state.model.cfg.max_sp_num
+            r["dilation_host_ids"] = dilation_on_ids(log["steps"][0], slots,
+                                                     name)
+            frames = ds.views["whole_unnorm"][labels[0]]
+            dense = torch.from_numpy(np.stack([
+                [compute_sp_FH(f, **FH_DENSE) for f in clip]
+                for clip in frames])).cuda()
+            r["dilation_dense_fh_ids"] = dilation_on_ids(dense, slots,
+                                                         "dense FH")
+            if r["dilation_dense_fh_ids"]["max_id"] < slots:
+                fail("host_sp: the dense FH ids do not pass the slots")
+            print(f"host_sp {name}: {len(log['steps'])} superpixel steps got "
+                  f"the loader's ids; #11 equal to plain on them (max id "
+                  f"{r['dilation_host_ids']['max_id']}) and on dense FH ids "
+                  f"(max id {r['dilation_dense_fh_ids']['max_id']}, "
+                  f"{r['dilation_dense_fh_ids']['ids_past_slots']} pixels "
+                  f"past the {slots} slots)", flush=True)
+            res[name] = r
+            del run, log
+            torch.cuda.empty_cache()
+
+        frames = views["whole_unnorm"][:5].reshape(-1, SP_IMG, SP_IMG, 3)
+        res["host_ms_per_frame"] = host_frame_ms(frames)
+
+        seed = seed_with_sp_in(range(5, 10), 0.7)
+        prof = os.path.join(workdir, "trace")
+        args = train_args(CLI_ARMS["config_of_record"] + HOST_SP_ARGV + [
+            "--seed", str(seed), "--output-dir", os.path.join(workdir, "p"),
+            "--logs-dir", os.path.join(workdir, "p", "logs"),
+            "--profile-dir", prof, "--epochs", "1",
+            "--steps-per-epoch", "10"])
+        cli.main(args, dataset=InMemoryViews(views, args, seed=7))
+        if torch.autograd.profiler._is_profiler_enabled:
+            fail("host_sp: a profiler is still running after --profile-dir")
+        path = os.path.join(prof, "train_epoch0_steps5-9.pt.trace.json")
+        kernels = trace_kernels(path)
+        shown = {}
+        for part, table in HOST_SP_TRACE:
+            hits = {k: v for k, v in kernels.items() if part in k}
+            if not hits:
+                fail(f"host_sp: the trace names no {part} kernel")
+            n = sum(len(v) for v in hits.values())
+            us = sum(sum(v) for v in hits.values())
+            shown[part] = dict(launches=n, device_ms=us / 1e3,
+                               ms_per_launch=us / n / 1e3,
+                               kernels=sorted((k[:80], len(v), sum(v) / len(v))
+                                              for k, v in hits.items()))
+            tab = {k: v for k, v in (table_ms or {}).items()
+                   if k.startswith(table)}
+            print(f"host_sp trace (steps 5-9, seed {seed}): {part}* "
+                  f"{n} launches, {us / 1e3:.3f} ms device, "
+                  f"{us / n / 1e3:.4f} ms a launch; table (this run, its "
+                  f"shapes): " + (", ".join(f"{k} {v:.3f} ms" for k, v in
+                                            tab.items()) or "not run"),
+                  flush=True)
+            for k, c, mean in shown[part]["kernels"]:
+                print(f"    {c:4d} x {mean:9.2f} us  {k}", flush=True)
+        res["trace"] = dict(path=os.path.basename(path), seed=seed,
+                            kernels=shown)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        set_sp_counts(saved)
+    print("host superpixels vs SLIC on the card (same process):", flush=True)
+    for name in ("device_slic", "host_slic", "host_random"):
+        r = res[name]
+        pr = r["profile"]
+        print(f"  {name:12s} {r['step_ms']:8.2f} ms/step host clock, by path "
+              f"(CUDA events) {r['ms_by_path']}; profile: device busy "
+              f"{pr['device_ms_per_step']:.2f} ms/step, idle share "
+              f"{pr['idle_share']:.3f}", flush=True)
     return res
 
 
@@ -3108,7 +3446,8 @@ PHASES = dict(prop=lambda a: kernel_vs_plain(),
               small_ts_train=lambda a: small_ts_step_card_vs_cpu(),
               train_cli=lambda a: train_cli_phase(a.steps),
               eval_tail=lambda a: eval_tail_phase(a.card),
-              encoders=lambda a: encoders_phase(a.card, a.steps))
+              encoders=lambda a: encoders_phase(a.card, a.steps),
+              host_sp=lambda a: host_sp_phase(a.steps))
 
 
 def main() -> int:
@@ -3238,6 +3577,7 @@ def main() -> int:
         max_abs_err=slic_res["max_abs_err"], ms=slic_res["ms"],
         plain_ms=slic_res["plain_ms"], bound_ms=slic_res["bound_ms"],
         bound_by=slic_res["bound_by"], library_ms=None))
+    host_sp = host_sp_phase(args.steps, {k["name"]: k["ms"] for k in kernels})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -3250,7 +3590,7 @@ def main() -> int:
                            small_sp_train=small_sp_train,
                            ts_train=ts_train, small_ts_train=small_ts_train,
                            train_cli=train_cli, encoders=encoders,
-                           kernels=kernels, ptxas=logs,
+                           host_sp=host_sp, kernels=kernels, ptxas=logs,
                            wgmma_verdicts=verdicts), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

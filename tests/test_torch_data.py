@@ -228,8 +228,25 @@ def test_image_folder_is_detected(tmp_path, kinetics_root):
 
 
 def test_host_rejects_host_superpixels(kinetics_root):
-    with pytest.raises(NotImplementedError, match="sp_backend='host'"):
-        Kinetics400(kinetics_root, 4, sp_method="slic", sp_backend="host")
+    """Host superpixels are ported: ``sp_backend="host"`` (the class's
+    default, as the JAX package's) makes the item's ids in the loader, and
+    a batch of them equals the JAX package's bitwise; ``"device"`` leaves
+    them to the trainer (an empty array)."""
+    batches = []
+    for K, T in ((JaxKinetics, jaugs), (Kinetics400, augs)):
+        tf = T.TrainTransform(img_size=64, frame_transforms="crop",
+                              frame_aug="grid", patch_size=(16, 16, 3))
+        ds = K(kinetics_root, 4, frame_rate=8, transform=tf,
+               sp_method="slic", num_components=9, seed=3)
+        assert ds.sp_backend == "host"
+        ds.set_compactness(30)
+        batches.append([ds[i][1] for i in (0, 3)])
+    for j, p in zip(*batches):
+        assert p.shape == (4, 64, 64) and p.dtype == np.int32
+        np.testing.assert_array_equal(p, j)
+    ds = Kinetics400(kinetics_root, 4, frame_rate=8, sp_method="slic",
+                     sp_backend="device", seed=3)
+    assert ds[0][1].shape == (0,)
 
 
 def test_the_data_layer_imports_cv2_lazily():
@@ -240,9 +257,15 @@ def test_the_data_layer_imports_cv2_lazily():
             "videowalk_tpu_torch.data.kinetics, "
             "videowalk_tpu_torch.data.video, videowalk_tpu_torch.data.augs, "
             "videowalk_tpu_torch.data.prefetch, "
+            "videowalk_tpu_torch.data.superpixels, "
+            "videowalk_tpu_torch.data.image_folder, "
+            "videowalk_tpu_torch.native, "
+            "videowalk_tpu_torch.utils.visualize, "
+            "videowalk_tpu_torch.utils.profile, "
             "videowalk_tpu_torch.ops.augs_device, "
-            "videowalk_tpu_torch.cli.train\n"
-            "assert 'cv2' not in sys.modules\n")
+            "videowalk_tpu_torch.cli.train, videowalk_tpu_torch.cli.test\n"
+            "bad = {'cv2', 'PIL', 'imageio', 'matplotlib', 'wandb', 'jax'}\n"
+            "assert not bad & set(sys.modules), bad & set(sys.modules)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=root, env=env,

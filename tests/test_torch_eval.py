@@ -89,18 +89,17 @@ def test_eval_slice_matches_jax(fixture, tmp_path, monkeypatch, norm_mask):
 
 def test_unported_flags_raise():
     """The flags still unported raise, naming themselves; the JHMDB and VIP
-    filelists, ``--pca-vis``, ``--texture``, ``--encode-dtype bfloat16``
-    and every model type pass the check."""
+    filelists, ``--pca-vis``, ``--texture``, ``--encode-dtype bfloat16``,
+    ``--profile-dir`` and every model type pass the check."""
     from videowalk_tpu_torch.cli.test import main
     from videowalk_tpu_torch.utils.arguments import check_supported, test_args
 
     for argv, flag in ((["--data-parallel"], "--data-parallel"),
                        (["--distributed"], "--distributed"),
-                       (["--profile-dir", "t"], "--profile-dir"),
                        (["--prop-backend", "xla"], "--prop-backend xla")):
         with pytest.raises(NotImplementedError, match=flag):
             main(test_args(argv + ["--device", "cpu"]))
-    for argv in (["--pca-vis"], ["--texture"],
+    for argv in (["--pca-vis"], ["--texture"], ["--profile-dir", "t"],
                  ["--encode-dtype", "bfloat16"],
                  ["--filelist", "jhmdb_vallist.txt"],
                  ["--filelist", "VIP_vallist.txt"]) + tuple(

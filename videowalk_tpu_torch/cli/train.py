@@ -8,14 +8,19 @@
         --dilation-kernel-shape L1 --dilation-kernel-size 55 --epochs 20 \\
         --sp-backend device --dtype bfloat16 --augs-backend device
 
-dataset + metadata cache -> ``RandomClipSampler`` -> threaded loader ->
-prefetch to the card -> ``CRW`` or ``CRWTeacherStudent`` -> Adam under a
-per-step MultiStepLR -> the epoch loop: a Bernoulli choice per step
-between the patch path and the superpixel path (drawn on the host from
-``RandomState(seed + epoch)`` in the JAX trainer's order), device
-augmentations, SLIC on the card for superpixel steps, the loss and LR read
-only every ``--print-freq`` steps, stochastic (p=0.005) and per-epoch
-``.pth`` checkpoints, resume and partial reload. It runs on the card unless
+dataset (a Kinetics tree, an image folder or a filelist) + metadata cache
+-> ``RandomClipSampler`` -> threaded loader -> prefetch to the card ->
+``CRW`` or ``CRWTeacherStudent`` -> Adam under a per-step MultiStepLR ->
+the epoch loop: a Bernoulli choice per step between the patch path and the
+superpixel path (drawn on the host from ``RandomState(seed + epoch)`` in
+the JAX trainer's order), device augmentations, the superpixel ids made by
+SLIC on the card (``--sp-backend device``) or by the loader on the host
+(``--sp-backend host``: SLIC, Felzenszwalb or a per-clip mix of both),
+the loss and LR read only every ``--print-freq`` steps, stochastic
+(p=0.005) and per-epoch ``.pth`` checkpoints, resume and partial reload,
+``--visualize`` (the loss and each metric's mean every step, to wandb or
+``<logs-dir>/metrics.jsonl``) and ``--profile-dir`` (a ``torch.profiler``
+trace of steps 5-9 of the run's first epoch). It runs on the card unless
 ``--device cpu`` is given; there every kernel takes its plain version.
 """
 
@@ -32,6 +37,7 @@ import torch
 
 from videowalk_tpu_torch.data.augs import RawClipTransform, get_train_transforms
 from videowalk_tpu_torch.data.clips import RandomClipSampler, VideoClipIndex
+from videowalk_tpu_torch.data.image_folder import ImageFolder, is_image_folder
 from videowalk_tpu_torch.data.kinetics import Kinetics400
 from videowalk_tpu_torch.data.loader import DataLoader
 from videowalk_tpu_torch.data.prefetch import DevicePrefetcher
@@ -51,6 +57,8 @@ from videowalk_tpu_torch.utils.device import resolve_device
 from videowalk_tpu_torch.utils.pretrained import (PRETRAINED_TYPES,
                                                   apply_pretrained_encoder)
 from videowalk_tpu_torch.utils.meters import MetricLogger, SmoothedValue
+from videowalk_tpu_torch.utils.profile import Trace
+from videowalk_tpu_torch.utils.visualize import Visualize
 
 # --steps-per-epoch's "unlimited" default: at or above it the flag was not
 # set and the shortfall guard is off
@@ -103,10 +111,20 @@ def resolve_remat_args(args) -> None:
 
 def make_dataset(args, transform):
     """A Kinetics-style video tree (``<path>/train_256`` or
-    ``val_256`` under ``--fast-test``, else ``<path>`` itself), or a
-    ``VideoList`` filelist when ``--data-path`` is a file."""
+    ``val_256`` under ``--fast-test``, else ``<path>`` itself), an
+    ``ImageFolder`` where that directory holds class folders of images
+    (and ``--data-path`` does not name kinetics), or a ``VideoList``
+    filelist when ``--data-path`` is a file."""
     traindir = os.path.join(
         args.data_path, "train_256" if not args.fast_test else "val_256")
+    root = traindir if os.path.isdir(traindir) else args.data_path
+    if "kinetics" not in args.data_path.lower() and is_image_folder(root):
+        return ImageFolder(
+            root, clip_len=args.clip_len, transform=transform,
+            sp_method=args.sp_method, num_components=args.num_sp,
+            prob=args.prob, randomise_superpixels=args.randomise_superpixels,
+            randomise_superpixels_range=args.randomise_superpixels_range,
+            sp_backend=args.sp_backend, seed=args.seed)
     if ("kinetics" in args.data_path.lower() or os.path.isdir(traindir)
             or os.path.isdir(args.data_path)):
         cached = None
@@ -114,7 +132,7 @@ def make_dataset(args, transform):
             print(f"Loading dataset metadata from {args.cache_path}")
             cached = VideoClipIndex.load_metadata(args.cache_path)
         ds = Kinetics400(
-            traindir if os.path.isdir(traindir) else args.data_path,
+            root,
             frames_per_clip=args.clip_len,
             step_between_clips=1,
             frame_rate=args.frame_skip,
@@ -161,7 +179,8 @@ class Training:
     """What ``build`` makes and each epoch uses. ``step`` is
     ``make_train_step()``'s (both paths; the superpixel path passes
     ``sp_mask=``); ``step_gen`` draws edge dropout and featdrop,
-    ``aug_gen`` the device augmentations, both on the state's device."""
+    ``aug_gen`` the device augmentations, both on the state's device;
+    ``vis`` is ``--visualize``'s logger (None without it)."""
 
     state: TrainState
     step: Callable
@@ -171,6 +190,7 @@ class Training:
     aug_gen: torch.Generator
     checkpoint_fn: Callable | None
     device_slic_fn: Callable
+    vis: Visualize | None = None
 
 
 def _on(x, device: torch.device) -> torch.Tensor:
@@ -197,9 +217,11 @@ def train_one_epoch(args, run: Training, epoch: int) -> TrainState:
     """One epoch of ``run``: at most ``--steps-per-epoch`` steps, the
     epoch's checkpoint at the end. Nothing in a step waits for the card:
     the loss and LR are read every ``--print-freq`` steps and on the last
-    one, where a non-finite loss aborts."""
+    one, where a non-finite loss aborts (``--visualize`` reads them every
+    step). Under ``--profile-dir``, steps 5-9 of the run's first epoch
+    (``--start-epoch``) are traced; the trace is written however the epoch
+    ends."""
     state = run.state
-    dev = state.device
     metric_logger = MetricLogger(delimiter="  ")
     metric_logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value}"))
     metric_logger.add_meter("clips/s",
@@ -208,18 +230,44 @@ def train_one_epoch(args, run: Training, epoch: int) -> TrainState:
     # the path choices, n_active draws and checkpoint coins, in the JAX
     # trainer's order
     host_rng = np.random.RandomState(args.seed + epoch)
+    total_steps = min(args.steps_per_epoch, len(run.loader))
+    if run.vis is not None:
+        run.vis.wandb_init(state.model)
+    trace = (Trace(args.profile_dir, f"train_epoch{epoch}_steps5-9",
+                   state.device)
+             if args.profile_dir and epoch == args.start_epoch else None)
+    try:
+        delivered = _epoch_steps(args, run, epoch, metric_logger, header,
+                                 host_rng, total_steps, trace)
+    finally:
+        if trace is not None:
+            trace.stop()
+    check_step_shortfall(args, epoch, delivered)
+    if run.checkpoint_fn is not None:
+        run.checkpoint_fn(state, epoch)
+    return state
+
+
+def _epoch_steps(args, run: Training, epoch: int, metric_logger, header: str,
+                 host_rng, total_steps: int, trace: Trace | None) -> int:
+    """The steps of ``train_one_epoch``; returns the batches delivered."""
+    state = run.state
+    dev = state.device
     fetch_every = max(1, args.print_freq)
     window_clips, window_t0 = 0, time.time()
     device_augs = args.augs_backend == "device"
-    total_steps = min(args.steps_per_epoch, len(run.loader))
-
     delivered = 0
-    for step_i, (views, _sp_mask, _label) in enumerate(
+    for step_i, (views, sp_mask, _label) in enumerate(
             metric_logger.log_every(run.loader, args.print_freq, header,
                                     total=total_steps)):
         if step_i >= args.steps_per_epoch:
             break
         delivered += 1
+        if trace is not None:
+            if step_i == 5:
+                trace.start()
+            elif step_i == 10:
+                trace.stop()
         seed_step_streams(run, args.seed, state.step)
         if device_augs:
             views = train_transform_device(
@@ -233,11 +281,21 @@ def train_one_epoch(args, run: Training, epoch: int) -> TrainState:
             batch = _on(views["grid"], dev)
             metrics = run.step(state, batch, run.step_gen)
         else:
-            mask = run.device_slic_fn(_on(views["whole_unnorm"], dev),
-                                      host_rng)
+            if args.sp_backend == "device":
+                mask = run.device_slic_fn(_on(views["whole_unnorm"], dev),
+                                          host_rng)
+            else:           # the loader's ids (data/superpixels.py)
+                mask = _on(sp_mask, dev)
             batch = _on(views["whole"], dev)
             metrics = run.step(state, batch, run.step_gen, sp_mask=mask)
         window_clips += batch.shape[0]
+
+        if run.vis is not None:
+            # the reference's per-step logging (code/train.py:71-73): a
+            # fetch every step, so opt-in
+            run.vis.log(dict(loss=float(metrics["loss"])))
+            run.vis.log({k: float(np.asarray(v.detach().cpu()).mean())
+                         for k, v in metrics.items() if k != "loss"})
 
         if step_i % fetch_every == 0 or step_i + 1 >= total_steps:
             loss = float(metrics["loss"])       # waits for this step
@@ -260,11 +318,7 @@ def train_one_epoch(args, run: Training, epoch: int) -> TrainState:
         if (run.checkpoint_fn is not None
                 and host_rng.random_sample() < 0.005):
             run.checkpoint_fn(state, epoch)
-
-    check_step_shortfall(args, epoch, delivered)
-    if run.checkpoint_fn is not None:
-        run.checkpoint_fn(state, epoch)
-    return state
+    return delivered
 
 
 def build(args, device: torch.device, dataset=None) -> Training:
@@ -394,14 +448,18 @@ def build(args, device: torch.device, dataset=None) -> Training:
             if args.teacher_student or args.prob > 0:
                 keys.add("grid")
             if args.prob < 1 and not args.teacher_student:
-                keys |= {"whole", "whole_unnorm"}
+                keys.add("whole")
+                if args.sp_backend == "device":
+                    keys.add("whole_unnorm")
         loader = DevicePrefetcher(loader, args.prefetch, keys=keys,
                                   device=state.device)
 
     run = Training(state=state, step=make_train_step(), loader=loader,
                    dataset=dataset, step_gen=torch.Generator(state.device),
                    aug_gen=torch.Generator(state.device),
-                   checkpoint_fn=checkpoint_fn, device_slic_fn=device_slic_fn)
+                   checkpoint_fn=checkpoint_fn, device_slic_fn=device_slic_fn,
+                   # one process here: rank 0 (reference train.py:238)
+                   vis=Visualize(args) if args.visualize else None)
     seed_step_streams(run, args.seed, state.step)
     return run
 
@@ -436,6 +494,8 @@ def main(args, dataset=None) -> TrainState:
             if hasattr(run.dataset, "set_epoch"):
                 run.dataset.set_epoch(epoch)
             train_one_epoch(args, run, epoch)
+        if run.vis is not None:
+            run.vis.close()
     finally:
         torch.autograd.set_detect_anomaly(anomaly)
     total = str(datetime.timedelta(seconds=int(time.time() - start_time)))

@@ -3,11 +3,11 @@
 
 Directory scan + clip index, per-item decode -> transform, the decode
 retry with a fresh random index (reference :102-112), the
-``set_compactness`` knob (:96-100) and per-(seed, epoch, item) random
-streams. Superpixels run on the device (``--sp-backend device``: the
-trainer segments the unnormalized view with ``ops/slic.py``); the
-host segmentation of the JAX package (``sp_backend="host"``) is not ported
-yet and raises.
+``set_compactness`` knob (:96-100), per-(seed, epoch, item) random
+streams and the superpixel mask: made here on the host
+(``sp_backend="host"``, ``data/superpixels.py::host_sp_mask``, as the
+reference's worker does) or, under ``--sp-backend device``, by the trainer
+on the card (``ops/slic.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +17,9 @@ import os
 import numpy as np
 
 from videowalk_tpu_torch.data.clips import VideoClipIndex
+from videowalk_tpu_torch.data.image_folder import (  # noqa: F401 (re-export)
+    is_image_folder)
+from videowalk_tpu_torch.data.superpixels import host_sp_mask
 
 VIDEO_EXTENSIONS = (".mp4", ".avi", ".webm", ".mov", ".mkv")
 
@@ -39,8 +42,10 @@ def find_videos(root: str, extensions=VIDEO_EXTENSIONS):
 class Kinetics400:
     """``dataset[i] -> (views, sp_mask, label)``: ``views`` is the
     transform's dict (``grid``/``whole``/``whole_unnorm``, or ``raw`` for
-    the device augmentations), ``sp_mask`` an empty int32 array (the masks
-    are made on the device) and ``label`` the class index."""
+    the device augmentations), ``sp_mask`` the ``(T, h, w)`` int32 ids of
+    ``whole_unnorm`` under ``sp_backend="host"`` (an empty int32 array
+    with no superpixels, or where the trainer makes them on the card) and
+    ``label`` the class index."""
 
     def __init__(
         self,
@@ -56,14 +61,9 @@ class Kinetics400:
         prob: float = 1.0,
         randomise_superpixels: bool = False,
         randomise_superpixels_range: int = 10,
-        sp_backend: str = "device",
+        sp_backend: str = "host",
         seed: int | None = None,
     ):
-        if sp_method != "none" and sp_backend == "host":
-            raise NotImplementedError(
-                "sp_backend='host' (host SLIC/Felzenszwalb in the loader) is "
-                "not ported to videowalk_tpu_torch yet (see ROADMAP.md); use "
-                "sp_backend='device'")
         exts = tuple(e if e.startswith(".") else "." + e for e in extensions)
         self.root = root
         self.video_list, self.labels, self.classes = find_videos(root, exts)
@@ -123,27 +123,5 @@ class Kinetics400:
         views = (self.transform(video, rng=rng)
                  if self.transform is not None else
                  {"grid": video, "whole": video, "whole_unnorm": video})
-        return views, np.zeros((0,), np.int32), label
+        return views, host_sp_mask(views, self, rng), label
 
-
-IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".ppm", ".tif",
-                  ".tiff")
-
-
-def is_image_folder(root: str) -> bool:
-    """True when ``root`` holds class subdirectories of image files (and no
-    video files at the depth this loader scans): the trainer's
-    routing to the image-folder dataset, which is not ported yet."""
-    if not os.path.isdir(root):
-        return False
-    for cls in sorted(os.listdir(root)):
-        sub = os.path.join(root, cls)
-        if not os.path.isdir(sub):
-            continue
-        for f in os.listdir(sub):
-            ext = os.path.splitext(f)[1].lower()
-            if ext in IMG_EXTENSIONS:
-                return True
-            if ext in VIDEO_EXTENSIONS:
-                return False
-    return False

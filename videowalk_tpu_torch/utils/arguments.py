@@ -23,7 +23,6 @@ def check_supported(args) -> None:
     for flag, on in (
             ("--data-parallel", getattr(args, "data_parallel", False)),
             ("--distributed", getattr(args, "distributed", False)),
-            ("--profile-dir", bool(getattr(args, "profile_dir", ""))),
             ("--prop-backend " + str(getattr(args, "prop_backend", "auto")),
              getattr(args, "prop_backend", "auto") not in ("auto", "sparse"))):
         if on:
@@ -95,24 +94,12 @@ def check_supported_train(args) -> None:
     kept: the JAX trainer builds no mesh on one device either."""
     import torch
 
-    from videowalk_tpu_torch.data.kinetics import is_image_folder
-
-    traindir = os.path.join(
-        args.data_path, "train_256" if not args.fast_test else "val_256")
-    root = traindir if os.path.isdir(traindir) else args.data_path
     bad = []
     for flag, on in (
             ("--distributed", args.distributed),
             ("--data-parallel on more than one card",
              args.data_parallel and torch.cuda.device_count() > 1),
-            ("--sp-backend host",
-             args.sp_backend == "host" and args.sp_method != "none"),
-            ("--visualize", args.visualize),
-            ("--profile-dir", bool(args.profile_dir)),
-            ("--ckpt-format " + args.ckpt_format, args.ckpt_format != "pth"),
-            ("an image-folder --data-path",
-             "kinetics" not in args.data_path.lower()
-             and is_image_folder(root))):
+            ("--ckpt-format " + args.ckpt_format, args.ckpt_format != "pth")):
         if on:
             bad.append(flag)
     if bad:
@@ -229,7 +216,8 @@ def train_args(argv=None):
                         help="copy batches to the card N steps ahead on a "
                              "background thread (0 disables)")
     parser.add_argument("--sp-backend", default="device", type=str,
-                        help="device (SLIC on the card) | host (not ported)")
+                        help="device (SLIC on the card) | host (SLIC or "
+                             "Felzenszwalb in the loader's threads)")
     parser.add_argument("--max-sp-num", default=-1, type=int,
                         help="static superpixel node slots; -1 = "
                              "num_sp + randomise range / 2 + 8")

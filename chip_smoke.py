@@ -164,6 +164,18 @@ card.
    idle share, host ms a frame of SLIC and FH; then a ``--profile-dir``
    run whose trace of steps 5-9 must name the hand kernels (their device
    time printed beside this run's kernel line).
+18. Multi-GPU on one card (``multi``; no scaling can show on one card):
+   (a) ``cli.train --distributed`` at world size 1 over NCCL (``env://``)
+   on the flagship patch loop, in turns with the plain loop: the first
+   loss bitwise the plain loop's, the same launches, ms a step of each;
+   (b) two gloo ranks sharing cuda:0 (NCCL takes one rank a device): the
+   flagship patch step (global batch 8, 4 a rank) and train.sh's
+   superpixel step (global batch 6, SLIC #12 with active counts drawn for
+   the global batch, dilation #11), 3 SGD steps against one process on the
+   global batch, each kernel's launches per rank; (c) #1 in tile-row bands
+   at DAVIS-480p, C 512, 16 labels over ``[cuda:0] * D``, D 2, 3, 8:
+   bitwise the unbanded propagation, ms a band; (d) the multi-process dry
+   run (``videowalk_tpu_torch/parallel/dryrun.py``) at world 2.
 
 Prints one JSON line of kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -3431,6 +3443,357 @@ def encoders_phase(card: str, n_steps: int) -> dict:
     return res
 
 
+# multi-GPU (``videowalk_tpu_torch/parallel``) on one card: the NCCL path
+# at world size 1 through the trainer, two gloo ranks sharing cuda:0 (NCCL
+# takes one rank a device), #1 in tile-row bands, the multi-process dry run.
+# (b)'s cases, in the form of ``parallel/dryrun.py``'s table: bench.py's
+# flagship step (batch 8, 8 frames, 7x7 patches of 64 px) with a bf16 trunk
+# and with an f32 one, and train.sh's superpixel step (batch 6, 4 frames of
+# 256 px, SLIC 36 with randomised active counts, L1 dilation k=55) likewise,
+# all under SGD: an update linear in the gradient, so that two ranks compare
+# with one process (Adam's first step is the gradient's sign). The "fault"
+# cases plant a fault in the gradient average (``PLANTED_FAULTS``) to show
+# that the parameter check catches it.
+_FLAGSHIP = dict(kind="patch", batch=8, T=8, N=49, px=64, optim="sgd",
+                 model=dict(model_type="scratch"))
+_SP_RECORD = dict(kind="sp", batch=6, T=4, px=256, n_segments=36,
+                  randomise=10, optim="sgd", model=dict(
+                      model_type="scratch", max_sp_num=49,
+                      dilate_superpixels=True, dilation_kernel_size=55))
+GLOO_CASES = dict(
+    flagship=dict(_FLAGSHIP, model=dict(_FLAGSHIP["model"],
+                                        dtype=torch.bfloat16)),
+    flagship_f32=_FLAGSHIP,
+    sp_record=dict(_SP_RECORD, model=dict(_SP_RECORD["model"],
+                                          dtype=torch.bfloat16)),
+    sp_record_f32=_SP_RECORD)
+PARAM_HELD = ("flagship_f32", "sp_record_f32")
+GLOO_FAULT_CASES = {f"{n}/{f}": dict(GLOO_CASES[n], fault=f)
+                    for n in PARAM_HELD
+                    for f in ("no_average", "half_average")}
+# Two ranks against one process after MULTI_STEPS steps: the first loss
+# within FIRST_LOSS_RTOL, every loss within LATER_LOSS_RTOL (~4x the largest
+# later-loss gap read on the card, 2.58e-5 with the bf16 trunk); for the
+# f32 cases the parameters within PARAM_UPDATE_TOL of the update (rel L2 of
+# the gap over the update, all parameters as one vector; read on the card
+# 2.9e-3 and 2.7e-3, the planted faults 0.497 to 1.39) and each tensor
+# within PARAM_TENSOR_TOL (read 0.037 and 0.049). The bf16 cases' gaps
+# (~0.15, each tensor ~0.27) are printed, not held: bf16 rounds each
+# rank's activations apart from one process's, and the gradient at random
+# weights and T 0.05 amplifies it.
+MULTI_STEPS = 3
+FIRST_LOSS_RTOL = 1e-4
+LATER_LOSS_RTOL = 1e-4
+PARAM_UPDATE_TOL = 0.03
+PARAM_TENSOR_TOL = 0.25
+
+
+def _no_average(params, group) -> None:
+    """Planted fault: each rank keeps its own gradient."""
+
+
+def _half_average(params, group) -> None:
+    """Planted fault: half the mean gradient."""
+    from videowalk_tpu_torch.parallel.mesh import average_gradients
+
+    params = list(params)
+    average_gradients(params, group)
+    for p in params:
+        if p.grad is not None:
+            p.grad.mul_(0.5)
+
+
+PLANTED_FAULTS = dict(no_average=_no_average, half_average=_half_average)
+
+
+def measured_case(case: dict, device, group=None,
+                  steps: int = MULTI_STEPS) -> dict:
+    """``steps`` steps of a ``parallel/dryrun.py``-form ``case`` (with a
+    process ``group``: this rank's rows), measured: the global losses,
+    every training kernel's launches in these steps, the host clock's ms
+    of each step (each ends in its loss read) and, on rank 0, the final
+    parameters on the CPU. A ``fault`` of ``PLANTED_FAULTS`` stands in for
+    the step's gradient average. The ``dryrun.run_ranks`` runner of the
+    ``multi`` phase; TF32 is off here as in ``main``, since spawned ranks
+    do not run ``main``."""
+    from videowalk_tpu_torch.parallel import dryrun, multihost, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state, step = dryrun.case_steps(case, device, group)
+    real = train_step.average_gradients
+    if case.get("fault"):
+        train_step.average_gradients = PLANTED_FAULTS[case["fault"]]
+    try:
+        before = sp_counts()
+        losses, ms = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(step(i))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        after = sp_counts()
+    finally:
+        train_step.average_gradients = real
+    params = None
+    if group is None or multihost.rank() == 0:
+        params = {k: v.detach().float().cpu()
+                  for k, v in state.model.named_parameters()}
+    return dict(losses=losses, step_ms=ms, params=params,
+                launches={k: after[k] - before[k] for k in after})
+
+
+def world1_arm(name: str, distributed: bool, n_warmup: int, n_steps: int,
+               workdir: str, videos: np.ndarray) -> dict:
+    """The flagship patch loop through ``cli.train``'s ``build`` and
+    ``train_one_epoch`` (``CLI_ARMS["flagship_patch"]``), plain or under
+    ``--distributed`` with ``torchrun``'s variables for a world of one
+    (``env://``, NCCL): every loss, ms a step by the host clock over the
+    timed epoch, the launches of that epoch."""
+    from videowalk_tpu_torch.cli import train as cli
+    from videowalk_tpu_torch.parallel import multihost
+    from videowalk_tpu_torch.utils.arguments import train_args
+
+    out = os.path.join(workdir, name)
+    argv = CLI_ARMS["flagship_patch"] + [
+        "--output-dir", out, "--logs-dir", os.path.join(out, "logs"),
+        "--steps-per-epoch", str(n_warmup)]
+    args = train_args(argv + (["--distributed"] if distributed else []))
+    if distributed:
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                          RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        multihost.initialize_from_args(args)
+    try:
+        import torch.distributed as dist
+
+        backend = dist.get_backend() if dist.is_initialized() else None
+        run = cli.build(args, multihost.local_device(args.device),
+                        InMemoryClips(videos, args.clip_len))
+        losses, real_step = [], run.step
+
+        def step(state, batch, gen, sp_mask=None):
+            m = real_step(state, batch, gen, sp_mask=sp_mask)
+            losses.append(m["loss"])
+            return m
+
+        run.step, run.checkpoint_fn = step, None
+        cli.train_one_epoch(args, run, 0)
+        args.steps_per_epoch = n_steps
+        torch.cuda.synchronize()
+        set_sp_counts(dict.fromkeys(sp_counts(), 0))
+        t0 = time.perf_counter()
+        cli.train_one_epoch(args, run, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = sp_counts()
+        del run
+    finally:
+        if distributed:
+            multihost.shutdown()
+            for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                      "LOCAL_RANK"):
+                os.environ.pop(k, None)
+    torch.cuda.empty_cache()
+    losses = [float(v) for v in losses]
+    res = dict(arm=name, backend=backend, losses=losses,
+               step_ms=wall / n_steps * 1e3, launches=launches)
+    print(f"multi world-1 '{name}' (backend {backend}): "
+          f"{res['step_ms']:.2f} ms/step over {n_steps} steps, first loss "
+          f"{losses[0]!r}, launches {launches}", flush=True)
+    return res
+
+
+def nccl_world1(card: str, n_steps: int) -> dict:
+    """(a) ``cli.train --distributed`` at world size 1 over NCCL against the
+    plain loop, in turns (plain, NCCL, NCCL, plain): the first step's loss
+    bitwise equal, the same launches, ms a step of each."""
+    import shutil
+
+    workdir = tempfile.mkdtemp(prefix="multi_w1_")
+    videos = moving_textures(CLI_VIDEOS, CLI_FRAMES, RAW, seed=5)
+    want = _want(dict(walk_fwd=1, walk_bwd=1, **dict(ARMS)[DEFAULT_ARM]))(
+        n_steps, 0)
+    try:
+        arms = [world1_arm(f"{n}{i}", n == "nccl", 3, n_steps, workdir,
+                           videos)
+                for i, n in enumerate(("plain", "nccl", "nccl", "plain"))]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    plain = [a for a in arms if a["backend"] is None]
+    nccl = [a for a in arms if a["backend"] is not None]
+    if any(a["backend"] != "nccl" for a in nccl):
+        fail(f"multi: --distributed formed {[a['backend'] for a in nccl]}, "
+             f"not nccl")
+    firsts = {a["losses"][0] for a in arms}
+    if len(firsts) != 1:
+        fail(f"multi: NCCL world 1's first loss differs from the plain "
+             f"loop's: {[a['losses'][0] for a in arms]}")
+    for a in arms:
+        if a["launches"] != want or not np.all(np.isfinite(a["losses"])):
+            fail(f"multi {a['arm']}: launches {a['launches']} (want {want}) "
+                 f"or losses {a['losses']}")
+    res = dict(card=card, first_loss=arms[0]["losses"][0],
+               plain_ms=[a["step_ms"] for a in plain],
+               nccl_ms=[a["step_ms"] for a in nccl], arms=arms)
+    print(f"multi (a) NCCL world 1 vs plain loop on {card}: "
+          f"{res['nccl_ms']} vs {res['plain_ms']} ms/step; first loss "
+          f"bitwise equal ({res['first_loss']!r})", flush=True)
+    return res
+
+
+def _update_gap(got: dict, want: dict, init: dict) -> tuple:
+    """``||got - want|| / ||want - init||`` over all parameters as one
+    vector, and the largest over tensors with its name."""
+    def flat(d, base=None):
+        return torch.cat([(d[k] - (0 if base is None else base[k])).flatten()
+                          for k in want])
+    whole = float(flat(got, want).norm() / flat(want, init).norm())
+    per = max((float((got[k] - want[k]).norm()
+                     / (want[k] - init[k]).norm().clamp_min(1e-30)), k)
+              for k in want)
+    return whole, per
+
+
+def gloo_two_ranks(card: str, ranks: list) -> dict:
+    """(b) two gloo ranks on cuda:0 against one process on the global
+    batch, ``MULTI_STEPS`` steps of each of ``GLOO_CASES``: the flagship
+    patch step (global batch 8, 4 a rank) and train.sh's superpixel step
+    (global batch 6, 3 a rank, SLIC #12 with active counts drawn for the
+    global batch, dilation #11), each with a bf16 and an f32 trunk. Limits:
+    ``FIRST_LOSS_RTOL``, ``LATER_LOSS_RTOL`` on the losses; the f32 cases'
+    parameter gap within ``PARAM_UPDATE_TOL`` of the update (each tensor's
+    within ``PARAM_TENSOR_TOL``), and each planted fault
+    (``GLOO_FAULT_CASES``) beyond ``PARAM_UPDATE_TOL``; every training kernel
+    launched in each rank as often as in one process. ``ranks``:
+    ``dryrun.run_ranks``' results for these cases."""
+    from videowalk_tpu_torch.parallel import dryrun
+
+    res = {}
+    for n, case in GLOO_CASES.items():
+        one = measured_case(case, "cuda:0")
+        init = {k: v.detach().float() for k, v in
+                dryrun.case_model(case, 0).named_parameters()}
+        torch.cuda.empty_cache()
+        two = ranks[0][n]
+        rel = [abs(a - b) / abs(b) for a, b in zip(two["losses"],
+                                                   one["losses"])]
+        gap, (per, per_name) = _update_gap(two["params"], one["params"], init)
+        per_rank = [r[n]["launches"] for r in ranks]
+        faults = {}
+        for f in PLANTED_FAULTS if n in PARAM_HELD else ():
+            bad = ranks[0][f"{n}/{f}"]
+            fgap, (fper, _) = _update_gap(bad["params"], one["params"], init)
+            faults[f] = dict(
+                update_gap=fgap, update_gap_largest=fper,
+                loss_rel=[abs(a - b) / abs(b) for a, b in
+                          zip(bad["losses"], one["losses"])])
+        res[n] = dict(losses_two=two["losses"], losses_one=one["losses"],
+                      loss_rel=rel, update_gap=gap,
+                      update_gap_largest=[per, per_name],
+                      planted_faults=faults,
+                      step_ms_two=[r[n]["step_ms"] for r in ranks],
+                      step_ms_one=one["step_ms"],
+                      launches_per_rank=per_rank,
+                      launches_one=one["launches"])
+        print(f"multi (b) gloo x2 on cuda:0 '{n}': losses {two['losses']} vs "
+              f"one process {one['losses']} (rel {rel}), parameter gap "
+              f"{gap:.3e} of the update (largest {per:.3e}, {per_name}); "
+              + "".join(f"planted {f}: gap {v['update_gap']:.3e} (largest "
+                        f"{v['update_gap_largest']:.3e}), loss rel "
+                        f"{v['loss_rel']}; " for f, v in faults.items())
+              + f"ms a step (host clock, steps 1-{MULTI_STEPS}) per rank "
+              f"{res[n]['step_ms_two']}, one process {one['step_ms']}; "
+              f"launches per rank {per_rank}, one process {one['launches']}",
+              flush=True)
+        if any(r[n]["losses"] != two["losses"] for r in ranks):
+            fail(f"multi {n}: the ranks report other losses")
+        if rel[0] > FIRST_LOSS_RTOL or max(rel) > LATER_LOSS_RTOL:
+            fail(f"multi {n}: losses {two['losses']} vs {one['losses']}")
+        if n in PARAM_HELD and (gap > PARAM_UPDATE_TOL
+                                or per > PARAM_TENSOR_TOL):
+            fail(f"multi {n}: parameter gap {gap} of the update ({per} in "
+                 f"{per_name})")
+        for f, v in faults.items():
+            if v["update_gap"] <= PARAM_UPDATE_TOL:
+                fail(f"multi {n}: the planted {f} fault's parameter gap "
+                     f"{v['update_gap']} is within {PARAM_UPDATE_TOL}")
+        for lr in per_rank:
+            ran = {k for k, v in one["launches"].items() if v}
+            if {k for k, v in lr.items() if v} != ran or any(
+                    lr[k] != one["launches"][k] for k in ran):
+                fail(f"multi {n}: a rank's launches {lr} differ from one "
+                     f"process's {one['launches']}")
+    return res
+
+
+BAND_C, BAND_LABELS, BAND_TARGETS, BAND_DEVICES = 512, 16, 4, (2, 3, 8)
+
+
+def banded_prop(card: str) -> dict:
+    """(c) #1 in tile-row bands at DAVIS-480p (60x107, C 512, 16 labels, 1
+    long + 20 short frames, k 10, r 12) over ``[cuda:0] * D`` for D in 2, 3
+    and 8: ``propagate_labels`` over 4 targets bitwise equal to the
+    unbanded run, one launch a band a target; each band's launch timed
+    alone (CUDA events) beside the whole frame's."""
+    from videowalk_tpu_torch.eval.propagation import propagate_labels
+
+    feats, _ = prop_inputs("random", BAND_TARGETS, BAND_C)
+    rows = context_index_bank(N_CONTEXT, LONG_MEM, BAND_TARGETS)
+    lab = torch.rand((*feats.shape[:3], BAND_LABELS), device=feats.device,
+                     generator=torch.Generator("cuda").manual_seed(4))
+    lab = lab / lab.sum(-1, keepdim=True)
+    f = feats.permute(0, 3, 1, 2)
+    kw = dict(n_context=N_CONTEXT, n_long=len(LONG_MEM), topk=TOPK,
+              temperature=TEMP, radius=RADIUS)
+    want = propagate_labels(f, lab, rows, **kw)
+    t = int(rows[0, -1]) + 2          # the second target reads a prediction
+    ctx = torch.from_numpy(rows[1]).cuda()
+    one = dict(n_long=len(LONG_MEM), topk=TOPK, temperature=TEMP,
+               radius=RADIUS)
+    res = dict(card=card, whole_ms=cuda_ms(
+        lambda: ps.prop_sparse(feats, lab, ctx, t, **one), 10), bands={})
+    for D in BAND_DEVICES:
+        bands = ps.sparse_bands(H, D)
+        before = ps.prop_sparse.launches
+        got = propagate_labels(f, lab, rows, devices=["cuda:0"] * D, **kw)
+        launches = ps.prop_sparse.launches - before
+        if not torch.equal(got, want):
+            fail(f"multi: #1 in {len(bands)} bands differs from unbanded "
+                 f"(max {float((got - want).abs().max())})")
+        if launches != BAND_TARGETS * len(bands):
+            fail(f"multi: {launches} launches of #1 for {len(bands)} bands "
+                 f"x {BAND_TARGETS} targets")
+        ms = [cuda_ms(lambda b=b: ps.prop_sparse(feats, lab, ctx, t, rows=b,
+                                                 **one), 10) for b in bands]
+        res["bands"][D] = dict(bands=bands, launches=launches, band_ms=ms)
+        print(f"multi (c) #1 over [cuda:0] x {D}: {len(bands)} bands "
+              f"{bands}, bitwise equal to unbanded, {launches} launches for "
+              f"{BAND_TARGETS} targets; ms a band {[f'{m:.3f}' for m in ms]} "
+              f"(whole frame {res['whole_ms']:.3f}) on {card}", flush=True)
+    return res
+
+
+def multi_phase(card: str, n_steps: int) -> dict:
+    """Multi-GPU on one card: (a) NCCL at world size 1 through the trainer,
+    (b) two gloo ranks on cuda:0, (c) #1 in tile-row bands, (d) the dry
+    run (``parallel/dryrun.py``) at world 2 over gloo on cuda:0, its cases
+    in the same two ranks as (b)'s, then its eval checks."""
+    from videowalk_tpu_torch.parallel import dryrun
+
+    res = dict(nccl_world1=nccl_world1(card, n_steps))
+    ranks = dryrun.run_ranks(
+        {**GLOO_CASES, **GLOO_FAULT_CASES, **dryrun.DRYRUN_CASES}, 2,
+        "cuda:0", "gloo", steps=MULTI_STEPS, runner=measured_case)
+    res["gloo_two_ranks"] = gloo_two_ranks(card, ranks)
+    res["bands"] = banded_prop(card)
+    res["dryrun"] = dryrun.report(ranks, 2, "cuda:0")
+    return res
+
+
 PHASES = dict(prop=lambda a: kernel_vs_plain(),
               eval=lambda a: end_to_end(a.targets),
               small_eval=lambda a: small_card_vs_cpu(),
@@ -3447,7 +3810,8 @@ PHASES = dict(prop=lambda a: kernel_vs_plain(),
               train_cli=lambda a: train_cli_phase(a.steps),
               eval_tail=lambda a: eval_tail_phase(a.card),
               encoders=lambda a: encoders_phase(a.card, a.steps),
-              host_sp=lambda a: host_sp_phase(a.steps))
+              host_sp=lambda a: host_sp_phase(a.steps),
+              multi=lambda a: multi_phase(a.card, a.steps))
 
 
 def main() -> int:
@@ -3578,6 +3942,9 @@ def main() -> int:
         plain_ms=slic_res["plain_ms"], bound_ms=slic_res["bound_ms"],
         bound_by=slic_res["bound_by"], library_ms=None))
     host_sp = host_sp_phase(args.steps, {k["name"]: k["ms"] for k in kernels})
+    multi = multi_phase(smi, args.steps)
+    kernels[0]["band_launches"] = {
+        str(d): b["launches"] for d, b in multi["bands"]["bands"].items()}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -3590,7 +3957,8 @@ def main() -> int:
                            small_sp_train=small_sp_train,
                            ts_train=ts_train, small_ts_train=small_ts_train,
                            train_cli=train_cli, encoders=encoders,
-                           host_sp=host_sp, kernels=kernels, ptxas=logs,
+                           host_sp=host_sp, multi=multi, kernels=kernels,
+                           ptxas=logs,
                            wgmma_verdicts=verdicts), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -130,9 +130,11 @@ def test_train_args_match_the_jax_namespace(argv, tmp_path, monkeypatch):
         assert port["output_dir"].startswith("checkpoints/")
 
 
-# refused until the host side of the trainer was ported; now accepted
+# refused until the host side of the trainer and multi-GPU were ported;
+# now accepted
 NOW_PORTED = ("--sp-backend host", "--visualize", "--profile-dir",
-              "image-folder")
+              "image-folder", "--distributed",
+              "--data-parallel on more than one card")
 
 
 @pytest.mark.parametrize("flag,argv", [
@@ -148,8 +150,9 @@ def test_check_supported_train_refuses_unported_flags(flag, argv, tmp_path,
                                                       monkeypatch):
     """The flags still unported raise, naming themselves. Those the port
     has since ported (``NOW_PORTED``: host superpixels, ``--visualize``,
-    ``--profile-dir``, an image folder) pass, and an image folder is read
-    by the port's ``ImageFolder``."""
+    ``--profile-dir``, an image folder, ``--distributed`` and
+    ``--data-parallel`` on two cards) pass, and an image folder is read by
+    the port's ``ImageFolder``."""
     import cv2
 
     from videowalk_tpu_torch.data.image_folder import ImageFolder
@@ -170,9 +173,6 @@ def test_check_supported_train_refuses_unported_flags(flag, argv, tmp_path,
         return
     with pytest.raises(NotImplementedError, match=flag):
         check_supported_train(train_args(base + argv))
-    if flag.startswith("--data-parallel"):
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-        check_supported_train(train_args(base + argv))   # one card: kept
     check_supported_train(train_args(base + ["--prob", "0.5"]))
 
 
@@ -189,8 +189,9 @@ def test_check_supported_train_accepts_ported_flags(argv, tmp_path,
     base = ["--output-dir", str(tmp_path / "o")]
     check_supported_train(train_args(base + argv))
     with pytest.raises(NotImplementedError) as err:
-        check_supported_train(train_args(base + argv + ["--distributed"]))
-    assert str(err.value).endswith("(see ROADMAP.md): --distributed")
+        check_supported_train(train_args(base + argv + ["--ckpt-format",
+                                                        "orbax"]))
+    assert str(err.value).endswith("(see ROADMAP.md): --ckpt-format orbax")
 
 
 def test_checkpoint_reads_in_the_jax_package_and_the_eval_cli(

@@ -90,16 +90,18 @@ def test_eval_slice_matches_jax(fixture, tmp_path, monkeypatch, norm_mask):
 def test_unported_flags_raise():
     """The flags still unported raise, naming themselves; the JHMDB and VIP
     filelists, ``--pca-vis``, ``--texture``, ``--encode-dtype bfloat16``,
-    ``--profile-dir`` and every model type pass the check."""
+    ``--profile-dir``, ``--data-parallel``, ``--distributed`` and every
+    model type pass the check."""
     from videowalk_tpu_torch.cli.test import main
     from videowalk_tpu_torch.utils.arguments import check_supported, test_args
 
-    for argv, flag in ((["--data-parallel"], "--data-parallel"),
-                       (["--distributed"], "--distributed"),
-                       (["--prop-backend", "xla"], "--prop-backend xla")):
+    for argv, flag in ((["--prop-backend", "xla"], "--prop-backend xla"),
+                       (["--prop-backend", "tiled", "--data-parallel"],
+                        "--prop-backend tiled")):
         with pytest.raises(NotImplementedError, match=flag):
             main(test_args(argv + ["--device", "cpu"]))
     for argv in (["--pca-vis"], ["--texture"], ["--profile-dir", "t"],
+                 ["--data-parallel"], ["--distributed"],
                  ["--encode-dtype", "bfloat16"],
                  ["--filelist", "jhmdb_vallist.txt"],
                  ["--filelist", "VIP_vallist.txt"]) + tuple(

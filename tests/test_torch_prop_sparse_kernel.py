@@ -178,3 +178,37 @@ def test_kernel_matches_plain_with_the_query_tile_streamed(H, W, C, radius):
     err = _run_targets(wide, lab, 3, [0], 3, topk=10, temperature=0.5,
                        radius=radius)
     assert err <= 1e-6, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,n_dev", [
+    (60, 107, 256, 3),     # DAVIS-480p's grid, 8 tile rows over 3 devices
+    (61, 20, 1024, 2),     # a partial last row; the query tile streamed
+    (20, 33, 64, 8),       # 3 tile rows over 8 devices
+])
+def test_kernel_bands_are_the_whole_frame_bitwise_on_card(H, W, C, n_dev):
+    """``rows=(row0, n_rows)``: each band's launch covers its tile rows
+    alone and gives the whole-frame launch's bits for them; propagation
+    over ``[cuda] * n_dev`` equals the unbanded one bitwise, one launch a
+    band a target."""
+    from videowalk_tpu_torch.eval.propagation import propagate_labels
+
+    _need_card()
+    feats, lab = _random(4 + 3, H, W, C, 5, seed=H)
+    feats, lab = feats.cuda(), lab.cuda()
+    ctx = torch.tensor([0, 2, 3, 4], dtype=torch.int32).cuda()
+    kw = dict(n_long=1, topk=10, temperature=0.05, radius=12.0)
+    whole = ps.prop_sparse(feats, lab, ctx, 5, **kw)
+    bands = ps.sparse_bands(H, n_dev)
+    for row0, n_rows in bands:
+        part = ps.prop_sparse(feats, lab, ctx, 5, rows=(row0, n_rows), **kw)
+        y0, y1 = row0 * ps.TQ, min(H, (row0 + n_rows) * ps.TQ)
+        assert torch.equal(part, whole[y0 * W:y1 * W])
+    f = feats.permute(0, 3, 1, 2)
+    idx = context_index_bank(4, [0], 3)
+    pk = dict(n_context=4, n_long=1, topk=10, temperature=0.05, radius=12.0)
+    want = propagate_labels(f, lab.cpu(), idx, **pk)
+    before = ps.prop_sparse.launches
+    got = propagate_labels(f, lab.cpu(), idx, devices=["cuda"] * n_dev, **pk)
+    assert ps.prop_sparse.launches == before + 3 * len(bands)
+    assert torch.equal(got, want)

@@ -17,11 +17,21 @@ its encoder from ``--pretrained-path`` first; ``--resume`` loads over it.
     python -m videowalk_tpu_torch.cli.test --device cuda --filelist ... \\
         --model-type scratch --cropSize -1 --videoLen 20 --long-mem 0 \\
         --topk 10 --radius 12 --temperature 0.05 --resume model.pth
+
+``--data-parallel`` uses every visible card of the host: the model is
+replicated on each, every encode chunk's frames split across them, and
+each target's propagation runs in tile-row bands across them (bitwise the
+one-card result). ``--distributed`` (``torchrun --nproc-per-node N``, or
+``--coordinator-address HOST:PORT --num-processes N --process-id I``)
+splits the video list: process r evaluates videos r, r + N, ... into the
+shared ``--save-path`` under their global indices, then waits for the
+others (on success only).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -34,6 +44,8 @@ from videowalk_tpu_torch.eval import test_utils
 from videowalk_tpu_torch.eval.propagation import (context_index_bank,
                                                   propagate_labels)
 from videowalk_tpu_torch.models import CRW, CRWConfig
+from videowalk_tpu_torch.ops.prop_sparse import TQ, sparse_shard_count
+from videowalk_tpu_torch.parallel import multihost
 from videowalk_tpu_torch.utils.arguments import check_supported
 from videowalk_tpu_torch.utils.checkpoint import load_checkpoint, partial_load
 from videowalk_tpu_torch.utils.device import resolve_device
@@ -67,38 +79,59 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def replicate_model(model: CRW, devices) -> list:
+    """``model`` on each of ``devices``: itself on its own device, a copy
+    of its present weights on any other."""
+    home = next(model.parameters()).device
+    return [model if torch.device(d) == home
+            else copy.deepcopy(model).to(d) for d in devices]
+
+
 def encode_video(model: CRW, imgs: np.ndarray, batch_size: int = 5,
-                 l2: bool = True) -> torch.Tensor:
+                 l2: bool = True, replicas=None) -> torch.Tensor:
     """Per-frame encoder features, minibatched.
 
     Args:
       imgs: (N, H, W, 3) frames: raw uint8 (normalized on the device in
         f32: ``(x / 255 - mean) / std``) or normalized float32.
+      replicas: ``--data-parallel``'s ``replicate_model(model, devices)``:
+        each chunk grows to ``batch_size * len(replicas)`` frames, split
+        across them, the features gathered in order on ``model``'s device.
     Returns:
       (N, C, H', W') f32 features (whatever the trunk's compute type) on the
       model's device, L2-normalized over C with ``max(norm, 1e-12)`` when
       ``l2``.
     """
     device = next(model.parameters()).device
-    trunk = model.encoder.model
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)
+    models = replicas or [model]
     frames = torch.from_numpy(np.ascontiguousarray(imgs)).to(device)
     # f32 convolutions: cuDNN would otherwise take TF32
     flags = (torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
              if device.type == "cuda" else contextlib.nullcontext())
     feats = []
     with torch.inference_mode(), flags:
-        for b in range(0, frames.shape[0], batch_size):
-            x = frames[b:b + batch_size]
-            if x.dtype == torch.uint8:
-                x = (x.to(torch.float32) / 255.0 - mean) / std
-            feats.append(trunk(x.permute(0, 3, 1, 2)).float())
+        for b in range(0, frames.shape[0], batch_size * len(models)):
+            for j, m in enumerate(models):
+                lo = b + j * batch_size
+                if lo < frames.shape[0]:
+                    feats.append(_encode_chunk(
+                        m, frames[lo:lo + batch_size]).to(device))
         feats = torch.cat(feats)
         if l2:
             norm = torch.linalg.vector_norm(feats, dim=1, keepdim=True)
             feats = feats / torch.clamp(norm, min=1e-12)
     return feats
+
+
+def _encode_chunk(model: CRW, x: torch.Tensor) -> torch.Tensor:
+    """The trunk's f32 features of frames ``x`` on the model's device."""
+    dev = next(model.parameters()).device
+    x = x.to(dev)
+    if x.dtype == torch.uint8:
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=dev)
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=dev)
+        x = (x.to(torch.float32) / 255.0 - mean) / std
+    return model.encoder.model(x.permute(0, 3, 1, 2)).float()
 
 
 def dump_pca_vis(feats: np.ndarray, save_path: str, vid_idx: int) -> None:
@@ -117,7 +150,8 @@ def dump_pca_vis(feats: np.ndarray, save_path: str, vid_idx: int) -> None:
         imageio.imwrite(os.path.join(outdir, f"{vid_idx}_{i * 10}.png"), img)
 
 
-def test(loader, model: CRW, args, dump=None, n_videos: int | None = None):
+def test(loader, model: CRW, args, dump=None, n_videos: int | None = None,
+         video_indices=None, devices=None):
     """Evaluate every video of ``loader`` (tuples as ``VOSDataset`` yields
     them). ``dump(pred, lbl_map, img, outpath, img_is_unit_scale=False)`` is
     called per target frame (default ``test_utils.dump_predictions``).
@@ -125,21 +159,34 @@ def test(loader, model: CRW, args, dump=None, n_videos: int | None = None):
     ending in a device synchronize); on a JHMDB filelist it also holds the
     keypoints ``(2, J, targets)``. Under ``--profile-dir`` video 1 is
     traced where ``n_videos`` (or ``len(loader)``) says there are two or
-    more, else video 0, so that the trace shows a warm video."""
+    more, else video 0, so that the trace shows a warm video.
+
+    ``video_indices``: the global index of each of ``loader``'s videos
+    (``--distributed``'s stride), which names its outputs. ``devices``:
+    ``--data-parallel``'s cards: the model is replicated on each of them
+    once (``replicate_model``) for ``encode_video``, and
+    ``propagate_labels`` bands over them."""
     dump = dump or test_utils.dump_predictions
     device = next(model.parameters()).device
     if n_videos is None and hasattr(loader, "__len__"):
         n_videos = len(loader)
     profile_dir = getattr(args, "profile_dir", "")
     profile_vid = 1 if (n_videos or 0) > 1 else 0
+    if video_indices is not None:
+        profile_vid = (video_indices[1] if len(video_indices) > 1
+                       else (video_indices[0] if video_indices else -1))
+    ids = iter(video_indices) if video_indices is not None else None
+    replicas = replicate_model(model, devices) if devices else None
     stats = []
-    for vid_idx, item in enumerate(loader):
+    for i, item in enumerate(loader):
+        vid_idx = i if ids is None else next(ids)
         trace = (Trace(profile_dir, f"test_video{vid_idx}", device)
                  if profile_dir and vid_idx == profile_vid else None)
         if trace is not None:
             trace.start()
         try:
-            stats.append(_test_video(model, args, dump, vid_idx, *item))
+            stats.append(_test_video(model, args, dump, vid_idx, *item,
+                                     devices=devices, replicas=replicas))
         finally:
             if trace is not None:
                 trace.stop()
@@ -147,7 +194,8 @@ def test(loader, model: CRW, args, dump=None, n_videos: int | None = None):
 
 
 def _test_video(model: CRW, args, dump, vid_idx: int, imgs, imgs_orig,
-                lbls_resize, _lbls, lbl_map, meta) -> dict:
+                lbls_resize, _lbls, lbl_map, meta, devices=None,
+                replicas=None) -> dict:
     """One video of ``test``: its stats dict."""
     n_context = args.videoLen
     device = next(model.parameters()).device
@@ -157,7 +205,7 @@ def _test_video(model: CRW, args, dump, vid_idx: int, imgs, imgs_orig,
     print(f"******* Vid {vid_idx} ({N} frames) *******", flush=True)
     _sync(device)
     t0 = time.perf_counter()
-    feats = encode_video(model, imgs, l2=not args.no_l2)
+    feats = encode_video(model, imgs, l2=not args.no_l2, replicas=replicas)
     _sync(device)
     t_enc = time.perf_counter()
     print("computed features", t_enc - t0, flush=True)
@@ -175,10 +223,15 @@ def _test_video(model: CRW, args, dump, vid_idx: int, imgs, imgs_orig,
         f0 = labels0[0] - labels0[0].min(-1, keepdims=True)
         labels0 = labels0.copy()
         labels0[0] = f0 / np.maximum(f0.max(-1, keepdims=True), 1e-12)
+    if devices:
+        n_bands = sparse_shard_count(feats.shape[2], TQ, len(devices))
+        print(f"propagation sharded: {n_bands} active bands over "
+              f"{len(devices)} devices", flush=True)
     preds = propagate_labels(
         feats, torch.from_numpy(labels0), key_indices,
         n_context=n_context, n_long=len(args.long_mem), topk=args.topk,
-        temperature=args.temperature, radius=float(args.radius))
+        temperature=args.temperature, radius=float(args.radius),
+        devices=devices)
     preds = preds.cpu().numpy()            # synchronizes
     t_prop = time.perf_counter()
     print(t_prop - t_enc, "propagation (on-device)", flush=True)
@@ -218,12 +271,38 @@ def _test_video(model: CRW, args, dump, vid_idx: int, imgs, imgs_orig,
                 total_s=t_end - t0)
 
 
+def data_parallel_devices(args, device: torch.device):
+    """``--data-parallel``'s cards: every visible one where the host has
+    more than one and this process is not one rank of ``--distributed``
+    (which takes one card a process), else None (one device, as the JAX
+    eval without a mesh)."""
+    if (not getattr(args, "data_parallel", False)
+            or getattr(args, "distributed", False) or device.type != "cuda"
+            or torch.cuda.device_count() < 2):
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def main(args):
     check_supported(args)
-    device = resolve_device(getattr(args, "device", "cuda"))
+    world = multihost.initialize_from_args(args)
+    try:
+        return _main(args, world)
+    finally:
+        multihost.shutdown()
+
+
+def _main(args, world: int):
+    rank = multihost.rank()
+    device = resolve_device(multihost.local_device(
+        getattr(args, "device", "cuda")) if world > 1
+        else getattr(args, "device", "cuda"))
     print("torch device:", device,
           torch.cuda.get_device_name(device) if device.type == "cuda" else "")
     model = build_model(args, device)
+    devices = data_parallel_devices(args, device)
+    if devices:
+        print(f"eval data-parallel over {len(devices)} devices", flush=True)
     args.mapScale = test_utils.infer_downscale(model.spec.map_scale)
     args.use_lab = args.model_type == "uvc"
 
@@ -236,8 +315,19 @@ def main(args):
         ckpt = load_checkpoint(args.resume)
         partial_load(ckpt["model"], model, skip_keys=["head"])
     os.makedirs(args.save_path, exist_ok=True)
-    return test((dataset[i] for i in range(len(dataset))), model, args,
-                n_videos=len(dataset))
+    indices = list(range(rank, len(dataset), world))
+    if world > 1:
+        print(f"process {rank}/{world}: evaluating {len(indices)} of "
+              f"{len(dataset)} videos {indices}", flush=True)
+    stats = test((dataset[i] for i in indices), model, args,
+                 n_videos=len(dataset),
+                 video_indices=indices if world > 1 else None,
+                 devices=devices)
+    if world > 1:
+        # the shards end at other times: no rank leaves (and takes the
+        # group down) while another is mid-video; on success only
+        torch.distributed.barrier()
+    return stats
 
 
 if __name__ == "__main__":

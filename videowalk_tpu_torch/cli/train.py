@@ -22,6 +22,19 @@ the loss and LR read only every ``--print-freq`` steps, stochastic
 ``<logs-dir>/metrics.jsonl``) and ``--profile-dir`` (a ``torch.profiler``
 trace of steps 5-9 of the run's first epoch). It runs on the card unless
 ``--device cpu`` is given; there every kernel takes its plain version.
+
+Data parallel, one process per card (``parallel/multihost.py``):
+
+    torchrun --nproc-per-node N -m videowalk_tpu_torch.cli.train \\
+        --distributed ...
+
+or ``--distributed --coordinator-address HOST:PORT --num-processes N
+--process-id I`` on each process; ``--data-parallel`` alone on a host with
+N > 1 visible cards spawns the N workers itself. ``--batch-size`` is the
+global batch; each rank loads its ``batch // world`` clips from its sampler
+shard, BN's moments and the gradients span the global batch, the random
+draws are the global batch's rows (``core/rng.py``), and rank 0 alone
+writes checkpoints, ``--visualize`` logs and the ``--profile-dir`` trace.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
+from videowalk_tpu_torch.core.rng import GlobalBatchGenerator
 from videowalk_tpu_torch.data.augs import RawClipTransform, get_train_transforms
 from videowalk_tpu_torch.data.clips import RandomClipSampler, VideoClipIndex
 from videowalk_tpu_torch.data.image_folder import ImageFolder, is_image_folder
@@ -47,7 +61,8 @@ from videowalk_tpu_torch.models.resnet import remat_stage_set
 from videowalk_tpu_torch.ops.augs_device import train_transform_device
 from videowalk_tpu_torch.ops.slic import slic_fused
 from videowalk_tpu_torch.parallel import (TrainState, create_train_state,
-                                          make_optimizer, make_train_step)
+                                          make_optimizer, make_train_step,
+                                          multihost)
 from videowalk_tpu_torch.utils.arguments import check_supported_train
 from videowalk_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                   partial_load,
@@ -146,7 +161,9 @@ def make_dataset(args, transform):
             sp_backend=args.sp_backend,
             seed=args.seed,
         )
-        if cached is None and args.cache_path:
+        if cached is None and args.cache_path and multihost.is_primary():
+            # one writer: on a shared file system every rank would write
+            # the same file at once
             os.makedirs(os.path.dirname(args.cache_path) or ".", exist_ok=True)
             ds.video_clips.save_metadata(args.cache_path)
             print(f"Saved dataset metadata to {args.cache_path}")
@@ -235,7 +252,8 @@ def train_one_epoch(args, run: Training, epoch: int) -> TrainState:
         run.vis.wandb_init(state.model)
     trace = (Trace(args.profile_dir, f"train_epoch{epoch}_steps5-9",
                    state.device)
-             if args.profile_dir and epoch == args.start_epoch else None)
+             if (args.profile_dir and epoch == args.start_epoch
+                 and multihost.is_primary()) else None)
     try:
         delivered = _epoch_steps(args, run, epoch, metric_logger, header,
                                  host_rng, total_steps, trace)
@@ -256,6 +274,7 @@ def _epoch_steps(args, run: Training, epoch: int, metric_logger, header: str,
     fetch_every = max(1, args.print_freq)
     window_clips, window_t0 = 0, time.time()
     device_augs = args.augs_backend == "device"
+    world = multihost.world()     # clips/s counts the global batch
     delivered = 0
     for step_i, (views, sp_mask, _label) in enumerate(
             metric_logger.log_every(run.loader, args.print_freq, header,
@@ -288,7 +307,7 @@ def _epoch_steps(args, run: Training, epoch: int, metric_logger, header: str,
                 mask = _on(sp_mask, dev)
             batch = _on(views["whole"], dev)
             metrics = run.step(state, batch, run.step_gen, sp_mask=mask)
-        window_clips += batch.shape[0]
+        window_clips += batch.shape[0] * world
 
         if run.vis is not None:
             # the reference's per-step logging (code/train.py:71-73): a
@@ -341,8 +360,18 @@ def build(args, device: torch.device, dataset=None) -> Training:
     sampler = (RandomClipSampler(dataset.video_clips, args.clips_per_video,
                                  seed=args.seed)
                if hasattr(dataset, "video_clips") else None)
-    loader = DataLoader(dataset, batch_size=args.batch_size, sampler=sampler,
-                        num_workers=max(1, args.workers // 2))
+    # under --distributed the group is attached even at world size 1 (its
+    # collectives then return their input: the plain step, bitwise)
+    group = (torch.distributed.group.WORLD
+             if torch.distributed.is_initialized() else None)
+    world, rank = multihost.world(), multihost.rank()
+    if args.batch_size % world:
+        raise ValueError(f"--batch-size {args.batch_size} (the global batch) "
+                         f"must be divisible by the {world} processes")
+    # each rank loads its batch // world clips from its disjoint shard
+    loader = DataLoader(dataset, batch_size=args.batch_size // world,
+                        sampler=sampler, num_workers=max(1, args.workers // 2),
+                        shard=(rank, world) if world > 1 else None)
     print(f"Epoch length: {len(loader)} batches", flush=True)
     if sampler is not None:
         # the JAX trainer initializes its model from the first clip of one
@@ -363,7 +392,8 @@ def build(args, device: torch.device, dataset=None) -> Training:
                                optim=args.optim, momentum=args.momentum)
     state = create_train_state(
         model, optimizer, device=device,
-        frozen_prefixes=("teacher.",) if args.teacher_student else ())
+        frozen_prefixes=("teacher.",) if args.teacher_student else (),
+        group=group)
 
     if args.model_type in PRETRAINED_TYPES:
         # the reference's make_encoder loads these inside construction
@@ -422,15 +452,20 @@ def build(args, device: torch.device, dataset=None) -> Training:
         if args.randomise_superpixels:
             B, T = unnorm.shape[:2]
             half = args.randomise_superpixels_range // 2
+            # drawn for the global batch on every rank (the same host_rng
+            # stream); the rank keeps its clips' frames
             n_active = host_rng.randint(args.num_sp - half,
-                                        args.num_sp + half, (B * T,))
+                                        args.num_sp + half, (B * world * T,))
+            n_active = n_active[rank * B * T:(rank + 1) * B * T]
             return slic_fused(unnorm, args.max_sp_num, float(args.compactness),
                               n_active=_on(n_active.astype(np.int32),
                                            unnorm.device))
         return slic_fused(unnorm, args.num_sp, float(args.compactness))
 
     def checkpoint_fn(state_: TrainState, epoch_: int) -> None:
-        if not args.output_dir:
+        # the state is replicated: rank 0 alone writes (every rank draws
+        # the same stochastic-checkpoint coin)
+        if not args.output_dir or not multihost.is_primary():
             return
         ck_args = {k: v for k, v in vars(args).items()
                    if isinstance(v, (int, float, str, bool, list, tuple))}
@@ -454,23 +489,75 @@ def build(args, device: torch.device, dataset=None) -> Training:
         loader = DevicePrefetcher(loader, args.prefetch, keys=keys,
                                   device=state.device)
 
+    def generator():
+        # every rank seeds it alike and keeps its rows of the global draw
+        return (GlobalBatchGenerator(state.device, rank, world)
+                if group is not None else torch.Generator(state.device))
+
     run = Training(state=state, step=make_train_step(), loader=loader,
-                   dataset=dataset, step_gen=torch.Generator(state.device),
-                   aug_gen=torch.Generator(state.device),
+                   dataset=dataset, step_gen=generator(),
+                   aug_gen=generator(),
                    checkpoint_fn=checkpoint_fn, device_slic_fn=device_slic_fn,
-                   # one process here: rank 0 (reference train.py:238)
-                   vis=Visualize(args) if args.visualize else None)
+                   # rank 0 alone logs (reference train.py:238)
+                   vis=(Visualize(args)
+                        if args.visualize and multihost.is_primary()
+                        else None))
     seed_step_streams(run, args.seed, state.step)
     return run
 
 
-def main(args, dataset=None) -> TrainState:
-    """Train as ``args`` say (``train_args``); returns the train state.
+def _data_parallel_worker(local_rank: int, world: int, port: int, args,
+                          dataset) -> None:
+    args.distributed = True
+    args.coordinator_address = f"127.0.0.1:{port}"
+    args.num_processes, args.process_id = world, local_rank
+    args.device = f"cuda:{local_rank}"
+    main(args, dataset)
+
+
+def spawn_data_parallel(args, dataset=None) -> None:
+    """``--data-parallel`` on a host with more than one visible card: one
+    worker process per card (``torch.multiprocessing.spawn``), joined over
+    NCCL at a free port of 127.0.0.1, each running ``main`` as
+    ``--distributed`` rank ``i`` on ``cuda:i`` (the counterpart of the JAX
+    trainer's one-process mesh over the local devices)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    world = torch.cuda.device_count()
+    print(f"--data-parallel: {world} workers, one per card", flush=True)
+    mp.spawn(_data_parallel_worker, args=(world, port, args, dataset),
+             nprocs=world, join=True)
+
+
+def main(args, dataset=None) -> TrainState | None:
+    """Train as ``args`` say (``train_args``); returns the train state
+    (None where ``--data-parallel`` spawned one worker per card).
     ``dataset`` replaces ``make_dataset``'s (any object with the
-    ``Kinetics400`` item contract)."""
+    ``Kinetics400`` item contract). Under ``--distributed`` the process
+    group is formed first and destroyed on exit."""
     check_supported_train(args)
     resolve_remat_args(args)
-    device = resolve_device(args.device)
+    if (args.data_parallel and not args.distributed
+            and torch.device(args.device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        spawn_data_parallel(args, dataset)
+        return None
+    if args.distributed:
+        multihost.initialize_from_args(args)
+        try:
+            return _main(args, multihost.local_device(args.device), dataset)
+        finally:
+            multihost.shutdown()
+    return _main(args, args.device, dataset)
+
+
+def _main(args, device, dataset) -> TrainState:
+    device = resolve_device(device)
     if args.teacher_student and args.prob != 1:
         raise ValueError(    # the reference asserts it (train.py:136-137)
             "Teacher-Student training is not yet compatible with "

@@ -16,8 +16,26 @@ def _l1_normalize(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x / torch.clamp(x.abs().sum(dim=dim, keepdim=True), min=1e-12)
 
 
+def _colsum_std(A: torch.Tensor, group) -> float:
+    """``std(colsums, ddof=1)`` over every matrix of the batch: of this
+    process's ``A`` alone, or, with a process group, of the global batch,
+    from all-reduced f64 ``(n, sum, sum of squares)``, so that every rank
+    takes the same number of iterations."""
+    cs = A.sum(dim=-2)
+    if group is None:
+        return float(cs.std())
+    import torch.distributed as dist
+
+    c = cs.detach().double()
+    st = torch.stack([c.new_tensor(float(c.numel())), c.sum(),
+                      (c * c).sum()])
+    dist.all_reduce(st, op=dist.ReduceOp.SUM, group=group)
+    n, s, s2 = st.tolist()
+    return max(s2 - s * s / n, 0.0) ** 0.5 / (n - 1) ** 0.5
+
+
 def sinkhorn_knopp(A: torch.Tensor, tol: float = 0.01,
-                   max_iter: int = 1000) -> torch.Tensor:
+                   max_iter: int = 1000, group=None) -> torch.Tensor:
     """Alternate column and row L1 normalization of the non-negative
     ``(..., N, M)`` ``A`` until the column sums settle.
 
@@ -31,10 +49,15 @@ def sinkhorn_knopp(A: torch.Tensor, tol: float = 0.01,
     On the card the stop test reads one scalar back to the host each
     iteration (a sync per iteration): acceptable on this experimental path,
     which the main training paths do not take. Differentiable through the
-    iterations."""
+    iterations.
+
+    ``group``: a ``torch.distributed`` process group whose ranks hold row
+    blocks of the global batch; the stop test is then the global batch's
+    (the JAX ``cond`` reduces over the global array), and each test is one
+    all-reduce."""
     A = A / A.sum(dim=(-1, -2), keepdim=True)
     it = 0
-    while it == 0 or (it < max_iter and float(A.sum(dim=-2).std()) > tol):
+    while it == 0 or (it < max_iter and _colsum_std(A, group) > tol):
         A = _l1_normalize(_l1_normalize(A, dim=-2), dim=-1)
         it += 1
     return A

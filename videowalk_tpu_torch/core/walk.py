@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from videowalk_tpu_torch.core import rng
 from videowalk_tpu_torch.core.sinkhorn import sinkhorn_knopp
 
 EPS = 1e-20          # reference code/model.py:12
@@ -60,11 +61,12 @@ def dropout_masks(shape, rate: float,
                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """Independent Bernoulli(``rate``) edge-drop masks ``(m12, m21)`` of
     ``shape`` (bool), one per direction, from ``generator`` (which must live
-    on ``device``)."""
+    on ``device``; a ``core.rng.GlobalBatchGenerator`` keeps its rank's
+    rows of the global batch's draw)."""
     if generator is None:
         raise ValueError("edge dropout needs a torch.Generator")
-    m12 = torch.rand(shape, generator=generator, device=device) < rate
-    m21 = torch.rand(shape, generator=generator, device=device) < rate
+    m12 = rng.rand(shape, generator, device) < rate
+    m21 = rng.rand(shape, generator, device) < rate
     return m12, m21
 
 
@@ -151,7 +153,7 @@ def sk_targets_walk_loss(
     generator: torch.Generator | None = None, edgedrop_rate: float = 0.0,
     masks: tuple[torch.Tensor, torch.Tensor] | None = None,
     use_zero_softmax: bool = False, sk_tol: float = 0.001,
-    sk_max_iter: int = 10,
+    sk_max_iter: int = 10, group=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The experimental ``--sk-targets`` walk loss of ``q (B, C, T, N)``
     (reference code/teacherstudent.py:174-182).
@@ -163,7 +165,8 @@ def sk_targets_walk_loss(
     Ats_0`` chains the dropout-free ``Ats = sinkhorn_knopp(exp(A / T),
     0.01, 100)``. The targets carry no gradient. Returns the mean over the
     T-2 cycles and ``xent sk {i}`` / ``acc sk {i}``; T < 3: loss 0, no
-    diagnostics."""
+    diagnostics. ``group``: Sinkhorn's stop test over the process group's
+    global batch (``core/sinkhorn.py``)."""
     T = q.shape[2]
     if T < 3:
         return torch.zeros((), dtype=torch.float32, device=q.device), {}
@@ -173,8 +176,7 @@ def sk_targets_walk_loss(
     elif edgedrop_rate > 0:
         if generator is None:
             raise ValueError("edge dropout needs a torch.Generator")
-        mask = torch.rand(As.shape, generator=generator,
-                          device=As.device) < edgedrop_rate
+        mask = rng.rand(As.shape, generator, As.device) < edgedrop_rate
     else:
         mask = None
     drop = As if mask is None else edge_dropout(As, mask)
@@ -182,15 +184,15 @@ def sk_targets_walk_loss(
     A12s = sm(drop / temperature, dim=-1).transpose(0, 1)   # (S, B, N, N)
     with torch.no_grad():
         Ats = sinkhorn_knopp(torch.exp(As.transpose(0, 1) / temperature),
-                             tol=0.01, max_iter=100)
+                             tol=0.01, max_iter=100, group=group)
     a12, at = A12s[0], Ats[0]
     losses, accs = [], []
     for i in range(1, T - 1):
         a12 = a12 @ A12s[i]
         with torch.no_grad():
             at = Ats[i] @ at
-            target = sinkhorn_knopp(at, tol=sk_tol,
-                                    max_iter=sk_max_iter).argmax(dim=-1)
+            target = sinkhorn_knopp(at, tol=sk_tol, max_iter=sk_max_iter,
+                                    group=group).argmax(dim=-1)
         logits = torch.log(a12 + EPS)
         picked = logits.gather(-1, target[..., None])[..., 0]
         losses.append((torch.logsumexp(logits, dim=-1) - picked).mean())

@@ -7,7 +7,10 @@ Counterpart of ``videowalk_tpu/eval/propagation.py``'s sparse backend:
 - ``propagate_labels``: a Python loop over target frames in place of
   ``lax.scan``. The label buffer is updated in place: each step's
   prediction is written at its frame index before the next step's launch
-  reads it (stream order). Each step is one ``ops.prop_sparse`` call.
+  reads it (stream order). Each step is one ``ops.prop_sparse`` call a
+  tile-row band: one band on one device, or with ``devices`` (eval
+  ``--data-parallel``) the bands spread over them (the JAX ``shard_map``
+  over a mesh).
 
 The JAX package's shape bucketing (``propagate_labels_bucketed``) exists
 only to bound XLA recompiles; PyTorch runs eagerly, so it is not ported.
@@ -18,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from videowalk_tpu_torch.ops.prop_sparse import prop_sparse
+from videowalk_tpu_torch.ops.prop_sparse import prop_sparse, sparse_bands
 
 
 def context_index_bank(n_context: int, long_mem: list[int], N: int) -> np.ndarray:
@@ -44,8 +47,18 @@ def context_index_bank(n_context: int, long_mem: list[int], N: int) -> np.ndarra
 
 def propagate_labels(feats: torch.Tensor, labels0: torch.Tensor,
                      key_indices, *, n_context: int, n_long: int, topk: int,
-                     temperature: float, radius: float) -> torch.Tensor:
+                     temperature: float, radius: float,
+                     devices=None) -> torch.Tensor:
     """Autoregressive label propagation over a whole video.
+
+    With ``devices`` (a list; one device may repeat), each target's query
+    grid splits into ``sparse_shard_count`` tile-row bands, band ``d`` on
+    ``devices[d % len(devices)]``: the features and the label buffer are
+    copied to each device once a video, each band's prediction comes back
+    to ``feats``' device in order, and the whole prediction goes into every
+    device's buffer before the next target. Each query's candidates and
+    sums do not depend on its band, so the result is bitwise the one of
+    ``devices=None``.
 
     Args:
       feats: ``(N_total, C, H, W)`` per-frame features, L2-normalized over C;
@@ -66,16 +79,28 @@ def propagate_labels(feats: torch.Tensor, labels0: torch.Tensor,
     gt0 = lbl_buf[0].clone()
     preds = torch.empty((rows.shape[0], H, W, lbl_buf.shape[-1]),
                         dtype=torch.float32, device=dev)
+    kw = dict(n_long=n_long, topk=topk, temperature=temperature,
+              radius=radius)
+    devices = devices or [dev]
+    bands = sparse_bands(H, len(devices))
+    on = [torch.device(devices[d % len(devices)]) for d in range(len(bands))]
+    # one copy of the keys, the buffer and the indices a device (``to``
+    # returns the tensor itself on its own device)
+    copies = {d: (feats_cl.to(d), lbl_buf.to(d), idx.to(d))
+              for d in dict.fromkeys([dev, *on])}
     for i in range(rows.shape[0]):
         t_global = int(rows[i, -1]) + 1  # target = last short-term ctx + 1
-        pred = prop_sparse(feats_cl, lbl_buf, idx[i], t_global,
-                           n_long=n_long, topk=topk, temperature=temperature,
-                           radius=radius).view(H, W, -1)
+        parts = [prop_sparse(copies[d][0], copies[d][1], copies[d][2][i],
+                             t_global, rows=band, **kw)
+                 for band, d in zip(bands, on)]
+        pred = (parts[0].to(dev) if len(parts) == 1 else
+                torch.cat([p.to(dev) for p in parts])).view(H, W, -1)
         # Reference quirk (code/test.py:156-160): the FIRST target's
         # prediction is the ground-truth frame-0 labels, in the buffer and
         # in the output.
         if t_global == n_context:
             pred = gt0
-        lbl_buf[t_global] = pred
+        for _, buf, _ in copies.values():
+            buf[t_global] = pred.to(buf.device)
         preds[i] = pred
     return preds

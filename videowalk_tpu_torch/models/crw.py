@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from videowalk_tpu_torch.core import rng
 from videowalk_tpu_torch.core import walk as walk_lib
 from videowalk_tpu_torch.core.masks import make_dilation_kernel
 from videowalk_tpu_torch.core.walk import l2_normalize
@@ -219,6 +220,9 @@ class CRW(nn.Module):
         self.encoder = self.spec.module
         self.selfsim_fc = Head(self.spec.hid_dim, cfg.head_depth,
                                bias=cfg.head_bias)
+        # a torch.distributed process group (parallel/mesh.py::
+        # attach_group): sk_targets' Sinkhorn stops on its global batch
+        self.group = None
 
     def _featdrop(self, maps, train, generator):
         rate = self.cfg.featdrop_rate
@@ -226,8 +230,7 @@ class CRW(nn.Module):
             return maps
         if generator is None:
             raise ValueError("featdrop needs a torch.Generator")
-        keep = torch.rand(maps.shape, generator=generator,
-                          device=maps.device) < 1.0 - rate
+        keep = rng.rand(maps.shape, generator, maps.device) < 1.0 - rate
         return torch.where(keep, maps / (1.0 - rate), torch.zeros_like(maps))
 
     def _project(self, feats):
@@ -308,7 +311,8 @@ class CRW(nn.Module):
         if cfg.sk_targets:
             loss, diags = walk_lib.sk_targets_walk_loss(
                 q, cfg.temperature, generator=generator, edgedrop_rate=rate,
-                masks=masks, use_zero_softmax=cfg.use_zero_softmax)
+                masks=masks, use_zero_softmax=cfg.use_zero_softmax,
+                group=self.group if train else None)
         elif use_fused:
             loss, diags = walk_ops.fused_walk_loss(
                 q, cfg.temperature, generator=generator, edgedrop_rate=rate,

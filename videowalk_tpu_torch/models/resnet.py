@@ -134,16 +134,34 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.dtype = dtype
+        # a torch.distributed process group (parallel/mesh.py::
+        # attach_group): train-mode moments over its global batch
+        self.group = None
 
     def _batch_stats(self, x: torch.Tensor, xf: torch.Tensor, moments):
         """Train mode: the batch ``(mean, var)`` in f32, from ``moments`` or
-        a reduce over ``xf``, and the running statistics updated."""
+        a reduce over ``xf``, and the running statistics updated.
+
+        With a ``group`` attached (``parallel/mesh.py::attach_group``),
+        each rank's ``(E[y], E[y²])`` are averaged over the group by one
+        differentiable all-reduce, so they are the global batch's: the ranks
+        hold equal row blocks (the global batch splits evenly), so the
+        global count is the group size times the local one. At a group of
+        one this is bitwise the ungrouped path. The all-reduce also runs on
+        a rematerialized block's recompute, on every rank alike."""
         if moments is None:
             mean = xf.mean(dim=(0, 2, 3))
             ex2 = (xf * xf).mean(dim=(0, 2, 3))
         else:
             count = x.numel() // x.shape[1]
             mean, ex2 = moments[0] / count, moments[1] / count
+        if self.group is not None:
+            from videowalk_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                                           group_size)
+
+            packed = all_reduce_sum(torch.cat([mean, ex2]), self.group)
+            packed = packed / group_size(self.group)
+            mean, ex2 = packed.chunk(2)
         var = torch.clamp(ex2 - mean * mean, min=0.0)
         if getattr(_recompute, "on", False):
             return mean, var

@@ -83,8 +83,13 @@ def build_all(names=None) -> dict[str, str]:
             os.unlink(tmp)
             failed.append(f"{name}.cu (nvcc exit {p.returncode}):\n{out}")
         else:
-            with open(_log_path(lib), "w") as fh:
+            # the log, then the library, each renamed into place whole:
+            # two processes that build the same source (ranks sharing a
+            # checkout) each replace the other's copy atomically
+            fd, tmp_log = tempfile.mkstemp(suffix=".log", dir=BUILD_DIR)
+            with os.fdopen(fd, "w") as fh:
                 fh.write(out)
+            os.replace(tmp_log, _log_path(lib))
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))

@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from videowalk_tpu_torch.core import rng
 from videowalk_tpu_torch.data.augs import IMG_MEAN, IMG_STD
 from videowalk_tpu_torch.utils.device import full_f32_matmul
 
@@ -47,7 +48,8 @@ def normalize(img: torch.Tensor) -> torch.Tensor:
 
 
 def _rand(generator: torch.Generator, *shape) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=generator.device)
+    # a GlobalBatchGenerator keeps its rank's rows of the global draw
+    return rng.rand(shape, generator)
 
 
 # ------------------------------------------------------------------- crops
@@ -164,8 +166,7 @@ def draw_color_jitter(generator: torch.Generator, B: int, brightness=0.1,
         return lo + _rand(generator, B) * (hi - lo)
 
     fb, fc, fs = factor(brightness), factor(contrast), factor(saturation)
-    order = torch.randint(0, len(PERMS), (B,), generator=generator,
-                          device=generator.device)
+    order = rng.randint(0, len(PERMS), (B,), generator)
     return fb, fc, fs, order
 
 

@@ -73,6 +73,13 @@
 //   stream order, so the prediction of an earlier target (written between
 //   launches) is read, never cached.
 //
+//   Tile-row bands. A launch covers the tile rows row0 .. row0+n_rows-1 of
+//   the query grid (grid.y = n_rows) and writes those rows alone, at band-
+//   local rows of out; the keys keep their whole frame and halo. A query's
+//   candidates, their order and its sums do not depend on the band, so the
+//   bands of a frame give the whole frame's bits (eval --data-parallel
+//   splits a target over devices this way, eval/propagation.py).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (videowalk_tpu_torch/ops/_build.py); plain C interface, loaded with ctypes.
 
@@ -134,9 +141,9 @@ __global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
     const float* __restrict__ feats,    // (N, HW, C) L2-normalized features
     const float* __restrict__ labels,   // (N, HW, NL) label buffer
     const int* __restrict__ ctx,        // (L,) context frame indices
-    float* __restrict__ out,            // (HW, NL) predictions
+    float* __restrict__ out,            // (band rows x W, NL) predictions
     int H, int W, int C, int NL, int L, int n_long, int t_query, int topk,
-    float inv_t, float r2, int rr) {
+    float inv_t, float r2, int rr, int row0) {
   extern __shared__ float4 smem4[];
   const int CQ = padded(C);             // channels a dot runs over
   const int QS = STREAM_Q ? CS : CQ;    // query row stride in q_s, floats
@@ -154,7 +161,7 @@ __global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
   int* counts = reinterpret_cast<int*>(rowt + TQ + 2 * rr);   // rows, cells
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ty0 = (int)blockIdx.y * TQ, tx0 = (int)blockIdx.x * TQ;
+  const int ty0 = (row0 + (int)blockIdx.y) * TQ, tx0 = (int)blockIdx.x * TQ;
 
   // ---- the union of the tile's disks, in frame: one interval a row
   const int nwin = TQ + 2 * rr;
@@ -405,7 +412,7 @@ __global__ void __launch_bounds__(NT, 1) prop_sparse_kernel(
         s = fmaf(e, labels[((size_t)ctx[fl] * HW + (id - fl * HW)) * NL + c], s);
       }
     }
-    out[((size_t)y * W + x) * NL + c] = z > 0.f ? s / z : 0.f;
+    out[((size_t)(y - row0 * TQ) * W + x) * NL + c] = z > 0.f ? s / z : 0.f;
   }
 }
 
@@ -420,23 +427,27 @@ size_t prop_sparse_smem_bytes(int C, int topk, int rr) {
   return smem_bytes(C, topk, rr);
 }
 
-// Launches the kernel for one target frame on `stream`; returns the
+// Launches the kernel for tile rows row0 .. row0+n_rows-1 of one target
+// frame on `stream` (the whole frame: 0 and ceil(H / 8)); out holds those
+// rows' cells, (min(H, 8 (row0 + n_rows)) - 8 row0) x W of them. Returns the
 // cudaError_t of the launch (0 on success).
 int prop_sparse_launch(const float* feats, const float* labels, const int* ctx,
                        float* out, int H, int W, int C, int NL, int L,
                        int n_long, int t_query, int topk, float inv_t, float r2,
-                       int rr, void* stream) {
+                       int rr, int row0, int n_rows, void* stream) {
   const size_t smem = smem_bytes(C, topk, rr);
-  if (smem > SMEM_OPTIN) return (int)cudaErrorInvalidValue;
+  const int tile_rows = (H + TQ - 1) / TQ;
+  if (smem > SMEM_OPTIN || row0 < 0 || n_rows < 1 || row0 + n_rows > tile_rows)
+    return (int)cudaErrorInvalidValue;
   auto kernel = streams_query(C, topk, rr) ? prop_sparse_kernel<true>
                                            : prop_sparse_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TQ - 1) / TQ, (H + TQ - 1) / TQ);
+  const dim3 grid((W + TQ - 1) / TQ, n_rows);
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       feats, labels, ctx, out, H, W, C, NL, L, n_long, t_query, topk, inv_t,
-      r2, rr);
+      r2, rr, row0);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,11 @@ Replaces the Pallas TPU kernel ``videowalk_tpu/ops/prop_sparse_kernel.py``
 ``prop_sparse`` is the wrapper: a CPU tensor takes ``prop_sparse_plain``
 (plain PyTorch, the same function with the same tie rule); a CUDA tensor
 launches the hand-written Hopper kernel ``csrc/prop_sparse.cu`` or raises.
-``prop_sparse.launches`` counts kernel launches.
+``prop_sparse.launches`` counts kernel launches. ``rows=(row0, n_rows)``
+takes one band of tile rows of the query grid (each ``TQ`` cells high;
+the keys keep the whole frame): the kernel's grid covers those rows alone,
+and a frame's bands give its unbanded bits (``sparse_bands``,
+``sparse_shard_count``: eval ``--data-parallel``).
 
 Bound on the card: operations. At DAVIS-480p (C=256, 60x107, 1 long + 20
 short frames, r=12) a target needs ~6420 x 15.5k valid (query, candidate)
@@ -101,6 +105,26 @@ def sparse_supported(C: int, topk: int, n_lbl: int, radius: float) -> bool:
             and smem_bytes(C, topk, radius) <= SMEM_LIMIT)
 
 
+def sparse_shard_count(H: int, tile: int, n_devices: int) -> int:
+    """The active band count of propagation at height ``H`` over
+    ``n_devices`` (the JAX package's formula): each band takes
+    ``ceil(tile_rows / n_devices)`` tile rows, so ``ceil(rows / that)``
+    bands hold rows. DAVIS-480p (H = 60): 8 tile rows, 8 bands on 8
+    devices; JHMDB's 40: 5 rows, 5 bands of 8."""
+    nth = -(-H // tile)
+    per_band = -(-nth // max(1, int(n_devices)))
+    return -(-nth // per_band)
+
+
+def sparse_bands(H: int, n_devices: int) -> list[tuple[int, int]]:
+    """``(row0, n_rows)`` tile-row bands of a height-``H`` query grid over
+    ``n_devices``: ``sparse_shard_count`` bands of ``ceil(tile_rows /
+    n_devices)`` rows, the last one cut to the grid."""
+    nth = -(-H // TQ)
+    per = -(-nth // max(1, int(n_devices)))
+    return [(r, min(per, nth - r)) for r in range(0, nth, per)]
+
+
 def valid_pairs(H: int, W: int, radius: float, n_long: int,
                 n_short: int) -> int:
     """(query, candidate) pairs one target needs: ``n_long * HW * HW`` plus,
@@ -113,25 +137,40 @@ def valid_pairs(H: int, W: int, radius: float, n_long: int,
     return int(n_long * (H * W) ** 2 + n_short * per[disk].sum())
 
 
+def _band_cells(H: int, W: int, rows) -> tuple[int, int]:
+    """The first and last-plus-one frame rows of tile-row band ``rows``
+    (the whole frame for None)."""
+    if rows is None:
+        return 0, H
+    row0, n_rows = rows
+    if row0 < 0 or n_rows < 1 or row0 + n_rows > -(-H // TQ):
+        raise ValueError(f"prop_sparse: tile rows {rows} outside the "
+                         f"{-(-H // TQ)} of a height-{H} grid")
+    return row0 * TQ, min(H, (row0 + n_rows) * TQ)
+
+
 def prop_sparse_plain(feats: torch.Tensor, labels: torch.Tensor,
                       ctx: torch.Tensor, t_query: int, *, n_long: int,
-                      topk: int, temperature: float,
-                      radius: float) -> torch.Tensor:
+                      topk: int, temperature: float, radius: float,
+                      rows: tuple[int, int] | None = None) -> torch.Tensor:
     """The plain PyTorch version, frame by frame: a stable descending sort
     of each frame's candidates (raster order) merged into the running top-k
-    with another stable sort, so ties keep the earlier candidate."""
+    with another stable sort, so ties keep the earlier candidate. ``rows``:
+    the queries of that tile-row band alone."""
     N, H, W, C = feats.shape
     HW, nl = H * W, labels.shape[-1]
     dev = feats.device
-    q = feats[t_query].reshape(HW, C)
+    y0, y1 = _band_cells(H, W, rows)
+    q = feats[t_query, y0:y1].reshape(-1, C)
     yy, xx = torch.meshgrid(torch.arange(H, device=dev),
                             torch.arange(W, device=dev), indexing="ij")
     yy, xx = yy.reshape(-1), xx.reshape(-1)
-    d2 = ((yy[:, None] - yy[None]) ** 2 + (xx[:, None] - xx[None]) ** 2)
+    qy, qx = yy[y0 * W:y1 * W], xx[y0 * W:y1 * W]
+    d2 = ((qy[:, None] - yy[None]) ** 2 + (qx[:, None] - xx[None]) ** 2)
     outside = ~(d2.to(torch.float32) < float(np.float32(radius * radius)))
     inv_t = float(np.float32(1.0 / temperature))
-    best_v = torch.empty((HW, 0), dtype=torch.float32, device=dev)
-    best_i = torch.empty((HW, 0), dtype=torch.int64, device=dev)
+    best_v = torch.empty((q.shape[0], 0), dtype=torch.float32, device=dev)
+    best_i = torch.empty((q.shape[0], 0), dtype=torch.int64, device=dev)
     for l, f in enumerate(ctx.tolist()):
         a = (q @ feats[f].reshape(HW, C).T) * inv_t
         if l >= n_long:
@@ -149,7 +188,7 @@ def prop_sparse_plain(feats: torch.Tensor, labels: torch.Tensor,
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _lib():
@@ -166,8 +205,10 @@ def _lib():
 
 def prop_sparse(feats: torch.Tensor, labels: torch.Tensor, ctx: torch.Tensor,
                 t_query: int, *, n_long: int, topk: int, temperature: float,
-                radius: float) -> torch.Tensor:
-    """One target frame's predicted soft labels.
+                radius: float,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """One target frame's predicted soft labels (of one tile-row band with
+    ``rows=(row0, n_rows)``).
 
     Args:
       feats: ``(N, H, W, C)`` float32 L2-normalized per-frame features.
@@ -176,10 +217,12 @@ def prop_sparse(feats: torch.Tensor, labels: torch.Tensor, ctx: torch.Tensor,
       ctx: ``(L,)`` int32 context frame indices, long-term first.
       t_query: index of the target frame in ``feats``.
     Returns:
-      ``(H * W, nl)`` float32 predictions, raster order.
+      ``(H * W, nl)`` float32 predictions, raster order; with ``rows``,
+      the ``(y1 - y0) * W`` cells of frame rows ``y0 = 8 row0`` to ``y1 =
+      min(H, 8 (row0 + n_rows))``.
     """
     kw = dict(n_long=n_long, topk=topk, temperature=temperature,
-              radius=radius)
+              radius=radius, rows=rows)
     if feats.device.type == "cpu":
         return prop_sparse_plain(feats, labels, ctx, t_query, **kw)
     if feats.device.type != "cuda":
@@ -207,14 +250,18 @@ def prop_sparse(feats: torch.Tensor, labels: torch.Tensor, ctx: torch.Tensor,
             f"t_query={t_query} (needs C % 4 == 0, 1 <= topk <= {MAX_TOPK}, "
             f"{smem_bytes(C, topk, radius)} <= {SMEM_LIMIT} bytes of shared "
             f"memory)")
-    out = torch.empty((H * W, nl), dtype=torch.float32, device=feats.device)
+    y0, y1 = _band_cells(H, W, rows)
+    row0 = y0 // TQ
+    out = torch.empty(((y1 - y0) * W, nl), dtype=torch.float32,
+                      device=feats.device)
     rr = sparse_halo(radius)
     with torch.cuda.device(feats.device):
         err = _lib().prop_sparse_launch(
             feats.data_ptr(), labels.data_ptr(), ctx.data_ptr(),
             out.data_ptr(), H, W, C, nl, L, n_long, int(t_query), topk,
             float(np.float32(1.0 / temperature)),
-            float(np.float32(radius * radius)), rr,
+            float(np.float32(radius * radius)), rr, row0,
+            -(-y1 // TQ) - row0,
             torch.cuda.current_stream(feats.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"prop_sparse kernel launch failed: cudaError {err}")

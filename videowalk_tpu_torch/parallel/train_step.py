@@ -6,29 +6,41 @@ PyTorch runs eagerly, so there is no compiled step: ``make_train_step``
 returns a function that runs one step on the state's model and optimizer
 and updates the parameters, the BN running statistics and the optimizer's
 moments *in place* (the JAX step returns a new state instead).
+
+Data parallel (``create_train_state(group=...)``): each rank steps its row
+block of the global batch; BN's moments span the group
+(``parallel/mesh.py::attach_group``), the gradients are averaged over
+it after the backward pass and the metrics are the global batch's, so
+every rank holds the same parameters after every step, as the JAX step on
+a mesh gives them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 from torch import nn
 
+from videowalk_tpu_torch.parallel.mesh import (attach_group,
+                                               average_gradients,
+                                               global_mean, replicate)
 from videowalk_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters + BN running statistics) on ``device``, its
-    optimizer, the per-step LR schedule and the count of steps taken."""
+    optimizer, the per-step LR schedule, the count of steps taken and the
+    data-parallel process group (None: one process)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     device: torch.device
     step: int = 0
+    group: Any = None
 
 
 def make_optimizer(
@@ -64,7 +76,8 @@ def make_optimizer(
 
 def create_train_state(model: nn.Module, optimizer: Callable,
                        device: str | torch.device = "cuda",
-                       frozen_prefixes: Sequence[str] = ()) -> TrainState:
+                       frozen_prefixes: Sequence[str] = (),
+                       group=None) -> TrainState:
     """Move ``model`` to ``device`` (the card unless the caller asks for
     ``'cpu'``; raises where CUDA is asked for and missing) and bind
     ``make_optimizer``'s ``optimizer`` to its parameters there. The model is
@@ -73,8 +86,16 @@ def create_train_state(model: nn.Module, optimizer: Callable,
     Parameters whose ``state_dict`` name starts with one of
     ``frozen_prefixes`` (``("teacher.",)`` for ``CRWTeacherStudent``) get
     ``requires_grad_(False)`` and stay out of the optimizer, so no step
-    moves them (the JAX step zeroes their updates)."""
+    moves them (the JAX step zeroes their updates).
+
+    ``group``: a ``torch.distributed`` process group to train data-parallel
+    over. It is attached to the model's BN layers and Sinkhorn
+    (``attach_group``), and rank 0's parameters and buffers are
+    broadcast to every rank and checked equal (``replicate``)."""
     model.to(resolve_device(device))
+    if group is not None:
+        attach_group(model, group)
+        replicate(model, group)
     prefixes = tuple(frozen_prefixes)
     trained = []
     for name, p in model.named_parameters():
@@ -84,7 +105,8 @@ def create_train_state(model: nn.Module, optimizer: Callable,
             trained.append(p)
     opt, sched = optimizer(trained)
     return TrainState(model=model, optimizer=opt, scheduler=sched,
-                      device=next(model.parameters()).device)  # with its index
+                      device=next(model.parameters()).device,  # with its index
+                      group=group)
 
 
 def make_train_step() -> Callable:
@@ -101,7 +123,13 @@ def make_train_step() -> Callable:
     running statistics and optimizer state are updated in place.
     ``metrics`` holds the loss and the walk diagnostics as detached 0-d
     tensors on the device (reading them synchronizes; the step itself does
-    not)."""
+    not).
+
+    With a group on the state, ``batch`` is this rank's row block of the
+    global batch and ``generator`` a ``core.rng.GlobalBatchGenerator``
+    seeded alike on every rank; the gradients are averaged over the group
+    (one flat all-reduce) before the update, and ``metrics`` are the
+    global batch's means (one more all-reduce)."""
 
     def step(state: TrainState, batch: torch.Tensor,
              generator: torch.Generator | None = None,
@@ -115,10 +143,15 @@ def make_train_step() -> Callable:
         _, loss, diags = state.model(batch, train=True, generator=generator,
                                      **kwargs)
         loss.backward()
+        if state.group is not None:
+            average_gradients(state.model.parameters(), state.group)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return {"loss": loss.detach(),
-                **{k: v.detach() for k, v in diags.items()}}
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in diags.items()}}
+        if state.group is not None:
+            metrics = global_mean(metrics, state.group)
+        return metrics
 
     return step

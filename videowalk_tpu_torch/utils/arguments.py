@@ -17,20 +17,14 @@ import os
 
 
 def check_supported(args) -> None:
-    """Raise ``NotImplementedError`` naming every set flag this port does
-    not implement."""
-    bad = []
-    for flag, on in (
-            ("--data-parallel", getattr(args, "data_parallel", False)),
-            ("--distributed", getattr(args, "distributed", False)),
-            ("--prop-backend " + str(getattr(args, "prop_backend", "auto")),
-             getattr(args, "prop_backend", "auto") not in ("auto", "sparse"))):
-        if on:
-            bad.append(flag)
-    if bad:
+    """Raise ``NotImplementedError`` where ``--prop-backend`` names one of
+    the JAX package's XLA backends, which this port does not implement
+    (``--distributed`` and ``--data-parallel`` run, ``cli/test.py``)."""
+    backend = str(getattr(args, "prop_backend", "auto"))
+    if backend not in ("auto", "sparse"):
         raise NotImplementedError(
             "not ported to videowalk_tpu_torch yet (see ROADMAP.md): "
-            + ", ".join(bad))
+            "--prop-backend " + backend)
 
 
 def test_args(argv=None):
@@ -89,23 +83,12 @@ def test_args(argv=None):
 
 
 def check_supported_train(args) -> None:
-    """Raise ``NotImplementedError`` naming every set training flag this
-    port does not implement. ``--data-parallel`` on one visible card is
-    kept: the JAX trainer builds no mesh on one device either."""
-    import torch
-
-    bad = []
-    for flag, on in (
-            ("--distributed", args.distributed),
-            ("--data-parallel on more than one card",
-             args.data_parallel and torch.cuda.device_count() > 1),
-            ("--ckpt-format " + args.ckpt_format, args.ckpt_format != "pth")):
-        if on:
-            bad.append(flag)
-    if bad:
+    """Raise ``NotImplementedError`` naming a set training flag this port
+    does not implement: only ``--ckpt-format orbax`` is left."""
+    if args.ckpt_format != "pth":
         raise NotImplementedError(
             "not ported to videowalk_tpu_torch yet (see ROADMAP.md): "
-            + ", ".join(bad))
+            "--ckpt-format " + args.ckpt_format)
 
 
 def train_args(argv=None):

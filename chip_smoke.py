@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port's eval and training paths on one NVIDIA
 card.
 
-    python3 chip_smoke.py [--targets 40] [--steps 10] [--out results/chip_smoke.json]
+    python3 chip_smoke.py [--targets 40] [--steps 5] [--out results/chip_smoke.json]
     python3 chip_smoke.py --phases rconv      # phases alone, no result line
 
 1. Prints the card's name and power limit, builds every CUDA kernel of
@@ -23,9 +23,8 @@ card.
 4. Checks the result: finite predictions of the right shape, the first
    target equal to the frame-0 ground truth, one launch per target, and the
    card's end-to-end predictions against the CPU path on a small video.
-   Then the rest of the eval path in memory (``eval_tail``; the card's
-   machine has no cv2, PIL or imageio, so no file is read or written): the
-   DAVIS J&F of that video's predictions (bilinear upsample and argmax on
+   Then the rest of the eval path in memory (``eval_tail``; the file
+   path is driven by ``files``, item 19): the DAVIS J&F of that video's predictions (bilinear upsample and argmax on
    the card, J and F per object by ``eval/davis_metrics.py``'s array core,
    ground truth against itself J = F = 1); JHMDB's geometry (320x320, 40x40
    maps, 15 joints of moving squares as ``draw_labelmap_np`` heatmaps + the
@@ -154,8 +153,9 @@ card.
    version on random and near-tie features at C = 1024 and 2048.
 17. Superpixel training from host masks (``host_sp``): ``train.sh``'s flags
    with ``--sp-backend host --augs-backend host`` through the trainer's
-   loop over views made once by the device transform (no file read, no host
-   machine) and ids made in the loader's threads by
+   loop over views made once by the device transform (no file is read and
+   no host augmentation runs: the host masks are this phase's subject) and
+   ids made in the loader's threads by
    ``data/superpixels.py::host_sp_mask`` (native SLIC, and the per-clip
    SLIC/FH mix), beside the same flags with SLIC on the card: each
    superpixel step gets the loader's ids, #12 never launches and #11 once
@@ -176,6 +176,30 @@ card.
    at DAVIS-480p, C 512, 16 labels over ``[cuda:0] * D``, D 2, 3, 8:
    bitwise the unbanded propagation, ms a band; (d) the multi-process dry
    run (``videowalk_tpu_torch/parallel/dryrun.py``) at world 2.
+19. The users' launch recipes from files (``files``), each run as a user
+   runs it, in its own process: (a) a Kinetics-layout tree of 128 videos
+   (8 classes, 100 frames of moving textures at 340x256, 25 fps) written
+   by ``cv2.VideoWriter`` (mp4v, which the card's cv2 4.13.0 writes and
+   reads) and read back by the port's reader; (b) ``bash train_torch.sh
+   --epochs 2`` on it (train.sh's flags: cv2 decode and the host
+   augmentations in the loader's threads, the metadata cache, SLIC #12 and
+   dilation #11 on the card), every printed loss finite, ``checkpoint.pth``
+   and the cache written, its ``--profile-dir`` trace of steps 5-9 holding
+   exactly the launches of the paths drawn there; ms a step, the loader's
+   wait (``data:``), device busy and idle share, start-up; then
+   ``--resume`` to a third epoch, which must read the cache and continue at
+   epoch 2; (c) ``bash test_torch.sh`` at that checkpoint on a DAVIS-2017
+   tree of 854x480 JPEG frames and palette annotations (2 videos of 30
+   frames, 3 and 2 moving squares): exit 0, a converted PNG a frame, a
+   finite J&F, #1 once a target in the traced video; video0 cut to 8
+   frames through the chain on the card and with ``--device cpu``: J&F
+   within 1e-3, soft predictions within 1e-4 on >= 99.9% of label cells;
+   (d) at the trained weights: #1 against its plain version on the eval's
+   features (cells over 1e-4, queries whose top-k ids differ), the small
+   f32 patch and superpixel steps card vs CPU with the checkpoint's weights
+   and BN statistics, and how far those statistics and the walk loss moved.
+   The kernel line gives each kernel these runs launched its
+   ``files_launches`` (training steps 5-9, eval video 1).
 
 Prints one JSON line of kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failed phase raises (non-zero exit,
@@ -886,8 +910,8 @@ def bf16_encode(n_frames: int = 10, h: int = 480, w: int = 854) -> dict:
 
 
 def eval_tail_phase(card: str, n_targets: int = TAIL_TARGETS) -> dict:
-    """The rest of the eval path on the card, in memory (the card's
-    machine has no cv2, PIL or imageio): the DAVIS J&F chain, JHMDB PCK at
+    """The rest of the eval path on the card, in memory (``files`` runs
+    the DAVIS chain from files): the DAVIS J&F chain, JHMDB PCK at
     its eval geometry (16 labels), VIP mIoU at its label width (20), #1
     launched once a target and held to its plain version at both widths,
     and ``--encode-dtype bfloat16`` against f32."""
@@ -1629,11 +1653,15 @@ def bottleneck_fwd_flops_per_image() -> int:
     return f
 
 
-def seeded_crw(cfg: CRWConfig, seed: int) -> CRW:
-    """The model, initialized on the CPU from ``seed``."""
+def seeded_crw(cfg: CRWConfig, seed: int, state: dict | None = None) -> CRW:
+    """The model, initialized on the CPU from ``seed``; then ``state`` (a
+    ``state_dict``) loaded over it, where given."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return CRW(cfg)
+        model = CRW(cfg)
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+    return model
 
 
 def seeded_ts(cfg: CRWConfig, seed: int, teacher_seed: int
@@ -1853,7 +1881,8 @@ def _grad_rel_l2(got: dict, want: dict) -> float:
 
 def small_step_card_vs_cpu(model_type: str = "scratch",
                            expect: dict | None = None,
-                           f64_reference: bool = False) -> dict:
+                           f64_reference: bool = False,
+                           state: dict | None = None) -> dict:
     """Phase 7: one f32 forward/backward with every supported reflect conv
     routed and every block on the BN-input chain (the default routes; a
     ``scratch50`` trunk's Bottlenecks take #5 and no chain, ``expect``),
@@ -1870,7 +1899,10 @@ def small_step_card_vs_cpu(model_type: str = "scratch",
     1.5x the CPU's own f32 distance to them where that is larger. (The
     ``scratch50`` trunk's f32 gradients at these weights are 2.4e-2 from
     f64 on the CPU alone, so no f32 evaluation meets 2e-2 against
-    another.)"""
+    another.)
+
+    ``state``: a ``state_dict`` (a trained checkpoint's weights and BN
+    running statistics) loaded over the seeded init on both devices."""
     B, T, N = 2, 4, 4
     cfg = CRWConfig(model_type=model_type, temperature=WALK_TEMP)
     expect = dict(ARMS)[DEFAULT_ARM] if expect is None else expect
@@ -1884,8 +1916,8 @@ def small_step_card_vs_cpu(model_type: str = "scratch",
         (("cpu64", torch.float64),) if f64_reference else ())
     for name, dtype in runs:
         dev = torch.device(name.removesuffix("64"))
-        model = seeded_crw(dataclasses.replace(cfg, dtype=dtype),
-                           seed=3).to(dev, dtype)
+        model = seeded_crw(dataclasses.replace(cfg, dtype=dtype), seed=3,
+                           state=state).to(dev, dtype)
         q, loss, _ = model(x.to(dev, dtype), train=True,
                            walk_masks=[m.to(dev) for m in masks])
         loss.backward()
@@ -1914,7 +1946,7 @@ def small_step_card_vs_cpu(model_type: str = "scratch",
                  f"f32 {res['cpu_vs_f64']:.2e}, bound "
                  f"{res['f64_bound']:.2e}")
     print(f"small f32 {model_type} step (B,T,N)=({B},{T},{N}) {PATCH}px, "
-          f"default routes, card "
+          f"{'trained' if state else 'seeded'} weights, default routes, card "
           f"vs CPU: loss {lc:.6f} vs {lh:.6f} (rel {res['loss_rel']:.2e}), q "
           f"max|d| {res['q_max_abs_err']:.2e}, grads rel L2 "
           f"{res['grad_rel_l2']:.2e} (tolerance: loss rtol 1e-4, q 1e-4, "
@@ -2519,13 +2551,14 @@ def sp_train_phase(n_steps: int) -> dict:
     return arms
 
 
-def small_sp_step_card_vs_cpu() -> dict:
+def small_sp_step_card_vs_cpu(state: dict | None = None) -> dict:
     """One small f32 superpixel forward/backward (64x64 frames, 12 node
     slots, L1 dilation k=7, the default routes) on the card (kernels)
     against the CPU (plain versions): same weights, frames, edge-drop masks
     and the **same** labels (the card's ``slic_fused``, 9 segments, so
     every frame has absent slots). Tolerances as the small patch step's:
-    loss rtol 1e-4, q atol 1e-4, gradients 2e-2 relative in L2."""
+    loss rtol 1e-4, q atol 1e-4, gradients 2e-2 relative in L2. ``state``:
+    a ``state_dict`` loaded over the seeded init (``seeded_crw``)."""
     B, T, h, sp_slots = 2, 4, 64, 12
     cfg = CRWConfig(model_type="scratch", temperature=WALK_TEMP,
                     max_sp_num=sp_slots, dilate_superpixels=True,
@@ -2540,7 +2573,7 @@ def small_sp_step_card_vs_cpu() -> dict:
     out = {}
     for name in ("cuda", "cpu"):
         dev = torch.device(name)
-        model = seeded_crw(cfg, seed=3).to(dev)
+        model = seeded_crw(cfg, seed=3, state=state).to(dev)
         q, loss, _ = model(x.to(dev), sp_mask=labels.to(dev), train=True,
                            walk_masks=[m.to(dev) for m in masks])
         loss.backward()
@@ -2556,7 +2589,8 @@ def small_sp_step_card_vs_cpu() -> dict:
                q_max_abs_err=float((qc - qh).abs().max()),
                grad_rel_l2=(num / den) ** 0.5, absent_slots=absent,
                kernel_launches=launched)
-    print(f"small f32 superpixel step (B,T)=({B},{T}) {h}px, {sp_slots} slots "
+    print(f"small f32 superpixel step (B,T)=({B},{T}) {h}px, "
+          f"{'trained' if state else 'seeded'} weights, {sp_slots} slots "
           f"({absent} of {B * T * sp_slots} absent), L1 dilation k=7, card vs "
           f"CPU: loss {lc:.6f} vs {lh:.6f} (rel {res['loss_rel']:.2e}), q "
           f"max|d| {res['q_max_abs_err']:.2e}, grads rel L2 "
@@ -2613,18 +2647,24 @@ def moving_textures(n_videos: int, n_frames: int, size: int, seed: int
     by its own few pixels a frame, with a bright square crossing them (the
     objects of ``synthetic_video``)."""
     rng = np.random.RandomState(seed)
-    out = np.empty((n_videos, n_frames, size, size, 3), np.uint8)
-    for v in range(n_videos):
-        tex = lowfreq_features(rng, 2 * size, 2 * size, 3, cell=24)
-        tex = ((tex + 0.5) * 255).clip(0, 255).astype(np.uint8)
-        vy, vx = rng.randint(1, 5, 2)
-        s = size // 6
-        for t in range(n_frames):
-            y, x = (t * vy) % size, (t * vx) % size
-            frame = tex[y:y + size, x:x + size].copy()
-            q = (t * 5) % (size - s)
-            frame[q:q + s, size // 3:size // 3 + s] = (230, 60, 40)
-            out[v, t] = frame
+    return np.stack([moving_texture(rng, n_frames, size, size)
+                     for _ in range(n_videos)])
+
+
+def moving_texture(rng: np.random.RandomState, n_frames: int, h: int, w: int
+                   ) -> np.ndarray:
+    """One ``(n_frames, h, w, 3)`` uint8 video of ``moving_textures``."""
+    tex = lowfreq_features(rng, 2 * h, 2 * w, 3, cell=24)
+    tex = ((tex + 0.5) * 255).clip(0, 255).astype(np.uint8)
+    vy, vx = rng.randint(1, 5, 2)
+    s = min(h, w) // 6
+    out = np.empty((n_frames, h, w, 3), np.uint8)
+    for t in range(n_frames):
+        y, x = (t * vy) % h, (t * vx) % w
+        frame = tex[y:y + h, x:x + w].copy()
+        q = (t * 5) % (h - s)
+        frame[q:q + s, w // 3:w // 3 + s] = (230, 60, 40)
+        out[t] = frame
     return out
 
 
@@ -2906,7 +2946,7 @@ class InMemoryViews:
     """``Kinetics400``'s item contract under ``--augs-backend host
     --sp-backend host``, over views made once: ``dataset[i] -> ({"grid",
     "whole", "whole_unnorm"} numpy, host ids, i)``. No file is read and
-    no host augmentation runs (they need cv2): the views of each
+    no host augmentation runs (``files`` drives both): the views of each
     ``InMemoryClips`` window come from the port's device transform
     (``host_views``); ``__getitem__`` makes the ids as ``Kinetics400`` does,
     with ``data/superpixels.py::host_sp_mask`` and the item's own
@@ -3041,15 +3081,24 @@ def host_frame_ms(frames: np.ndarray) -> dict:
     return res
 
 
+def epoch_paths(seed: int, epoch: int, n: int, prob: float) -> list:
+    """The first ``n`` path draws of an epoch as ``cli/train.py`` draws
+    them from ``RandomState(seed + epoch)`` (a path, then the checkpoint
+    coin, a step; no ``--randomise-superpixels``): True for a patch
+    step."""
+    rs = np.random.RandomState(seed + epoch)
+    paths = []
+    for _ in range(n):
+        paths.append(bool(rs.choice([True, False], p=[prob, 1 - prob])))
+        rs.random_sample()
+    return paths
+
+
 def seed_with_sp_in(steps, prob: float) -> int:
-    """The first seed whose epoch-0 path draws (a path, then the checkpoint
-    coin, a step) take a superpixel step among ``steps``."""
+    """The first seed whose epoch-0 path draws take a superpixel step among
+    ``steps``."""
     for seed in range(100):
-        rs = np.random.RandomState(seed)
-        paths = []
-        for _ in range(max(steps) + 1):
-            paths.append(bool(rs.choice([True, False], p=[prob, 1 - prob])))
-            rs.random_sample()
+        paths = epoch_paths(seed, 0, max(steps) + 1, prob)
         if not all(paths[i] for i in steps):
             return seed
     fail("no seed takes a superpixel step in the traced window")
@@ -3794,6 +3843,683 @@ def multi_phase(card: str, n_steps: int) -> dict:
     return res
 
 
+# the users' launch recipes from files (files): train_torch.sh on a
+# Kinetics-layout tree of videos written here with cv2 (the class folders
+# of train_256, 25 fps, 340x256, decoded at --frame-skip 8: 32 frames, 5
+# clips a video, 640 clips, 106 steps of 6 an epoch), then test_torch.sh
+# on a DAVIS-2017 tree of 854x480 JPEG frames and palette annotations,
+# with (b)'s checkpoint
+FILES_CLASSES, FILES_PER_CLASS, FILES_FRAMES = 8, 16, 100
+FILES_H, FILES_W, FILES_FPS = 256, 340, 25.0
+FILES_CODEC, FILES_EXT = "mp4v", ".mp4"
+FILES_EPOCHS = 2
+DAVIS_H, DAVIS_W, DAVIS_FRAMES, DAVIS_CUT = 480, 854, 30, 8
+DAVIS_OBJECTS = dict(video0=3, video1=2)
+FILES_TIMEOUT_S = 600
+# the trace of steps 5-9: kernel name -> the wrapper whose call launched it
+# (a wrapper call launches one such kernel; walk.cu 4 each way, slic.cu 11
+# a call, the slab kernels' reduce_rows beside them)
+PX_WRAPPERS = dict(DX="dx", DX_BNIN="dx_bnin", FWD_STATS="fwd_stats",
+                   FWD_BNIN_STATS="fwd_bnin_stats", FWD="fwd")
+LAUNCH_OF = (("rconv_slab_dw<false>", "dw"), ("rconv_slab_dw<true>", "dw_bnin"),
+             ("walk_cycle_fwd_kernel", "walk_fwd"),
+             ("walk_dq_kernel", "walk_bwd"),
+             ("slic_features_kernel", "slic_fused"),
+             ("dilate_l1_kernel", "dilate_l1"),
+             ("prop_sparse_kernel", "prop_sparse"))
+DEVICE_LAUNCHES = dict(walk_=4, slic_=11)     # device kernels a call
+# the lines of a recipe's output echoed here (with the host clock)
+RUN_LINES = ("Epoch: [", "Epoch length", "Start training", "Total time",
+             "dataset metadata", "Resumed from", "Training time", "Took",
+             "Vid ", "computed features", "propagation (on-device)",
+             "trace written", "wrote ", ": J=", "J&F-Mean", "WARNING")
+
+
+# ``python`` as the recipes find it on the PATH: this interpreter. With
+# FILES_CAPTURE set, ``python -m videowalk_tpu_torch.cli.test ...`` also
+# saves each target's soft labels, as the dump receives them, to
+# $FILES_CAPTURE/<prefix>.npy (the module runs as ``-m`` runs it); any
+# other command line is this interpreter's own
+PYTHON_LAUNCHER = """import os, runpy, sys
+args, out = sys.argv[1:], os.environ.get("FILES_CAPTURE")
+if not (out and args[:2] == ["-m", "videowalk_tpu_torch.cli.test"]):
+    os.execv(sys.executable, [sys.executable] + args)
+sys.path[0] = os.getcwd()            # as -m sets it
+import numpy as np
+from videowalk_tpu_torch.eval import test_utils
+real = test_utils.dump_predictions
+def dump(pred, lbl_map, img, prefix, **kw):
+    np.save(os.path.join(out, os.path.basename(prefix) + ".npy"), pred)
+    return real(pred, lbl_map, img, prefix, **kw)
+test_utils.dump_predictions = dump
+sys.argv = [args[1]] + args[2:]
+runpy.run_module(args[1], run_name="__main__", alter_sys=True)
+"""
+
+
+def script_env(workdir: str, **extra) -> dict:
+    """A user's shell environment for the launch recipes, with ``python``
+    on the PATH this interpreter (through ``PYTHON_LAUNCHER``, so that a
+    virtual environment's site stays its own)."""
+    bindir = os.path.join(workdir, "bin")
+    os.makedirs(bindir, exist_ok=True)
+    launcher = os.path.join(bindir, "launcher.py")
+    with open(launcher, "w") as fh:
+        fh.write(PYTHON_LAUNCHER)
+    wrapper = os.path.join(bindir, "python")
+    with open(wrapper, "w") as fh:
+        fh.write(f'#!/bin/sh\nexec "{sys.executable}" "{launcher}" "$@"\n')
+    os.chmod(wrapper, 0o755)
+    return dict(os.environ, PATH=os.pathsep.join(
+        [bindir, os.environ.get("PATH", "/usr/bin:/bin")]),
+        PYTHONUNBUFFERED="1", **extra)
+
+
+def run_script(argv: list, env: dict, tag: str) -> dict:
+    """``argv`` from the repository's root as its own process group, its
+    output read line by line with the host clock's seconds since the
+    start: ``{rc, lines: [(s, line)], seconds}``. A run past
+    ``FILES_TIMEOUT_S`` has its whole group killed and fails; a run that
+    exits non-zero fails with its last lines."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(
+        __file__)), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, bufsize=1, start_new_session=True)
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=FILES_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = None
+    reader.join(10)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        tail = "\n".join(f"  | {line}" for _, line in lines[-60:])
+        fail(f"files {tag}: {' '.join(argv)} exited with {rc} after "
+             f"{seconds:.1f} s; its last lines:\n{tail}")
+    print(f"files {tag}: {' '.join(argv)}: exit 0 in {seconds:.1f} s, "
+          f"{len(lines)} lines; these of them:", flush=True)
+    for s, line in lines:
+        if any(k in line for k in RUN_LINES):
+            print(f"  {s:7.1f} s | {line[:220]}", flush=True)
+    return dict(rc=rc, lines=lines, seconds=seconds)
+
+
+def cv2_video_io() -> str:
+    """The Video I/O lines of cv2's build information."""
+    import cv2
+
+    out, on = [], False
+    for line in cv2.getBuildInformation().splitlines():
+        if line.strip().startswith("Video I/O"):
+            on = True
+        elif on and line.strip() and not line.startswith("    "):
+            break
+        if on:
+            out.append(line)
+    return "\n".join(out)
+
+
+def write_kinetics_tree(root: str, seed: int) -> dict:
+    """``root/class<c>/video<v>.mp4``: ``FILES_CLASSES`` x
+    ``FILES_PER_CLASS`` videos of ``FILES_FRAMES`` frames of
+    ``moving_texture`` (each from ``RandomState([seed, i])``), written by
+    ``cv2.VideoWriter`` in eight threads, then the first video probed and
+    decoded by the port's own reader (``data/clips.py``): its frame count
+    and rate as written, its frames near the written ones (a lossy codec:
+    mean |d| < 20 of 255). A writer or reader that fails raises with cv2's
+    Video I/O build lines; nothing falls back to frames in memory."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+
+    from videowalk_tpu_torch.data.clips import _probe, decode_frames
+
+    def one(i: int) -> str:
+        c, v = divmod(i, FILES_PER_CLASS)
+        path = os.path.join(root, f"class{c:02d}", f"video{v:02d}{FILES_EXT}")
+        frames = moving_texture(np.random.RandomState([seed, i]),
+                                FILES_FRAMES, FILES_H, FILES_W)
+        out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*FILES_CODEC),
+                              FILES_FPS, (FILES_W, FILES_H))
+        if not out.isOpened():
+            fail(f"files: cv2 cannot open a {FILES_CODEC} writer for {path}; "
+                 f"cv2 {cv2.__version__}:\n{cv2_video_io()}")
+        for f in frames:
+            out.write(np.ascontiguousarray(f[:, :, ::-1]))
+        out.release()
+        return path
+
+    for c in range(FILES_CLASSES):
+        os.makedirs(os.path.join(root, f"class{c:02d}"), exist_ok=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        paths = list(pool.map(one, range(FILES_CLASSES * FILES_PER_CLASS)))
+    write_s = time.perf_counter() - t0
+    try:
+        n, fps = _probe(paths[0])
+        got = decode_frames(paths[0], [0, FILES_FRAMES - 1]).astype(np.float32)
+    except Exception as e:
+        fail(f"files: the port's reader cannot read {paths[0]} ({e}); cv2 "
+             f"{cv2.__version__}:\n{cv2_video_io()}")
+    want = moving_texture(np.random.RandomState([seed, 0]), FILES_FRAMES,
+                          FILES_H, FILES_W)[[0, -1]].astype(np.float32)
+    err = float(np.abs(got - want).mean())
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    res = dict(videos=len(paths), frames=FILES_FRAMES, fps=FILES_FPS,
+               size=(FILES_W, FILES_H), codec=FILES_CODEC, write_s=write_s,
+               mib=nbytes / 2 ** 20, probed=(n, fps), decode_mean_abs_err=err,
+               cv2=cv2.__version__)
+    print(f"files (a): {len(paths)} {FILES_CODEC} videos of {FILES_FRAMES} "
+          f"frames at {FILES_W}x{FILES_H}, {FILES_FPS:g} fps, written by cv2 "
+          f"{cv2.__version__} in {write_s:.1f} s ({res['mib']:.1f} MiB); "
+          f"probed {n} frames at {fps:g} fps, decoded mean |d| {err:.2f} of "
+          f"255", flush=True)
+    if n != FILES_FRAMES or abs(fps - FILES_FPS) > 1e-3 or not err < 20:
+        fail(f"files: {paths[0]} reads back as {n} frames at {fps} fps, mean "
+             f"|d| {err:.2f}; cv2 {cv2.__version__}:\n{cv2_video_io()}")
+    return res
+
+
+def write_davis_tree(root: str, videos: dict) -> None:
+    """A DAVIS-2017 tree: ``JPEGImages/480p/<v>/%05d.jpg`` (cv2, quality
+    95), palette ``Annotations/480p/<v>/%05d.png`` (PIL, the DAVIS palette)
+    and ``ImageSets/2017/val.txt``, from ``videos``: name -> (frames
+    ``(T, h, w, 3)`` uint8 RGB, ids ``(T, h, w)``)."""
+    import cv2
+    from PIL import Image
+
+    from videowalk_tpu_torch.eval.convert_davis import PALETTE
+
+    for name, (frames, ids) in videos.items():
+        jdir = os.path.join(root, "JPEGImages", "480p", name)
+        adir = os.path.join(root, "Annotations", "480p", name)
+        os.makedirs(jdir, exist_ok=True)
+        os.makedirs(adir, exist_ok=True)
+        for t, (f, lab) in enumerate(zip(frames, ids)):
+            if not cv2.imwrite(os.path.join(jdir, f"{t:05d}.jpg"),
+                               np.ascontiguousarray(f[:, :, ::-1]),
+                               [cv2.IMWRITE_JPEG_QUALITY, 95]):
+                fail(f"files: cv2 cannot write {jdir}/{t:05d}.jpg")
+            im = Image.frombytes("P", lab.shape[::-1],
+                                 np.ascontiguousarray(lab, np.uint8).tobytes())
+            im.putpalette(PALETTE.ravel().tolist())
+            im.save(os.path.join(adir, f"{t:05d}.png"))
+    os.makedirs(os.path.join(root, "ImageSets", "2017"), exist_ok=True)
+    with open(os.path.join(root, "ImageSets", "2017", "val.txt"), "w") as fh:
+        fh.write("\n".join(videos) + "\n")
+
+
+def parse_train_log(lines: list) -> list:
+    """The trainer's ``MetricLogger`` lines: ``{s, epoch, step, total, loss,
+    time, data}`` (``s`` the host clock's seconds since the run started;
+    ``loss`` the window's median as printed; ``time`` and ``data`` the
+    window's mean seconds a step, ``data`` the wait for the loader)."""
+    import re
+
+    pat = re.compile(r"Epoch: \[(\d+)\]\s+\[\s*(\d+)/(\d+)\].*loss: (\S+) "
+                     r"\(.*time: (\S+)\s+data: (\S+)")
+    out = []
+    for s, line in lines:
+        m = pat.search(line)
+        if m:
+            out.append(dict(s=s, epoch=int(m[1]), step=int(m[2]),
+                            total=int(m[3]), loss=float(m[4]),
+                            time=float(m[5]), data=float(m[6])))
+    return out
+
+
+def epoch_rates(log: list) -> dict:
+    """Per epoch: ms a step by the host clock between the lines of steps 10
+    and the last one (each line follows a fetch of that step's loss, so
+    the span holds whole steps; step 0's start-up and the trace of steps
+    5-9 lie before it), and the printed ``data`` and ``time`` means of the
+    lines from step 20 on (their windows hold no step before 1)."""
+    res = {}
+    for e in sorted({r["epoch"] for r in log}):
+        rows = [r for r in log if r["epoch"] == e]
+        a = next(r for r in rows if r["step"] == 10)
+        b = rows[-1]
+        late = [r for r in rows if r["step"] >= 20]
+        res[e] = dict(steps=b["total"],
+                      ms_per_step=(b["s"] - a["s"]) / (b["step"] - a["step"])
+                      * 1e3,
+                      data_ms=float(np.mean([r["data"] for r in late])) * 1e3,
+                      time_ms=float(np.mean([r["time"] for r in late])) * 1e3,
+                      loss_first=rows[0]["loss"], loss_last=b["loss"])
+    return res
+
+
+def trace_launches(path: str) -> dict:
+    """Wrapper calls in a ``--profile-dir`` trace, from the device kernels
+    it names (``LAUNCH_OF``; ``rconv_slab_px<BN, m>`` by ``px_modes()``),
+    with the device busy ms (the union of kernel intervals) and the
+    window's ms (first to last event). Fails where a kernel family's
+    device launches are not its calls' multiple or an f32 reflect-conv
+    kernel ran."""
+    import re
+
+    kernels = trace_kernels(path)
+    modes = px_modes()
+    calls = dict.fromkeys(list(sp_counts()) + ["prop_sparse"], 0)
+    for name, durs in sorted(kernels.items()):
+        if any(p in name for p in ("rconv_", "walk_", "slic_", "dilate_",
+                                   "prop_sparse", "reduce_rows")):
+            print(f"    {len(durs):4d} x {np.mean(durs):9.2f} us  "
+                  f"{name[:90]}", flush=True)
+        m = re.search(r"rconv_slab_px<\d+, (\d+)>", name)
+        if m:
+            calls[PX_WRAPPERS[modes[int(m[1])]]] += len(durs)
+            continue
+        if "rconv_slab_px" in name or "rconv_gemm" in name:
+            fail(f"files: trace kernel {name[:120]} is no bf16 slab mode")
+        for part, wrapper in LAUNCH_OF:
+            if part in name:
+                calls[wrapper] += len(durs)
+    for part, per in DEVICE_LAUNCHES.items():
+        n = sum(len(v) for k, v in kernels.items()
+                if re.search(r"(^|::)" + part, k))
+        want = per * (calls["walk_fwd"] + calls["walk_bwd"]
+                      if part == "walk_" else calls["slic_fused"])
+        if n != want:
+            fail(f"files: {n} {part}* device launches in the trace for "
+                 f"{want // per} calls, want {per} a call")
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("cat") == "kernel")
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+              - min(float(e["ts"]) for e in events))
+    return dict(calls=calls, busy_ms=busy / 1e3, window_ms=window / 1e3)
+
+
+def host_clip_ms(kin: str, cache: str, n: int = 12) -> dict:
+    """Median host ms of one training clip in this process, one thread:
+    its cv2 decode (``VideoClipIndex.get_clip``) and the host
+    augmentations at train.sh's flags (``TrainTransform``: crop, 256 px,
+    the grid of 64 px patches), over the sampler's first ``n`` clips."""
+    from videowalk_tpu_torch.cli.train import make_dataset
+    from videowalk_tpu_torch.data.augs import get_train_transforms
+    from videowalk_tpu_torch.data.clips import RandomClipSampler
+    from videowalk_tpu_torch.utils.arguments import train_args
+
+    args = train_args(["--data-path", kin, "--cache-path", cache,
+                       "--cache-dataset", "--frame-aug", "grid",
+                       "--clip-len", "4", "--prob", "0.7", "--output-dir",
+                       "", "--logs-dir", ""])
+    ds = make_dataset(args, get_train_transforms(args))
+    ids = list(iter(RandomClipSampler(ds.video_clips, 5, seed=0)))[:n]
+    rng = np.random.RandomState(0)
+    times = {"decode": [], "augs": []}
+    for i in ids:
+        t0 = time.perf_counter()
+        video = ds.video_clips.get_clip(i)[0]
+        t1 = time.perf_counter()
+        ds.transform(video, rng=rng)
+        times["decode"].append((t1 - t0) * 1e3)
+        times["augs"].append((time.perf_counter() - t1) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def files_train(workdir: str, env: dict, cli_ref: dict | None) -> dict:
+    """(b) ``bash train_torch.sh --epochs 2 --output-dir ... --profile-dir
+    ...`` on the Kinetics tree (host augmentations and cv2 decode in the
+    loader's threads, SLIC #12 and dilation #11 on the card, the metadata
+    cache written), its trace of steps 5-9 against the drawn paths, then
+    ``--resume <checkpoint.pth> --epochs 3``, which must read the cache and
+    continue at epoch 2."""
+    ckdir = os.path.join(workdir, "ckpt")
+    trace_dir = os.path.join(workdir, "trace")
+    cache = env["CACHE_PATH"]
+    run = run_script(["bash", "train_torch.sh", "--epochs", str(FILES_EPOCHS),
+                      "--output-dir", ckdir, "--profile-dir", trace_dir], env,
+                     "(b) train_torch.sh")
+    text = "\n".join(line for _, line in run["lines"])
+    log = parse_train_log(run["lines"])
+    ck = os.path.join(ckdir, "checkpoint.pth")
+    for what, bad in (("checkpoint.pth", not os.path.isfile(ck)),
+                      ("the metadata cache", not os.path.isfile(cache)
+                       or f"Saved dataset metadata to {cache}" not in text),
+                      ("a decode (skipped idx)", "skipped idx" in text),
+                      ("a probe", "failed to probe" in text),
+                      ("both epochs", {r["epoch"] for r in log}
+                       != set(range(FILES_EPOCHS))),
+                      ("100 steps an epoch", any(r["total"] < 100
+                                                 for r in log)),
+                      ("a finite loss", not all(np.isfinite(r["loss"])
+                                                for r in log))):
+        if bad:
+            fail(f"files (b): wrong {what}:\n" + text[-3000:])
+    rates = epoch_rates(log)
+    start = next(s for s, line in run["lines"] if "Start training" in line)
+    # the trace of steps 5-9 of epoch 0 against the paths drawn there
+    path = os.path.join(trace_dir, "train_epoch0_steps5-9.pt.trace.json")
+    traced = trace_launches(path)
+    paths = epoch_paths(0, 0, 10, 0.7)[5:]
+    n_sp = paths.count(False)
+    walk = dict(walk_fwd=1, walk_bwd=1)
+    want = _want(dict(walk, **dict(ARMS)[DEFAULT_ARM]),
+                 dict(walk, slic_fused=1, dilate_l1=1,
+                      **SP_LAUNCHES["auto"]))(5 - n_sp, n_sp)
+    got = {k: v for k, v in traced["calls"].items() if k in want}
+    if got != want or not 0 < n_sp < 5:
+        fail(f"files (b): the trace of steps 5-9 ({5 - n_sp} patch, {n_sp} "
+             f"superpixel steps drawn) holds {got}, want {want}")
+    res = dict(seconds=run["seconds"], start_training_s=start,
+               first_step_s=log[0]["s"], epochs=rates,
+               traced_paths=["patch" if p else "sp" for p in paths],
+               trace=dict(launches=got,
+                          device_ms_per_step=traced["busy_ms"] / 5,
+                          window_ms_per_step=traced["window_ms"] / 5,
+                          idle_share=1 - traced["busy_ms"]
+                          / traced["window_ms"]),
+               checkpoint=ck)
+    for e, r in rates.items():
+        print(f"files (b) epoch {e}: {r['steps']} steps, {r['ms_per_step']:.2f} "
+              f"ms/step by the host clock (steps 10-{r['steps'] - 1}), data "
+              f"{r['data_ms']:.2f} ms/step (the loader's wait), time "
+              f"{r['time_ms']:.2f} ms/step (printed means from step 20); loss "
+              f"{r['loss_first']:.4f} (first line) .. {r['loss_last']:.4f} "
+              f"(last line)", flush=True)
+    res["host_clip_ms"] = host_clip_ms(env["DATA_PATH"], cache)
+    hc = res["host_clip_ms"]
+    print(f"files (b) one clip on the host, one thread: cv2 decode "
+          f"{hc['decode']:.2f} ms, host augmentations {hc['augs']:.2f} ms "
+          f"(a batch of 6: {6 * (hc['decode'] + hc['augs']):.1f} ms of "
+          f"loader work)", flush=True)
+    tr = res["trace"]
+    print(f"files (b) trace of steps 5-9 ({res['traced_paths']}): device busy "
+          f"{tr['device_ms_per_step']:.2f} ms/step in a "
+          f"{tr['window_ms_per_step']:.2f} ms window, idle share "
+          f"{tr['idle_share']:.3f}; launches {got} = the drawn paths'; start "
+          f"to 'Start training' {start:.1f} s, to the end of step 0 "
+          f"{res['first_step_s']:.1f} s", flush=True)
+    if cli_ref is not None:
+        pr = cli_ref["profile"]
+        print(f"files (b) beside train_cli (a) in memory, device augs, this "
+              f"call: {cli_ref['step_ms']:.2f} ms/step, device busy "
+              f"{pr['device_ms_per_step']:.2f} ms/step, idle share "
+              f"{pr['idle_share']:.3f}", flush=True)
+        res["train_cli_config_of_record"] = dict(
+            step_ms=cli_ref["step_ms"], idle_share=pr["idle_share"],
+            device_ms_per_step=pr["device_ms_per_step"])
+
+    resumed = run_script(["bash", "train_torch.sh", "--epochs",
+                          str(FILES_EPOCHS + 1), "--output-dir", ckdir,
+                          "--resume", ck], env, "(b) --resume")
+    text = "\n".join(line for _, line in resumed["lines"])
+    rlog = parse_train_log(resumed["lines"])
+    steps = sum(r["steps"] for r in rates.values())
+    if (f"Loading dataset metadata from {cache}" not in text
+            or "Saved dataset metadata" in text
+            or f"step={steps}, start_epoch={FILES_EPOCHS}" not in text
+            or {r["epoch"] for r in rlog} != {FILES_EPOCHS}
+            or not all(np.isfinite(r["loss"]) for r in rlog)
+            or "skipped idx" in text):
+        fail("files (b): --resume did not read the cache and continue at "
+             f"epoch {FILES_EPOCHS} from step {steps}:\n" + text[-3000:])
+    res["resume"] = dict(seconds=resumed["seconds"],
+                         first_step_s=rlog[0]["s"],
+                         epoch=epoch_rates(rlog)[FILES_EPOCHS])
+    print(f"files (b) --resume: read the cache, continued at epoch "
+          f"{FILES_EPOCHS} from step {steps}: "
+          f"{res['resume']['epoch']['ms_per_step']:.2f} ms/step, first step "
+          f"ends {rlog[0]['s']:.1f} s after the start", flush=True)
+    return res
+
+
+def davis_jf(lines: list) -> float:
+    """The J&F ``davis_metrics`` prints (``{'J&F-Mean': x, ...}``)."""
+    import re
+
+    for _, line in lines[::-1]:
+        m = re.search(r"'J&F-Mean': ([-+0-9.eEnaif]+)", line)
+        if m:
+            return float(m[1])
+    fail("files (c): davis_metrics printed no J&F")
+
+
+def eval_times(lines: list, vid: int = 0) -> dict:
+    """Video ``vid``'s encode and propagation seconds as ``cli.test``
+    prints them."""
+    out, on = {}, False
+    for _, line in lines:
+        if line.startswith("******* Vid "):
+            on = line.startswith(f"******* Vid {vid} (")
+        elif on and line.startswith("computed features"):
+            out["encode_s"] = float(line.split()[-1])
+        elif on and line.endswith("propagation (on-device)"):
+            out["propagate_s"] = float(line.split()[0])
+    return out
+
+
+def files_chain(workdir: str, env: dict, davis: str, tag: str,
+                extra: list) -> dict:
+    """``bash test_torch.sh`` with ``extra`` through ``"$@"`` on the DAVIS
+    tree ``davis``: exit 0, one converted PNG a frame, a finite J&F; the
+    soft predictions the chain dumped (``PYTHON_LAUNCHER``), by prefix."""
+    out = os.path.join(workdir, f"res_{tag}")
+    capture = os.path.join(workdir, f"soft_{tag}")
+    os.makedirs(capture)
+    run = run_script(["bash", "test_torch.sh", *extra], dict(
+        env, DAVIS=davis, OUT=out, FILES_CAPTURE=capture,
+        VALLIST=os.path.join(workdir, f"list_{tag}.txt")), f"(c) {tag}")
+    conv = out + "_converted"
+    for name in os.listdir(os.path.join(davis, "JPEGImages", "480p")):
+        n = len(os.listdir(os.path.join(davis, "JPEGImages", "480p", name)))
+        got = sorted(os.listdir(os.path.join(conv, name)))
+        if got != [f"{t:05d}.png" for t in range(n)]:
+            fail(f"files (c) {tag}: {name} has {len(got)} converted PNGs for "
+                 f"{n} frames")
+    jf = davis_jf(run["lines"])
+    if not np.isfinite(jf):
+        fail(f"files (c) {tag}: J&F {jf}")
+    soft = {f[:-4]: np.load(os.path.join(capture, f))
+            for f in os.listdir(capture)}
+    n_videos = len(os.listdir(os.path.join(davis, "JPEGImages", "480p")))
+    return dict(seconds=run["seconds"], jf=jf, converted=conv,
+                times=[eval_times(run["lines"], v) for v in range(n_videos)],
+                soft=soft,
+                objects=[line for _, line in run["lines"] if ": J=" in line])
+
+
+def files_eval(workdir: str, env: dict, ckpt: str) -> dict:
+    """(c) ``test_torch.sh`` on a DAVIS-2017 tree of 2 videos of
+    ``DAVIS_FRAMES`` 854x480 frames (3 and 2 moving squares) at (b)'s
+    checkpoint on the card (its second video traced: #1 once a target);
+    then video0 cut to ``DAVIS_CUT`` frames through the chain on the card
+    and with ``--device cpu``: J&F within 1e-3, and the soft predictions
+    the two chains dumped within 1e-4 on >= 99.9% of label cells
+    (``PERF.md`` section 2's eval limit)."""
+    import shutil
+
+    from PIL import Image
+
+    davis = os.path.join(workdir, "davis")
+    videos = {}
+    for i, (name, n_obj) in enumerate(DAVIS_OBJECTS.items()):
+        frames, ids, _ = moving_squares(DAVIS_FRAMES, DAVIS_H, DAVIS_W, n_obj,
+                                        seed=20 + i)
+        videos[name] = (frames, ids)
+    write_davis_tree(davis, videos)
+    cut = os.path.join(workdir, "davis_cut")
+    for sub in ("JPEGImages", "Annotations"):
+        dst = os.path.join(cut, sub, "480p", "video0")
+        os.makedirs(dst)
+        ext = ".jpg" if sub == "JPEGImages" else ".png"
+        for t in range(DAVIS_CUT):
+            shutil.copy(os.path.join(davis, sub, "480p", "video0",
+                                     f"{t:05d}{ext}"), dst)
+    os.makedirs(os.path.join(cut, "ImageSets", "2017"))
+    with open(os.path.join(cut, "ImageSets", "2017", "val.txt"), "w") as fh:
+        fh.write("video0\n")
+
+    env = dict(env, CKPT=ckpt)
+    trace_dir = os.path.join(workdir, "eval_trace")
+    card = files_chain(workdir, env, davis, "card",
+                       ["--profile-dir", trace_dir])
+    traced = trace_launches(os.path.join(trace_dir,
+                                         "test_video1.pt.trace.json"))
+    n_soft = len(card.pop("soft"))
+    if traced["calls"]["prop_sparse"] != DAVIS_FRAMES or n_soft != sum(
+            len(v[0]) for v in videos.values()):
+        fail(f"files (c): {traced['calls']['prop_sparse']} #1 launches in "
+             f"the traced video, want {DAVIS_FRAMES}; {n_soft} predictions")
+    n_frames = N_CONTEXT + DAVIS_FRAMES
+    card["launches_video1"] = traced["calls"]["prop_sparse"]
+    for vid, t in enumerate(card.pop("times")):
+        card[f"video{vid}"] = dict(
+            encode_ms_per_frame=t["encode_s"] * 1e3 / n_frames,
+            prop_ms_per_target=t["propagate_s"] * 1e3 / DAVIS_FRAMES)
+    print(f"files (c) card chain: J&F {card['jf']:.4f} ({card['objects']}), "
+          f"{card['seconds']:.1f} s for the four commands; encode "
+          f"{card['video0']['encode_ms_per_frame']:.2f} ms/frame (video 0, "
+          f"the process's first), "
+          f"{card['video1']['encode_ms_per_frame']:.2f} (video 1, traced), "
+          f"propagation {card['video0']['prop_ms_per_target']:.2f} and "
+          f"{card['video1']['prop_ms_per_target']:.2f} ms/target; #1 "
+          f"{card['launches_video1']} launches in the traced video 1",
+          flush=True)
+    cut_card = files_chain(workdir, env, cut, "cut_card", [])
+    cut_cpu = files_chain(workdir, env, cut, "cut_cpu", ["--device", "cpu"])
+    diff = abs(cut_card["jf"] - cut_cpu["jf"])
+    same = [np.mean(np.asarray(Image.open(os.path.join(
+        cut_card["converted"], "video0", f))) == np.asarray(Image.open(
+            os.path.join(cut_cpu["converted"], "video0", f))))
+        for f in sorted(os.listdir(os.path.join(cut_cpu["converted"],
+                                                "video0")))]
+    got, want = cut_card.pop("soft"), cut_cpu.pop("soft")
+    if sorted(got) != sorted(want) or len(got) != DAVIS_CUT:
+        fail(f"files (c): {len(got)} card and {len(want)} CPU predictions "
+             f"for {DAVIS_CUT} targets")
+    err = np.concatenate([np.abs(got[k] - want[k]).max(-1).ravel()
+                          for k in sorted(want)])
+    res = dict(card=card, cut=dict(
+        jf_card=cut_card["jf"], jf_cpu=cut_cpu["jf"], jf_diff=diff,
+        cpu_chain_s=cut_cpu["seconds"], card_chain_s=cut_card["seconds"],
+        mask_pixels_equal=float(np.mean(same)),
+        pred_max_abs_err=float(err.max()),
+        frac_over_1e4=float((err > 1e-4).mean())))
+    print(f"files (c) video0 cut to {DAVIS_CUT} frames: J&F card "
+          f"{cut_card['jf']:.4f}, CPU {cut_cpu['jf']:.4f} (|d| {diff:.1e}, "
+          f"limit 1e-3); converted masks equal on "
+          f"{res['cut']['mask_pixels_equal']:.6f} of pixels; soft "
+          f"predictions card vs CPU max|d| {err.max():.3e}, cells |d|>1e-4 "
+          f"{res['cut']['frac_over_1e4']:.5f} (limit: <= 1e-4 on >= 99.9%); "
+          f"chain {cut_card['seconds']:.1f} s on the card, "
+          f"{cut_cpu['seconds']:.1f} s on the CPU", flush=True)
+    if diff > 1e-3 or res["cut"]["frac_over_1e4"] > 1e-3:
+        fail("files (c): the card's and the CPU's eval of the cut video "
+             "disagree")
+    return res
+
+
+def bn_drift(state: dict) -> dict:
+    """How far a state's BN running statistics are from their init (mean 0,
+    variance 1), over every channel of every layer."""
+    means = torch.cat([v.flatten().double() for k, v in state.items()
+                       if k.endswith("running_mean")])
+    vars_ = torch.cat([v.flatten().double() for k, v in state.items()
+                       if k.endswith("running_var")])
+    return dict(channels=int(means.numel()),
+                mean_abs_mean=float(means.abs().mean()),
+                max_abs_mean=float(means.abs().max()),
+                mean_abs_var_minus_1=float((vars_ - 1).abs().mean()),
+                max_abs_var_minus_1=float((vars_ - 1).abs().max()))
+
+
+def files_trained(ckpt: str, filelist: str) -> dict:
+    """(d) the kernels at (b)'s trained weights: #1 against its plain
+    version on the eval's own features of (c)'s video0 (cells over 1e-4,
+    queries whose top-k id set differs), then the small f32 patch and
+    superpixel steps card vs CPU with the checkpoint's weights and BN
+    statistics (their limits as at the seeded init)."""
+    from videowalk_tpu_torch.data.vos import VOSDataset
+    from videowalk_tpu_torch.eval.test_utils import infer_downscale
+    from videowalk_tpu_torch.utils.arguments import test_args
+    from videowalk_tpu_torch.utils.checkpoint import load_checkpoint
+
+    state = load_checkpoint(ckpt)["model"]
+    drift = bn_drift(state)
+    print(f"files (d) trained state: BN running statistics over "
+          f"{drift['channels']} channels: |mean| {drift['mean_abs_mean']:.4f} "
+          f"(max {drift['max_abs_mean']:.4f}), |var - 1| "
+          f"{drift['mean_abs_var_minus_1']:.4f} (max "
+          f"{drift['max_abs_var_minus_1']:.4f}); init 0 and 1", flush=True)
+    args = test_args(["--filelist", filelist, "--cropSize", "-1",
+                      "--videoLen", str(N_CONTEXT), "--device", "cuda"])
+    args.mapScale = infer_downscale(8)
+    imgs, _, lbls, _, _, _ = VOSDataset(args)[0]
+    model = build_model(eval_args(), torch.device("cuda"))
+    partial_load(state, model, skip_keys=["head"], verbose=False)
+    before = ps.prop_sparse.launches
+    prop = prop_against_plain(model, imgs, lbls, len(imgs) - N_CONTEXT,
+                              "trained weights on the DAVIS files")
+    feats = encode_video(model, imgs).permute(0, 2, 3, 1).contiguous()
+    rows = context_index_bank(N_CONTEXT, LONG_MEM, len(imgs) - N_CONTEXT)
+    prop["topk_differs"] = topk_set_differs(feats, rows, dict(
+        n_long=len(LONG_MEM), topk=TOPK, temperature=TEMP, radius=RADIUS))
+    ps.prop_sparse.launches = before
+    print(f"files (d) #1 at trained weights: queries whose top-k ids differ "
+          f"{prop['topk_differs']:.5f}", flush=True)
+    del model, feats
+    small = small_step_card_vs_cpu(state=state)
+    small_sp = small_sp_step_card_vs_cpu(state=state)
+    return dict(bn_drift=drift, prop=prop, small_step=small,
+                small_sp_step=small_sp)
+
+
+def files_phase(cli_ref: dict | None = None) -> dict:
+    """The users' launch recipes from files, as a user runs them: (a) a
+    Kinetics-layout tree of videos, (b) ``train_torch.sh`` on it and a
+    ``--resume``, (c) ``test_torch.sh`` on a DAVIS tree at (b)'s
+    checkpoint, card and CPU, (d) the kernels at the trained weights.
+    ``cli_ref``: ``train_cli``'s arm (a) of this call (in memory, device
+    augs), printed beside (b)."""
+    import shutil
+
+    workdir = tempfile.mkdtemp(prefix="files_")
+    t0 = time.perf_counter()
+    try:
+        kin = os.path.join(workdir, "kinetics", "train_256")
+        res = dict(tree=write_kinetics_tree(kin, seed=11))
+        env = script_env(workdir, DATA_PATH=kin, CACHE_PATH=os.path.join(
+            workdir, "cache", "kinetics.pt"))
+        res["train"] = files_train(workdir, env, cli_ref)
+        ckpt = res["train"]["checkpoint"]
+        res["eval"] = files_eval(workdir, env, ckpt)
+        res["trained"] = files_trained(
+            ckpt, os.path.join(workdir, "list_card.txt"))
+        # the checkpoint is the resumed run's: its last printed loss
+        res["trained"]["walk_loss"] = dict(
+            first=res["train"]["epochs"][0]["loss_first"],
+            last=res["train"]["resume"]["epoch"]["loss_last"])
+        print(f"files (d) walk loss at the first printed step "
+              f"{res['trained']['walk_loss']['first']:.4f}, at the last "
+              f"{res['trained']['walk_loss']['last']:.4f}", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"files: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 PHASES = dict(prop=lambda a: kernel_vs_plain(),
               eval=lambda a: end_to_end(a.targets),
               small_eval=lambda a: small_card_vs_cpu(),
@@ -3811,13 +4537,17 @@ PHASES = dict(prop=lambda a: kernel_vs_plain(),
               eval_tail=lambda a: eval_tail_phase(a.card),
               encoders=lambda a: encoders_phase(a.card, a.steps),
               host_sp=lambda a: host_sp_phase(a.steps),
-              multi=lambda a: multi_phase(a.card, a.steps))
+              multi=lambda a: multi_phase(a.card, a.steps),
+              files=lambda a: files_phase())
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--targets", type=int, default=40)
-    ap.add_argument("--steps", type=int, default=10,
+    # 5 timed steps: beside the files phase (two training epochs and a
+    # resumed one from files, a CPU eval: ~290 s of a ~630 s run on an
+    # "NVIDIA H100 80GB HBM3, 700.00 W") the whole run stays near 600 s
+    ap.add_argument("--steps", type=int, default=5,
                     help="timed training steps (after 3 warm-up steps)")
     ap.add_argument("--out", default="", help="also write the results here")
     ap.add_argument("--phases", default="", help="comma-separated subset of "
@@ -3868,23 +4598,32 @@ def main() -> int:
             PHASES[name](args)
         print(f"partial run ({', '.join(only)}): no result line", flush=True)
         return 0
-    kp = kernel_vs_plain()
-    e2e = end_to_end(args.targets)
-    small = small_card_vs_cpu()
-    tail = eval_tail_phase(smi)
-    walk = walk_kernels_vs_plain()
-    walk_sweep = walk_gate_sweep()
-    rconv = rconv_kernels_vs_plain()
-    train = train_step_phase(args.steps)
-    small_train = small_step_card_vs_cpu()
-    slic_res = slic_kernel_vs_plain()
-    dil = dilation_kernel_vs_plain()
-    sp_train = sp_train_phase(args.steps)
-    small_sp_train = small_sp_step_card_vs_cpu()
-    ts_train = ts_train_phase(args.steps)
-    small_ts_train = small_ts_step_card_vs_cpu()
-    train_cli = train_cli_phase(args.steps)
-    encoders = encoders_phase(smi, args.steps)
+    phase_s = {}
+
+    def timed(name, fn, *fn_args):
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
+    kp = timed("prop", kernel_vs_plain)
+    e2e = timed("eval", end_to_end, args.targets)
+    small = timed("small_eval", small_card_vs_cpu)
+    tail = timed("eval_tail", eval_tail_phase, smi)
+    walk = timed("walk", walk_kernels_vs_plain)
+    walk_sweep = timed("walk_sweep", walk_gate_sweep)
+    rconv = timed("rconv", rconv_kernels_vs_plain)
+    train = timed("train", train_step_phase, args.steps)
+    small_train = timed("small_train", small_step_card_vs_cpu)
+    slic_res = timed("slic", slic_kernel_vs_plain)
+    dil = timed("dilation", dilation_kernel_vs_plain)
+    sp_train = timed("sp_train", sp_train_phase, args.steps)
+    small_sp_train = timed("small_sp_train", small_sp_step_card_vs_cpu)
+    ts_train = timed("ts_train", ts_train_phase, args.steps)
+    small_ts_train = timed("small_ts_train", small_ts_step_card_vs_cpu)
+    train_cli = timed("train_cli", train_cli_phase, args.steps)
+    encoders = timed("encoders", encoders_phase, smi, args.steps)
 
     kernels = [dict(
         name="prop_sparse_topk", route="cuda",
@@ -3941,10 +4680,21 @@ def main() -> int:
         max_abs_err=slic_res["max_abs_err"], ms=slic_res["ms"],
         plain_ms=slic_res["plain_ms"], bound_ms=slic_res["bound_ms"],
         bound_by=slic_res["bound_by"], library_ms=None))
-    host_sp = host_sp_phase(args.steps, {k["name"]: k["ms"] for k in kernels})
-    multi = multi_phase(smi, args.steps)
+    host_sp = timed("host_sp", host_sp_phase, args.steps,
+                    {k["name"]: k["ms"] for k in kernels})
+    multi = timed("multi", multi_phase, smi, args.steps)
     kernels[0]["band_launches"] = {
         str(d): b["launches"] for d, b in multi["bands"]["bands"].items()}
+    files = timed("files", files_phase, train_cli["config_of_record"])
+    # launches in the traced windows of the file runs: training steps 5-9
+    # of train_torch.sh (b), video 1 of test_torch.sh (c)
+    traced = dict(files["train"]["trace"]["launches"],
+                  prop_sparse=files["eval"]["card"]["launches_video1"])
+    for k in kernels:
+        name = {"prop_sparse_topk": "prop_sparse"}.get(
+            k["name"], k["name"].removeprefix("reflect_conv_"))
+        if traced.get(name):
+            k["files_launches"] = traced[name]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -3957,7 +4707,8 @@ def main() -> int:
                            small_sp_train=small_sp_train,
                            ts_train=ts_train, small_ts_train=small_ts_train,
                            train_cli=train_cli, encoders=encoders,
-                           host_sp=host_sp, multi=multi, kernels=kernels,
+                           host_sp=host_sp, multi=multi, files=files,
+                           kernels=kernels, phase_s=phase_s,
                            ptxas=logs,
                            wgmma_verdicts=verdicts), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

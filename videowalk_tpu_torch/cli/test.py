@@ -137,7 +137,7 @@ def _encode_chunk(model: CRW, x: torch.Tensor) -> torch.Tensor:
 def dump_pca_vis(feats: np.ndarray, save_path: str, vid_idx: int) -> None:
     """``--pca-vis``: PCA images of every 10th frame's features, upsampled
     4x, as ``pca/{vid_idx}_{frame}.png``."""
-    import imageio
+    from PIL import Image
 
     from videowalk_tpu_torch.utils.visualize import pca_feats
 
@@ -147,7 +147,8 @@ def dump_pca_vis(feats: np.ndarray, save_path: str, vid_idx: int) -> None:
     for i, frame in enumerate(pf):
         img = (np.kron(frame.transpose(1, 2, 0), np.ones((4, 4, 1)))
                * 255).astype(np.uint8)
-        imageio.imwrite(os.path.join(outdir, f"{vid_idx}_{i * 10}.png"), img)
+        Image.fromarray(img).save(
+            os.path.join(outdir, f"{vid_idx}_{i * 10}.png"))
 
 
 def test(loader, model: CRW, args, dump=None, n_videos: int | None = None,

@@ -1,8 +1,10 @@
 """Prediction post-processing (counterpart of
 ``videowalk_tpu/eval/test_utils.py``; reference ``code/utils/test_utils.py``):
-dumping, pose extraction and skeleton drawing. cv2, imageio and matplotlib
+dumping, pose extraction and skeleton drawing. cv2, PIL and matplotlib
 are imported inside the functions that need them: only file-based eval
-does."""
+does. Images are written by PIL as imageio's pillow plugin writes them
+(the same bytes as the reference's ``imageio.imwrite``), so no imageio is
+needed."""
 
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ def dump_predictions(pred: np.ndarray, lbl_set: np.ndarray, img: np.ndarray,
       The blend, the mask colors and the heatmap blend (or None).
     """
     import cv2
-    import imageio
+    from PIL import Image
 
     if img.dtype != np.uint8:
         unit = (img.max() <= 1.5 if img_is_unit_scale is None
@@ -61,13 +63,13 @@ def dump_predictions(pred: np.ndarray, lbl_set: np.ndarray, img: np.ndarray,
         pred_soft = cm.jet(np.clip(pred_soft, 0, 1))[..., :3] * 255.0
         img_with_heatmap = np.float32(img) * 0.5 + np.float32(pred_soft) * 0.5
 
-    imageio.imwrite(f"{prefix}_blend.jpg", np.uint8(img_with_label))
+    Image.fromarray(np.uint8(img_with_label)).save(f"{prefix}_blend.jpg")
     if len(prefix) >= 4 and prefix[-4] == ".":  # reference's path hack
         maskname = prefix[:-3] + "png" if prefix.endswith(".jpg") \
             else prefix.replace("jpg", "png")
     else:
         maskname = f"{prefix}_mask.png"
-    imageio.imwrite(maskname, np.uint8(pred_lbl), compress_level=1)
+    Image.fromarray(np.uint8(pred_lbl)).save(maskname, compress_level=1)
     return img_with_label, pred_lbl, img_with_heatmap
 
 

@@ -1,0 +1,28 @@
+"""``mfu.train``: the training step's model FLOPs over the window, as a
+share of the card's bf16 peak (989 TFLOP/s a chip).
+
+FLOPs as ``bench.py:140-154`` counts them: the trunk's convolutions,
+three times their forward (forward, dx, dW), on every image of every clip
+stepped; no recompute, head or walk. Clips and seconds are the window's,
+less the traced stretch."""
+
+from harness import flops
+
+
+def clip_flops(args, superpixel: bool) -> int:
+    if superpixel:
+        per_image = flops.conv_fwd_flops_per_image(args.img_size, args.img_size)
+        return 3 * per_image * args.clip_len
+    p = int(args.patch_size[0])
+    n_side = (args.img_size - p) // (p // 2) + 1
+    per_image = flops.conv_fwd_flops_per_image(p, p)
+    return 3 * per_image * args.clip_len * n_side * n_side
+
+
+def read(ctx):
+    w = ctx.window
+    seconds = w.get("untraced_wall_s", w["wall_s"])
+    if w["clips"] <= 0 or seconds <= 0:
+        return None
+    rate = w["clips"] / seconds * clip_flops(ctx.args, ctx.superpixel)
+    return 100.0 * rate / flops.BF16_PEAK

@@ -10,7 +10,8 @@ keypoints (``{vid_idx}.dat``); one naming ``VIP`` writes its masks under
 ``videos/`` as the dataset lays them out. ``--pca-vis`` writes PCA images
 of every 10th frame's features under ``pca/``; ``--profile-dir`` writes a
 ``torch.profiler`` trace of one warm video (the second, or the only one)
-there. A pretrained model type
+there and prints the table of its spans (``video``, ``encode``,
+``labels``, ``propagate``, ``dump``). A pretrained model type
 (``imagenet18``, ``imagenet50``, ``moco50``, ``timecycle``, ``uvc``) loads
 its encoder from ``--pretrained-path`` first; ``--resume`` loads over it.
 
@@ -33,7 +34,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -51,7 +51,7 @@ from videowalk_tpu_torch.utils.checkpoint import load_checkpoint, partial_load
 from videowalk_tpu_torch.utils.device import resolve_device
 from videowalk_tpu_torch.utils.pretrained import (PRETRAINED_TYPES,
                                                   apply_pretrained_encoder)
-from videowalk_tpu_torch.utils.profile import Trace
+from videowalk_tpu_torch.utils.profile import Trace, timed
 
 
 def build_model(args, device: torch.device, seed: int = 0) -> CRW:
@@ -156,10 +156,13 @@ def test(loader, model: CRW, args, dump=None, n_videos: int | None = None,
     """Evaluate every video of ``loader`` (tuples as ``VOSDataset`` yields
     them). ``dump(pred, lbl_map, img, outpath, img_is_unit_scale=False)`` is
     called per target frame (default ``test_utils.dump_predictions``).
-    Returns one dict of counts and seconds per video (host clock, each phase
-    ending in a device synchronize); on a JHMDB filelist it also holds the
-    keypoints ``(2, J, targets)``. Under ``--profile-dir`` video 1 is
-    traced where ``n_videos`` (or ``len(loader)``) says there are two or
+    Returns one dict of counts and seconds per video; on a JHMDB filelist
+    it also holds the keypoints ``(2, J, targets)``. The seconds are the
+    host clocks of ``_test_video``'s spans (``utils/profile.py``), each
+    phase ending in a device synchronize: ``encode_s`` the ``encode``
+    span, ``propagate_s`` ``pca_vis`` (with ``--pca-vis``), ``labels``
+    and ``propagate``, ``total_s`` the ``video``. Under ``--profile-dir``
+    video 1 is traced where ``n_videos`` (or ``len(loader)``) says there are two or
     more, else video 0, so that the trace shows a warm video.
 
     ``video_indices``: the global index of each of ``loader``'s videos
@@ -197,7 +200,12 @@ def test(loader, model: CRW, args, dump=None, n_videos: int | None = None,
 def _test_video(model: CRW, args, dump, vid_idx: int, imgs, imgs_orig,
                 lbls_resize, _lbls, lbl_map, meta, devices=None,
                 replicas=None) -> dict:
-    """One video of ``test``: its stats dict."""
+    """One video of ``test``: its stats dict. Spans: ``video`` (a root
+    span; counts: frames, targets) holds ``encode`` (to the features'
+    synchronize), ``pca_vis`` (``--pca-vis``'s images), ``labels`` (the
+    label buffer made and on the device, up to the first propagation
+    launch), ``propagate`` (until the predictions are on the host) and
+    ``dump`` (the targets' outputs, to the video's end)."""
     n_context = args.videoLen
     device = next(model.parameters()).device
     filelist = getattr(args, "filelist", "")
@@ -205,37 +213,62 @@ def _test_video(model: CRW, args, dump, vid_idx: int, imgs, imgs_orig,
     N = imgs.shape[0]
     print(f"******* Vid {vid_idx} ({N} frames) *******", flush=True)
     _sync(device)
-    t0 = time.perf_counter()
-    feats = encode_video(model, imgs, l2=not args.no_l2, replicas=replicas)
-    _sync(device)
-    t_enc = time.perf_counter()
-    print("computed features", t_enc - t0, flush=True)
-    if getattr(args, "pca_vis", False):
-        dump_pca_vis(feats.cpu().numpy(), args.save_path, vid_idx)
+    with timed("video", root=True, frames=N) as video:
+        with timed("encode") as encode:
+            feats = encode_video(model, imgs, l2=not args.no_l2,
+                                 replicas=replicas)
+            _sync(device)
+        print("computed features", encode.seconds, flush=True)
+        pca_s = 0.0
+        if getattr(args, "pca_vis", False):
+            with timed("pca_vis") as pca:
+                dump_pca_vis(feats.cpu().numpy(), args.save_path, vid_idx)
+            pca_s = pca.seconds
+        with timed("labels") as labels:
+            key_indices = context_index_bank(n_context, list(args.long_mem),
+                                             N - n_context)
+            labels0 = lbls_resize.astype(np.float32)
+            if args.norm_mask:
+                # Reference quirk (test.py:156-164): the first target's
+                # in-place min-max rescale mutates frame 0 inside the
+                # buffer; normalizing buffer index 0 up front reproduces
+                # it, as the JAX package does (+1e-12 avoids 0/0 on
+                # constant label rows)
+                f0 = labels0[0] - labels0[0].min(-1, keepdims=True)
+                labels0 = labels0.copy()
+                labels0[0] = f0 / np.maximum(f0.max(-1, keepdims=True),
+                                             1e-12)
+            if devices:
+                n_bands = sparse_shard_count(feats.shape[2], TQ,
+                                             len(devices))
+                print(f"propagation sharded: {n_bands} active bands over "
+                      f"{len(devices)} devices", flush=True)
+            labels0 = torch.from_numpy(labels0).to(device)
+        with timed("propagate") as propagate:
+            preds = propagate_labels(
+                feats, labels0, key_indices, n_context=n_context,
+                n_long=len(args.long_mem), topk=args.topk,
+                temperature=args.temperature, radius=float(args.radius),
+                devices=devices)
+            preds = preds.cpu().numpy()            # synchronizes
+        propagate_s = pca_s + labels.seconds + propagate.seconds
+        print(propagate_s, "propagation (on-device)", flush=True)
+        video.add(targets=int(preds.shape[0]))
+        with timed("dump"):
+            keypoints = _dump_video(args, dump, vid_idx, preds, imgs_orig,
+                                    lbl_map, meta, n_context, pose, filelist)
+    print(f"******* Vid {vid_idx} TOOK {video.seconds} *******", flush=True)
+    return dict(frames=N, targets=int(preds.shape[0]), **keypoints,
+                encode_s=encode.seconds, propagate_s=propagate_s,
+                total_s=video.seconds)
 
-    key_indices = context_index_bank(n_context, list(args.long_mem),
-                                     N - n_context)
-    labels0 = lbls_resize.astype(np.float32)
-    if args.norm_mask:
-        # Reference quirk (test.py:156-164): the first target's
-        # in-place min-max rescale mutates frame 0 inside the buffer;
-        # normalizing buffer index 0 up front reproduces it, as the JAX
-        # package does (+1e-12 avoids 0/0 on constant label rows)
-        f0 = labels0[0] - labels0[0].min(-1, keepdims=True)
-        labels0 = labels0.copy()
-        labels0[0] = f0 / np.maximum(f0.max(-1, keepdims=True), 1e-12)
-    if devices:
-        n_bands = sparse_shard_count(feats.shape[2], TQ, len(devices))
-        print(f"propagation sharded: {n_bands} active bands over "
-              f"{len(devices)} devices", flush=True)
-    preds = propagate_labels(
-        feats, torch.from_numpy(labels0), key_indices,
-        n_context=n_context, n_long=len(args.long_mem), topk=args.topk,
-        temperature=args.temperature, radius=float(args.radius),
-        devices=devices)
-    preds = preds.cpu().numpy()            # synchronizes
-    t_prop = time.perf_counter()
-    print(t_prop - t_enc, "propagation (on-device)", flush=True)
+
+def _dump_video(args, dump, vid_idx: int, preds: np.ndarray, imgs_orig,
+                lbl_map, meta, n_context: int, pose: bool,
+                filelist: str) -> dict:
+    """``_test_video``'s outputs: each target through ``dump`` (in a pool
+    of two writers), and a JHMDB video's keypoints (returned, and dumped
+    as ``{vid_idx}.dat``)."""
     keypts = []
     with ThreadPoolExecutor(max_workers=2) as writers:
         futures = []
@@ -261,15 +294,11 @@ def _test_video(model: CRW, args, dump, vid_idx: int, imgs, imgs_orig,
                 img_is_unit_scale=False))
         for f in futures:
             f.result()
-    st = dict(frames=N, targets=int(preds.shape[0]))
-    if keypts:
-        st["keypoints"] = np.stack(keypts, axis=-1)
-        st["keypoints"].dump(os.path.join(args.save_path,
-                                          f"{vid_idx}.dat"))
-    t_end = time.perf_counter()
-    print(f"******* Vid {vid_idx} TOOK {t_end - t0} *******", flush=True)
-    return dict(st, encode_s=t_enc - t0, propagate_s=t_prop - t_enc,
-                total_s=t_end - t0)
+    if not keypts:
+        return {}
+    kp = np.stack(keypts, axis=-1)
+    kp.dump(os.path.join(args.save_path, f"{vid_idx}.dat"))
+    return dict(keypoints=kp)
 
 
 def data_parallel_devices(args, device: torch.device):

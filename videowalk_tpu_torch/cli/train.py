@@ -20,8 +20,11 @@ the loss and LR read only every ``--print-freq`` steps, stochastic
 (p=0.005) and per-epoch ``.pth`` checkpoints, resume and partial reload,
 ``--visualize`` (the loss and each metric's mean every step, to wandb or
 ``<logs-dir>/metrics.jsonl``) and ``--profile-dir`` (a ``torch.profiler``
-trace of steps 5-9 of the run's first epoch). It runs on the card unless
-``--device cpu`` is given; there every kernel takes its plain version.
+trace of steps 5-9 of the run's first epoch, with the table of the spans
+of ``utils/profile.py``: the loop's ``data_wait``, ``augs``, ``fetch`` and
+``checkpoint`` beside ``slic``, the ``step`` and its layers). It runs on
+the card unless ``--device cpu`` is given; there every kernel takes its
+plain version.
 
 Data parallel, one process per card (``parallel/multihost.py``):
 
@@ -72,7 +75,7 @@ from videowalk_tpu_torch.utils.device import resolve_device
 from videowalk_tpu_torch.utils.pretrained import (PRETRAINED_TYPES,
                                                   apply_pretrained_encoder)
 from videowalk_tpu_torch.utils.meters import MetricLogger, SmoothedValue
-from videowalk_tpu_torch.utils.profile import Trace
+from videowalk_tpu_torch.utils.profile import Trace, span
 from videowalk_tpu_torch.utils.visualize import Visualize
 
 # --steps-per-epoch's "unlimited" default: at or above it the flag was not
@@ -272,7 +275,7 @@ def _epoch_steps(args, run: Training, epoch: int, metric_logger, header: str,
     state = run.state
     dev = state.device
     fetch_every = max(1, args.print_freq)
-    window_clips, window_t0 = 0, time.time()
+    window_clips, window_t0 = 0, time.perf_counter()
     device_augs = args.augs_backend == "device"
     world = multihost.world()     # clips/s counts the global batch
     delivered = 0
@@ -289,11 +292,13 @@ def _epoch_steps(args, run: Training, epoch: int, metric_logger, header: str,
                 trace.stop()
         seed_step_streams(run, args.seed, state.step)
         if device_augs:
-            views = train_transform_device(
-                _on(views["raw"], dev), run.aug_gen, img_size=args.img_size,
-                patch_size=int(args.patch_size[0]),
-                frame_aug=args.frame_aug or "",
-                frame_transforms=args.frame_transforms)
+            with span("augs"):
+                views = train_transform_device(
+                    _on(views["raw"], dev), run.aug_gen,
+                    img_size=args.img_size,
+                    patch_size=int(args.patch_size[0]),
+                    frame_aug=args.frame_aug or "",
+                    frame_transforms=args.frame_transforms)
         grid = bool(host_rng.choice([True, False],
                                     p=[args.prob, 1 - args.prob]))
         if grid or args.teacher_student:
@@ -317,7 +322,8 @@ def _epoch_steps(args, run: Training, epoch: int, metric_logger, header: str,
                          for k, v in metrics.items() if k != "loss"})
 
         if step_i % fetch_every == 0 or step_i + 1 >= total_steps:
-            loss = float(metrics["loss"])       # waits for this step
+            with span("fetch"):
+                loss = float(metrics["loss"])   # waits for this step
             if not np.isfinite(loss):
                 where = args.output_dir or "<no --output-dir>"
                 raise FloatingPointError(
@@ -330,13 +336,14 @@ def _epoch_steps(args, run: Training, epoch: int, metric_logger, header: str,
             metric_logger.update(loss=loss,
                                  lr=state.optimizer.param_groups[0]["lr"])
             metric_logger.meters["clips/s"].update(
-                window_clips / max(time.time() - window_t0, 1e-9))
-            window_clips, window_t0 = 0, time.time()
+                window_clips / max(time.perf_counter() - window_t0, 1e-9))
+            window_clips, window_t0 = 0, time.perf_counter()
 
         # stochastic checkpointing (reference train.py:76-77)
         if (run.checkpoint_fn is not None
                 and host_rng.random_sample() < 0.005):
-            run.checkpoint_fn(state, epoch)
+            with span("checkpoint"):
+                run.checkpoint_fn(state, epoch)
     return delivered
 
 

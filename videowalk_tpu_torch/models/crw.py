@@ -27,6 +27,12 @@ the CUDA kernels, on a CPU tensor their plain version. Elsewhere it takes
 ``core/walk.py``. Random numbers (edge dropout,
 featdrop) come from the ``generator`` argument. ``state_dict`` names are the
 reference's (``encoder.model.layer1.0.conv1.weight``, ``selfsim_fc.0.weight``).
+
+Spans (``utils/profile.py``, on only while traced): the encoder call in
+``trunk``; featdrop, the pooling (``sp_pool`` around the superpixel
+weights), the head and the L2 norm in ``nodes``; the loss in ``walk``; and
+the backward of each in ``trunk.backward``, ``nodes.backward`` and
+``walk.backward``.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from videowalk_tpu_torch.models.encoder import make_encoder
 from videowalk_tpu_torch.ops import walk as walk_ops
 from videowalk_tpu_torch.ops.dilation import dilate_l1, unit_diamond
 from videowalk_tpu_torch.utils.device import full_f32_matmul
+from videowalk_tpu_torch.utils.profile import backward_span, span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +160,7 @@ def dilate_onehot(onehot: torch.Tensor, kernel_size: int,
     return x.reshape(*lead, h, w)
 
 
+@spanned("sp_pool")
 def superpixel_pool_weights(
     sp_mask: torch.Tensor, max_sp_num: int, feat_hw: tuple[int, int], *,
     dilate: bool = False, dilation_kernel_size: int = 51,
@@ -238,28 +246,40 @@ class CRW(nn.Module):
         feats = feats.to(torch.promote_types(feats.dtype, torch.float32))
         return l2_normalize(self.selfsim_fc(feats), dim=-1)
 
+    def _trunk(self, x, train: bool):
+        """The encoder's maps of ``x``, in the ``trunk`` span (its backward
+        in ``trunk.backward``)."""
+        with span("trunk"):
+            maps = self.encoder(x, train)
+        backward_span("trunk.backward", maps, x, self.encoder)
+        return maps
+
     def pixels_to_nodes(self, x, train: bool, generator=None):
         """``(B, T, N, h, w, 3)`` patches -> q ``(B, C, T, N)``, maps
         ``(B, T, N, H, W, C)``. Reference code/model.py:92-123."""
         B, T, N = x.shape[:3]
         xx = x.transpose(1, 2).reshape(B * N, T, *x.shape[3:])
-        maps = self.encoder(xx, train)                  # (B*N, T, H, W, C)
-        maps = self._featdrop(maps, train, generator)
-        feats = maps.mean(dim=(2, 3), dtype=torch.promote_types(
-            maps.dtype, torch.float32)).to(maps.dtype)
-        feats = self._project(feats)                    # (B*N, T, C')
-        q = feats.reshape(B, N, T, -1).permute(0, 3, 2, 1)
+        trunk = self._trunk(xx, train)                  # (B*N, T, H, W, C)
+        with span("nodes"):
+            maps = self._featdrop(trunk, train, generator)
+            feats = maps.mean(dim=(2, 3), dtype=torch.promote_types(
+                maps.dtype, torch.float32)).to(maps.dtype)
+            feats = self._project(feats)                # (B*N, T, C')
+            q = feats.reshape(B, N, T, -1).permute(0, 3, 2, 1)
+        backward_span("nodes.backward", q, trunk, self.selfsim_fc)
         maps = maps.reshape(B, N, T, *maps.shape[2:]).transpose(1, 2)
         return q, maps
 
     def whole_image_to_nodes(self, x, train: bool, generator=None):
         """``(B, T, h, w, 3)`` frames -> q ``(B, C', T, HW)`` projected +
         L2-normalized nodes, maps ``(B, T, H, W, C)``."""
-        maps = self.encoder(x, train)
-        maps = self._featdrop(maps, train, generator)
-        B, T, H, W, C = maps.shape
-        q = self._project(maps.reshape(B, T, H * W, C))
-        return q.permute(0, 3, 1, 2), maps
+        trunk = self._trunk(x, train)
+        with span("nodes"):
+            maps = self._featdrop(trunk, train, generator)
+            B, T, H, W, C = maps.shape
+            q = self._project(maps.reshape(B, T, H * W, C)).permute(0, 3, 1, 2)
+        backward_span("nodes.backward", q, trunk, self.selfsim_fc)
+        return q, maps
 
     def image_to_nodes(self, x, sp_mask, train: bool, generator=None):
         """``(B, T, h, w, 3)`` frames + ``(B, T, h, w)`` int32 or int64
@@ -272,18 +292,22 @@ class CRW(nn.Module):
                 f"sp_mask must be int32 or int64 ids {tuple(x.shape[:4])} on "
                 f"{x.device}; got {sp_mask.dtype} {tuple(sp_mask.shape)} on "
                 f"{sp_mask.device}")
-        maps = self.encoder(x, train)                   # (B, T, H, W, C)
-        maps = self._featdrop(maps, train, generator)
+        trunk = self._trunk(x, train)                   # (B, T, H, W, C)
         cfg = self.cfg
-        weights = superpixel_pool_weights(
-            sp_mask, cfg.max_sp_num, maps.shape[2:4],
-            dilate=cfg.dilate_superpixels,
-            dilation_kernel_size=cfg.dilation_kernel_size,
-            dilation_kernel_shape=cfg.dilation_kernel_shape)
-        wide = torch.promote_types(maps.dtype, torch.float32)
-        sp_feats = _SegmentPool.apply(weights.to(wide), maps.to(wide))
-        q = self._project(sp_feats)                     # (B, T, SP, C')
-        return q.permute(0, 3, 1, 2), maps
+        with span("nodes"):
+            maps = self._featdrop(trunk, train, generator)
+            # called through the module's global, so that a wrapper set
+            # there sees each call
+            weights = superpixel_pool_weights(
+                sp_mask, cfg.max_sp_num, maps.shape[2:4],
+                dilate=cfg.dilate_superpixels,
+                dilation_kernel_size=cfg.dilation_kernel_size,
+                dilation_kernel_shape=cfg.dilation_kernel_shape)
+            wide = torch.promote_types(maps.dtype, torch.float32)
+            sp_feats = _SegmentPool.apply(weights.to(wide), maps.to(wide))
+            q = self._project(sp_feats).permute(0, 3, 1, 2)  # (B, C', T, SP)
+        backward_span("nodes.backward", q, trunk, self.selfsim_fc)
+        return q, maps
 
     def forward(self, x: torch.Tensor, sp_mask: torch.Tensor | None = None,
                 just_feats: bool = False, train: bool = True,
@@ -308,19 +332,22 @@ class CRW(nn.Module):
         rate = cfg.edgedrop_rate if train else 0.0
         masks = walk_masks if train else None
         use_fused = fused_walk_route(cfg, T, N, C)     # 'on' may raise
-        if cfg.sk_targets:
-            loss, diags = walk_lib.sk_targets_walk_loss(
-                q, cfg.temperature, generator=generator, edgedrop_rate=rate,
-                masks=masks, use_zero_softmax=cfg.use_zero_softmax,
-                group=self.group if train else None)
-        elif use_fused:
-            loss, diags = walk_ops.fused_walk_loss(
-                q, cfg.temperature, generator=generator, edgedrop_rate=rate,
-                masks=masks)
-        else:
-            loss, diags = walk_lib.crw_walk_loss(
-                q, cfg.temperature, generator=generator, edgedrop_rate=rate,
-                masks=masks, flip=cfg.flip,
-                use_zero_softmax=cfg.use_zero_softmax,
-                zero_diagonal=cfg.zero_diagonal)
+        with span("walk"):
+            if cfg.sk_targets:
+                loss, diags = walk_lib.sk_targets_walk_loss(
+                    q, cfg.temperature, generator=generator,
+                    edgedrop_rate=rate, masks=masks,
+                    use_zero_softmax=cfg.use_zero_softmax,
+                    group=self.group if train else None)
+            elif use_fused:
+                loss, diags = walk_ops.fused_walk_loss(
+                    q, cfg.temperature, generator=generator,
+                    edgedrop_rate=rate, masks=masks)
+            else:
+                loss, diags = walk_lib.crw_walk_loss(
+                    q, cfg.temperature, generator=generator,
+                    edgedrop_rate=rate, masks=masks, flip=cfg.flip,
+                    use_zero_softmax=cfg.use_zero_softmax,
+                    zero_diagonal=cfg.zero_diagonal)
+        backward_span("walk.backward", loss, q)
         return q, loss, diags

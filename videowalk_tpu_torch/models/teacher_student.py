@@ -13,7 +13,9 @@ against the teacher's.
 The teacher runs in BN-eval mode (no running-statistics update, no
 featdrop) under ``torch.no_grad()``, the JAX package's ``stop_gradient``;
 the train step also leaves its parameters out of the optimizer
-(``create_train_state(..., frozen_prefixes=("teacher.",))``).
+(``create_train_state(..., frozen_prefixes=("teacher.",))``). The
+teacher's nodes are made before the ``walk`` span, so that its trunk
+counts to the ``trunk`` span (``utils/profile.py``).
 ``state_dict`` names are the reference's: ``encoder.*`` and
 ``selfsim_fc.*`` for the student, ``teacher.encoder.*`` and
 ``teacher.selfsim_fc.*`` for the teacher.
@@ -27,6 +29,7 @@ import torch
 
 from videowalk_tpu_torch.core import walk as walk_lib
 from videowalk_tpu_torch.models.crw import CRW, CRWConfig
+from videowalk_tpu_torch.utils.profile import backward_span, span
 
 
 def soft_cross_entropy(inputs: torch.Tensor,
@@ -76,25 +79,28 @@ class CRWTeacherStudent(CRW):
             zero = torch.zeros((), dtype=q.dtype, device=q.device)
             return q, zero, {"crw_loss": zero, "ts_loss": zero}
 
-        A12s, A21s = walk_lib.transition_matrices(
-            q, cfg.temperature, generator=generator,
-            edgedrop_rate=cfg.edgedrop_rate if train else 0.0,
-            masks=walk_masks if train else None, use_zero_softmax=False)
-        AAs = walk_lib.palindrome_products(A12s, A21s, flip=cfg.flip)
         with torch.no_grad():
             q_t, _ = self.teacher.pixels_to_nodes(x, train=False)
-            AAs_t = walk_lib.palindrome_products(
-                *walk_lib.transition_matrices(q_t, cfg.temperature,
-                                              use_zero_softmax=False),
-                flip=cfg.flip)
+        with span("walk"):
+            A12s, A21s = walk_lib.transition_matrices(
+                q, cfg.temperature, generator=generator,
+                edgedrop_rate=cfg.edgedrop_rate if train else 0.0,
+                masks=walk_masks if train else None, use_zero_softmax=False)
+            AAs = walk_lib.palindrome_products(A12s, A21s, flip=cfg.flip)
+            with torch.no_grad():
+                AAs_t = walk_lib.palindrome_products(
+                    *walk_lib.transition_matrices(q_t, cfg.temperature,
+                                                  use_zero_softmax=False),
+                    flip=cfg.flip)
 
-        losses, accs = zip(*(walk_lib.walk_xent_loss(AA) for AA in AAs))
-        crw_loss = torch.stack(losses).sum() / max(1, T - 2)
-        N = AAs.shape[-1]
-        ts_loss = torch.stack([
-            soft_cross_entropy(AA.reshape(-1, N), AA_t.reshape(-1, N))
-            for AA, AA_t in zip(AAs, AAs_t)]).sum() / max(1, T - 2)
-        loss = self.alpha * crw_loss + (1.0 - self.alpha) * ts_loss
+            losses, accs = zip(*(walk_lib.walk_xent_loss(AA) for AA in AAs))
+            crw_loss = torch.stack(losses).sum() / max(1, T - 2)
+            N = AAs.shape[-1]
+            ts_loss = torch.stack([
+                soft_cross_entropy(AA.reshape(-1, N), AA_t.reshape(-1, N))
+                for AA, AA_t in zip(AAs, AAs_t)]).sum() / max(1, T - 2)
+            loss = self.alpha * crw_loss + (1.0 - self.alpha) * ts_loss
+        backward_span("walk.backward", loss, q)
 
         tag = "l" if cfg.flip else "r"
         diags = {"crw_loss": crw_loss, "ts_loss": ts_loss}

@@ -17,7 +17,8 @@ assignments, ``n_iter`` updates): the JAX ``slic_fused`` at ``n_iter`` is this
 function at ``n_iter + 1``. The port keeps one meaning of ``n_iter`` for the
 CPU and the card; ``tests/test_torch_slic.py`` holds it to both JAX functions.
 
-``slic_fused`` is the wrapper: a CPU tensor takes ``slic``; a CUDA tensor
+``slic_fused`` is the wrapper (each call in the span ``slic``,
+``utils/profile.py``): a CPU tensor takes ``slic``; a CUDA tensor
 launches the hand-written Hopper kernels of ``csrc/slic.cu`` or raises.
 ``slic_fused.launches`` counts calls that went to the kernels, one a call;
 ``device_launches`` gives the device launches of a call: the features, then
@@ -50,6 +51,7 @@ import torch
 from videowalk_tpu_torch.ops.slic_device import (check_slic_args,
                                                  grid_shape, slic,
                                                  slic_geometry)
+from videowalk_tpu_torch.utils.profile import spanned
 
 MAX_SEGMENTS = 128     # center slots the kernels take
 FIX_SCALE = 2 ** 20    # the kernels' fixed point: int64 sums of feature * 2^20
@@ -84,6 +86,7 @@ def _lib():
     return lib
 
 
+@spanned("slic")
 def slic_fused(images: torch.Tensor, n_segments: int = 36,
                compactness: float = 50.0, n_iter: int = 10,
                convert_lab: bool = True, n_active=None,

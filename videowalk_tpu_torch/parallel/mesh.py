@@ -12,6 +12,9 @@ holds its row block of the global batch, and the collectives are explicit:
   backward pass (``parallel/train_step.py``);
 - ``replicate``: rank 0's parameters and buffers on every rank.
 
+Both all-reduce functions, and the SUM's backward, run in the span
+``dp.all_reduce`` (``utils/profile.py``).
+
 A manual average suits the plain step function: the patch and superpixel
 paths use different parameter sets, where DDP would need
 ``find_unused_parameters``.
@@ -25,6 +28,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from videowalk_tpu_torch.utils.profile import span, spanned
 
 
 def group_size(group) -> int:
@@ -56,11 +61,13 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        with span("dp.all_reduce"):
+            g = g.clone()
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
         return g, None
 
 
+@spanned("dp.all_reduce")
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The SUM of ``x`` over ``group``, differentiable: the gradient of each
     rank's input is the SUM of the ranks' output gradients (every rank's
@@ -85,6 +92,7 @@ def _coalesced(tensors: list[torch.Tensor], fn) -> None:
             t.copy_(v)
 
 
+@spanned("dp.all_reduce")
 def average_gradients(params: Iterable[torch.Tensor], group) -> None:
     """Replace each gradient by its mean over ``group``: one flat SUM
     all-reduce, then a divide by the group size. Parameters without a

@@ -27,6 +27,7 @@ from videowalk_tpu_torch.parallel.mesh import (attach_group,
                                                average_gradients,
                                                global_mean, replicate)
 from videowalk_tpu_torch.utils.device import resolve_device
+from videowalk_tpu_torch.utils.profile import span
 
 
 @dataclasses.dataclass
@@ -129,7 +130,11 @@ def make_train_step() -> Callable:
     global batch and ``generator`` a ``core.rng.GlobalBatchGenerator``
     seeded alike on every rank; the gradients are averaged over the group
     (one flat all-reduce) before the update, and ``metrics`` are the
-    global batch's means (one more all-reduce)."""
+    global batch's means (one more all-reduce).
+
+    Spans (``utils/profile.py``): ``step`` (a root span; counts:
+    this rank's clips) holds ``optimizer`` (``zero_grad``; the update and
+    the scheduler) and the model's layer spans."""
 
     def step(state: TrainState, batch: torch.Tensor,
              generator: torch.Generator | None = None,
@@ -138,20 +143,23 @@ def make_train_step() -> Callable:
             if t is not None and t.device != state.device:
                 raise ValueError(f"{name} on {t.device}, train state on "
                                  f"{state.device}")
-        state.optimizer.zero_grad(set_to_none=True)
-        kwargs = {} if sp_mask is None else {"sp_mask": sp_mask}
-        _, loss, diags = state.model(batch, train=True, generator=generator,
-                                     **kwargs)
-        loss.backward()
-        if state.group is not None:
-            average_gradients(state.model.parameters(), state.group)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        metrics = {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in diags.items()}}
-        if state.group is not None:
-            metrics = global_mean(metrics, state.group)
+        with span("step", root=True, clips=batch.shape[0]):
+            with span("optimizer"):
+                state.optimizer.zero_grad(set_to_none=True)
+            kwargs = {} if sp_mask is None else {"sp_mask": sp_mask}
+            _, loss, diags = state.model(batch, train=True,
+                                         generator=generator, **kwargs)
+            loss.backward()
+            if state.group is not None:
+                average_gradients(state.model.parameters(), state.group)
+            with span("optimizer"):
+                state.optimizer.step()
+                state.scheduler.step()
+            state.step += 1
+            metrics = {"loss": loss.detach(),
+                       **{k: v.detach() for k, v in diags.items()}}
+            if state.group is not None:
+                metrics = global_mean(metrics, state.group)
         return metrics
 
     return step

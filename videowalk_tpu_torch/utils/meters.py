@@ -13,6 +13,10 @@ from collections import defaultdict, deque
 
 import torch
 
+from videowalk_tpu_torch.utils.profile import timed
+
+_END = object()     # the end of ``log_every``'s iterable
+
 
 class SmoothedValue:
     """A series of values: median and average over a window, and the
@@ -95,17 +99,25 @@ class MetricLogger:
         self.meters[name] = meter
 
     def log_every(self, iterable, print_freq, header=None, total=None):
+        """Yield ``iterable``'s items, logging every ``print_freq``. The
+        data time is the ``data_wait`` span around the iterator's ``next``
+        (``utils/profile.py``)."""
         i = 0
         header = header or ""
         total = total if total is not None else len(iterable)
-        start_time = end = time.time()
+        start_time = end = time.perf_counter()
         iter_time = SmoothedValue(fmt="{avg:.4f}")
         data_time = SmoothedValue(fmt="{avg:.4f}")
         space_fmt = ":" + str(len(str(total))) + "d"
-        for obj in iterable:
-            data_time.update(time.time() - end)
+        items = iter(iterable)
+        while True:
+            with timed("data_wait") as wait:
+                obj = next(items, _END)
+            if obj is _END:
+                break
+            data_time.update(wait.seconds)
             yield obj
-            iter_time.update(time.time() - end)
+            iter_time.update(time.perf_counter() - end)
             if i % print_freq == 0:
                 eta = str(datetime.timedelta(
                     seconds=int(iter_time.global_avg * (total - i))))
@@ -118,7 +130,7 @@ class MetricLogger:
                     parts.append(f"max mem: {mem:.0f}")
                 print(self.delimiter.join(parts), flush=True)
             i += 1
-            end = time.time()
-        total_time = str(datetime.timedelta(seconds=int(time.time()
+            end = time.perf_counter()
+        total_time = str(datetime.timedelta(seconds=int(time.perf_counter()
                                                         - start_time)))
         print(f"{header} Total time: {total_time}", flush=True)

@@ -67,7 +67,12 @@ card.
    CUDA events. ptxas's verdict on each slab kernel: does it serialize
    ``wgmma`` (C7513, C7515)? (The parent tree's kernels are timed by
    running its own ``--phases rconv`` from an unpacked copy in the same
-   call.)
+   call.) Then the BN kernels (``bn``, ``ops/bn_act.py``): each pass
+   against its plain version on the card at the flagship's layer4 and the
+   superpixel step's 64x64 layer1, each pass's device ms at layer4 beside
+   its bytes at 3.35 TB/s, and one BN with its add and ReLU forward and
+   backward on the kernels and on the eager chain at both shapes. Every
+   training arm reads its BN kernels' launches a step.
 7. Drives the training slice: ``bench.py``'s flagship step (8-frame clips,
    batch 8, a 7x7 grid of 64 px patches, the ``scratch`` ResNet-18 with a
    bf16 trunk in BN-train mode, edge dropout 0.1, T 0.05, Adam lr 3e-4)
@@ -238,6 +243,7 @@ from videowalk_tpu_torch.models import CRW, CRWConfig, CRWTeacherStudent
 from videowalk_tpu_torch.models.crw import superpixel_pool_weights
 from videowalk_tpu_torch.models.resnet import remat_stage_set, resnet50
 from videowalk_tpu_torch.ops import _build
+from videowalk_tpu_torch.ops import bn_act as ba
 from videowalk_tpu_torch.ops import prop_sparse as ps
 from videowalk_tpu_torch.ops import rconv as rc
 from videowalk_tpu_torch.ops import walk as wk
@@ -295,6 +301,13 @@ RCONV = (("fwd", rc.reflect_conv_fwd), ("fwd_stats", rc.reflect_conv_fwd_stats),
          ("fwd_bnin_stats", rc.reflect_conv_fwd_bnin_stats),
          ("dx_bnin", rc.reflect_conv_dx_bnin),
          ("dw_bnin", rc.reflect_conv_dw_bnin))
+BN = (("bn_moments", ba.bn_moments), ("bn_act_fwd", ba.bn_act_fwd),
+      ("bn_act_reduce_bwd", ba.bn_act_reduce_bwd),
+      ("bn_act_apply_bwd", ba.bn_act_apply_bwd), ("bn_fold", ba.bn_fold))
+# the BN passes every train-mode trunk runs each step (the stem's BN
+# reduces its own moments, takes the ReLU and its backward)
+BN_EVERY_STEP = ("bn_moments", "bn_act_fwd", "bn_act_reduce_bwd",
+                 "bn_act_apply_bwd")
 DEFAULT_ARM = ("auto", "auto")
 # the superpixel step of record (the reference's train.sh): batch 6, clips of
 # 4 whole 256 px frames, SLIC with 36 segments and compactness 50 inside the
@@ -1191,6 +1204,26 @@ def set_rconv_counts(counts: dict) -> None:
         f.launches = counts[name]
 
 
+def bn_counts() -> dict:
+    return {name: f.launches for name, f in BN}
+
+
+def zero_bn_counts() -> None:
+    for _, f in BN:
+        f.launches = 0
+
+
+def check_bn_counts(tag: str, counts: dict, n_steps: int) -> dict:
+    """The BN kernels' launches per step of a train-mode trunk's timed
+    steps: each pass in ``BN_EVERY_STEP`` at least once a step, and every
+    count the same each step."""
+    if any(counts[k] == 0 for k in BN_EVERY_STEP) or any(
+            v % n_steps for v in counts.values()):
+        fail(f"{tag}: BN kernel launches {counts} in {n_steps} steps: want "
+             f"each of {BN_EVERY_STEP} every step, the same count each step")
+    return {k: v // n_steps for k, v in counts.items()}
+
+
 def rconv_bounds(N, cin, cout, H, W, itemsize=2, peak=BF16_PEAK) -> dict:
     """Least times of the seven kernels: each input read once and each
     output written once over the HBM rate, against the bf16 (or f32)
@@ -1703,7 +1736,10 @@ def profile_steps(run, n: int = 3, steps_per_run: int = 1) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # the program's spans are user annotations on the device's
+        # timeline too: their ranges are not kernels
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = e.self_cuda_time_total
@@ -1790,12 +1826,14 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
     torch.cuda.reset_peak_memory_stats()
     wk.walk_fwd.launches = wk.walk_bwd.launches = 0   # counts: this path only
     set_rconv_counts(dict.fromkeys(expect, 0))
+    zero_bn_counts()
     t0 = time.perf_counter()
     metrics = [step(state, batch, gen) for _ in range(n_steps)]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_steps
     launches = dict(walk_fwd=wk.walk_fwd.launches,
                     walk_bwd=wk.walk_bwd.launches, **rconv_counts())
+    bn_launches = bn_counts()
     losses = [float(m["loss"]) for m in metrics]
     walks = 0 if teacher_student else n_steps
     want = dict(walk_fwd=walks, walk_bwd=walks,
@@ -1806,6 +1844,7 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
     if launches != want:
         fail(f"{tag}: kernel launches {launches} in {n_steps} steps, want "
              f"{want}")
+    bn_per_step = check_bn_counts(tag, bn_launches, n_steps)
     parts = ([float(m[k]) for m in metrics for k in ("crw_loss", "ts_loss")]
              if teacher_student else [])
     if not all(np.isfinite(losses + parts)):
@@ -1822,7 +1861,7 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
                max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                losses=losses, launches=launches,
                launches_per_step={k: v / n_steps for k, v in launches.items()},
-               state_step=state.step,
+               bn_launches_per_step=bn_per_step, state_step=state.step,
                acc_last={k: float(v) for k, v in metrics[-1].items()
                          if k.startswith("acc")})
     if teacher_student:
@@ -1835,8 +1874,8 @@ def train_arm(rconv: str, bn_fuse: str, expect: dict, n_steps: int,
           f"TFLOP/step (analytic convs), MFU {100 * res['mfu']:.2f}% of "
           f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16; peak memory "
           f"{res['max_memory_gib']:.2f} GiB; losses {losses[0]:.4f} .. "
-          f"{losses[-1]:.4f}; launches per step {res['launches_per_step']}",
-          flush=True)
+          f"{losses[-1]:.4f}; launches per step {res['launches_per_step']}; "
+          f"BN launches per step {bn_per_step}", flush=True)
     if profile:   # 3 more steps, after the path's counts were read
         res["profile"] = profile_steps(lambda: step(state, batch, gen))
     if teacher_student:
@@ -2153,7 +2192,8 @@ def call_profile(fn, n: int = 10) -> dict:
         torch.cuda.synchronize()
     us, launches, htod = {}, 0, 0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:
@@ -2293,6 +2333,219 @@ def superpixel_onehots(x: torch.Tensor) -> torch.Tensor:
     slots = torch.arange(MAX_SP, device="cuda")
     onehot = (labels[:, :, None] == slots[:, None, None]).to(torch.bfloat16)
     return onehot.reshape(-1, *labels.shape[-2:])
+
+
+# limits of a BN pass against its plain version on the same card tensors
+# (tests/test_torch_bn_act_kernel.py's): the forward, the identity's dr and
+# the fold bitwise (the same rounded f32 operations); the apply pass one
+# bf16 ulp of each entry plus 1e-4 (a fused multiply-add); each f32 sum
+# 1e-5 of its channel's sum of magnitudes (another order of addition)
+BN_ULP, BN_APPLY_ATOL, BN_SUM_RTOL = 2.0 ** -7, 1e-4, 1e-5
+
+
+def _bn_act_tensor(gen, shape, nchw, scale=1.0, shift=0.0) -> torch.Tensor:
+    t = (torch.randn(shape, generator=gen, device="cuda") * scale
+         + shift).to(torch.bfloat16)
+    return t if nchw else t.contiguous(memory_format=torch.channels_last)
+
+
+def bn_passes_vs_plain(case: str, shape: tuple, nchw: bool, seed: int
+                       ) -> dict:
+    """Each BN pass wrapper (``ops/bn_act.py``: ``bn_moments``,
+    ``bn_act_fwd``, ``bn_act_reduce_bwd``, ``bn_act_apply_bwd``,
+    ``bn_fold``) against its plain version (``moments_plain``,
+    ``act_fwd_plain``, ``act_reduce_bwd_plain``, ``act_apply_bwd_plain``,
+    ``fold_plain``: PyTorch on the same card tensors), bf16 of ``shape``,
+    in every mode the trunk uses, held to the ``BN_*`` limits. The
+    backward's gate is the forward's real output. Returns each comparison's
+    max_abs_err (a sum's: its largest error over the limit's scale)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    C = shape[1]
+    y = _bn_act_tensor(gen, shape, nchw, 2.0, 0.5)
+    yd = _bn_act_tensor(gen, shape, nchw, 1.5, -0.3)
+    go = _bn_act_tensor(gen, shape, nchw)
+    prm = torch.randn((6, C), generator=gen, device="cuda")
+    prm[1] = prm[1].abs() + 0.5
+    prm[4] = prm[4].abs() + 0.5
+    errs, faults = {}, []
+
+    def exact(name, got, want):
+        errs[name] = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            faults.append(f"{name}: max|d| {errs[name]:.3e}, want bitwise")
+
+    def sums(name, got, want, scale):
+        ratio = (got - want).abs() / scale.clamp_min(1e-30)
+        errs[name] = float((got - want).abs().max())
+        errs[name + ".rel"] = float(ratio.max())
+        if errs[name + ".rel"] > BN_SUM_RTOL:
+            faults.append(f"{name}: {errs[name + '.rel']:.3e} of the sum of "
+                          f"magnitudes, limit {BN_SUM_RTOL}")
+
+    def apply(name, got, want):
+        err = (got.float() - want.float()).abs()
+        errs[name] = float(err.max())
+        bad = int((err > BN_ULP * want.float().abs() + BN_APPLY_ATOL).sum())
+        if bad:
+            faults.append(f"{name}: {bad} entries past one ulp + "
+                          f"{BN_APPLY_ATOL}, max|d| {errs[name]:.3e}")
+
+    yf, ydf = ba._wide(y), ba._wide(yd)
+    s = ba.bn_moments(y)
+    p = ba.moments_plain(y)
+    mags = (yf.abs().sum((0, 2, 3)), (yf * yf).sum((0, 2, 3)))
+    for k, name in enumerate(("moments.s1", "moments.s2")):
+        sums(name, s[k], p[k], mags[k])
+    del s, p, mags
+    out = None
+    for mode, relu, tag in ((ba.PLAIN, True, "plain"),
+                            (ba.IDENTITY, True, "identity"),
+                            (ba.PROJ, False, "projection_norelu"),
+                            (ba.PROJ, True, "projection")):
+        sc = None if mode == ba.PLAIN else yd
+        pm = prm if mode == ba.PROJ else prm[:3]
+        out = ba.bn_act_fwd(y, pm, sc, mode, relu)
+        exact(f"fwd.{tag}", out, ba.act_fwd_plain(y, pm, sc, mode, relu))
+        means = prm[[0, 3]] if mode == ba.PROJ else prm[:1]
+        ydm = yd if mode == ba.PROJ else None
+        got, dr = ba.bn_act_reduce_bwd(go, out, y, ydm, means, mode, relu)
+        want, pdr = ba.act_reduce_bwd_plain(go, out, y, ydm, means, mode,
+                                            relu)
+        g = ba._gated(go, out, relu).abs()
+        scale = [g.sum((0, 2, 3)),
+                 (g * (yf - means[0][None, :, None, None]).abs()).sum((0, 2, 3))]
+        if mode == ba.PROJ:
+            scale.append((g * (ydf - means[1][None, :, None, None]).abs())
+                         .sum((0, 2, 3)))
+        sums(f"reduce_bwd.{tag}", got, want, torch.stack(scale))
+        del g, scale, got, want
+        if mode == ba.IDENTITY:
+            exact("reduce_bwd.identity.dr", dr, pdr)
+            dy, _ = ba.bn_act_apply_bwd(dr, out, y, None, pm, ba.PLAIN, False)
+            pdy, _ = ba.act_apply_bwd_plain(dr, out, y, None, pm, ba.PLAIN,
+                                            False)
+            apply("apply_bwd.identity.dy", dy, pdy)
+        else:
+            dy, dyd = ba.bn_act_apply_bwd(go, out, y, ydm, pm, mode, relu)
+            pdy, pdyd = ba.act_apply_bwd_plain(go, out, y, ydm, pm, mode,
+                                               relu)
+            apply(f"apply_bwd.{tag}.dy", dy, pdy)
+            if mode == ba.PROJ:
+                apply(f"apply_bwd.{tag}.dyd", dyd, pdyd)
+        del dr, pdr, dy, pdy
+    exact("fold", ba.bn_fold(go, prm[4], prm[5], y),
+          ba.fold_plain(go, prm[4], prm[5], y))
+    print(f"bn passes vs plain, {case} {shape} "
+          f"{'NCHW' if nchw else 'channels_last'}: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    if faults:
+        fail(f"bn passes vs plain at {case} {shape}: " + "; ".join(faults))
+    return errs
+
+
+def bn_kernels_vs_plain() -> dict:
+    """The BN kernels (``ops/bn_act.py``, ``csrc/bn_act.cu``): each pass
+    against its plain version on the same card tensors
+    (``bn_passes_vs_plain``) at the flagship's layer4 (12,544 images of
+    8x8x512, bf16, channels_last) and at the superpixel step's 64x64 layer1
+    (640 x 64 x 64 x 64, NCHW); at layer4 each pass's device ms beside the
+    least time its tensors' bytes take at the card's bandwidth (each input
+    read once, each output written once); then one BN with its add and
+    ReLU forward and backward on the kernels and on the eager chain, with
+    the identity and with a projection, at both shapes. The whole BN's
+    results are held to the chain's by ``tests/test_torch_bn_act_kernel.py``;
+    here only its times."""
+    from videowalk_tpu_torch.models.resnet import BatchNorm
+
+    res = dict(vs_plain=dict(
+        layer4=bn_passes_vs_plain("layer4", (12544, 512, 8, 8), False, 5),
+        sp_layer1=bn_passes_vs_plain("sp_layer1", (640, 64, 64, 64), True,
+                                     6)), passes={}, whole={})
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def act(shape, nchw, scale=1.0, shift=0.0):
+        return _bn_act_tensor(gen, shape, nchw, scale, shift)
+
+    def bns(C):
+        out = []
+        for _ in range(2):
+            m = BatchNorm(C, torch.bfloat16).cuda()
+            with torch.no_grad():
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.uniform_(-0.5, 0.5)
+            out.append(m)
+        return out
+
+    shape = (12544, 512, 8, 8)
+    y, r, yd, go = (act(shape, False, 2.0, 0.5), act(shape, False),
+                    act(shape, False, 1.5, -0.3), act(shape, False))
+    C = shape[1]
+    prm = torch.rand((6, C), generator=gen, device="cuda") + 0.5
+    out = ba.bn_act_fwd(y, prm[:3], r, ba.IDENTITY, True)
+    dr = ba.bn_act_reduce_bwd(go, out, y, None, prm[:1], ba.IDENTITY,
+                              True)[1]
+    tensor_bytes = y.numel() * y.element_size()
+    passes = dict(
+        moments=(lambda: ba.bn_moments(y), 1),
+        fwd_plain=(lambda: ba.bn_act_fwd(y, prm[:3], None, ba.PLAIN, True), 2),
+        fwd_identity=(lambda: ba.bn_act_fwd(y, prm[:3], r, ba.IDENTITY,
+                                            True), 3),
+        fwd_projection=(lambda: ba.bn_act_fwd(y, prm, yd, ba.PROJ, True), 3),
+        reduce_bwd_plain=(lambda: ba.bn_act_reduce_bwd(
+            go, out, y, None, prm[:1], ba.PLAIN, True), 3),
+        reduce_bwd_identity=(lambda: ba.bn_act_reduce_bwd(
+            go, out, y, None, prm[:1], ba.IDENTITY, True), 4),
+        reduce_bwd_projection=(lambda: ba.bn_act_reduce_bwd(
+            go, out, y, yd, prm[[0, 3]], ba.PROJ, True), 4),
+        apply_bwd_plain=(lambda: ba.bn_act_apply_bwd(
+            go, out, y, None, prm[:3], ba.PLAIN, True), 4),
+        apply_bwd_identity=(lambda: ba.bn_act_apply_bwd(
+            dr, out, y, None, prm[:3], ba.PLAIN, False), 3),
+        apply_bwd_projection=(lambda: ba.bn_act_apply_bwd(
+            go, out, y, yd, prm, ba.PROJ, True), 6),
+        fold=(lambda: ba.bn_fold(go, prm[4], prm[5], y), 3))
+    for name, (fn, n_tensors) in passes.items():
+        ms = cuda_ms(fn, 20)
+        bound = n_tensors * tensor_bytes / HBM_RATE * 1e3
+        res["passes"][name] = dict(ms=ms, bound_ms=bound,
+                                   roofline=bound / ms)
+        print(f"bn pass {name} at {shape}: {ms:.3f} ms (bytes bound "
+              f"{bound:.3f} ms, {100 * bound / ms:.1f}%)", flush=True)
+    del out, dr
+
+    def whole(fn, y, bn, bn_d, kw):
+        def run():
+            yy = y.detach().requires_grad_()
+            extra = {}
+            if "shortcut" in kw:
+                extra["shortcut"] = kw["shortcut"].detach().requires_grad_()
+            if "proj" in kw:
+                extra["proj"] = (kw["proj"].detach().requires_grad_(), bn_d)
+            fn(yy, bn, None, relu=True, **extra).backward(go_of[id(y)])
+        return run
+
+    cases = {"layer4": (shape, False)}
+    sp = (640, 64, 64, 64)
+    cases["sp_layer1"] = (sp, True)
+    for case, (shp, nchw) in cases.items():
+        yy = y if case == "layer4" else act(shp, nchw, 2.0, 0.5)
+        rr = r if case == "layer4" else act(shp, nchw)
+        dd = yd if case == "layer4" else act(shp, nchw, 1.5, -0.3)
+        go_of = {id(yy): go if case == "layer4" else act(shp, nchw)}
+        bn, bn_d = bns(shp[1])
+        for sc, kw in (("identity", dict(shortcut=rr)),
+                       ("projection", dict(proj=dd))):
+            for path, fn in (("kernels", ba.bn_act_fused),
+                             ("chain", ba.bn_act_plain)):
+                ms = cuda_ms(whole(fn, yy, bn, bn_d, kw), 5)
+                res["whole"][f"{case}.{sc}.{path}"] = ms
+            k, c = (res["whole"][f"{case}.{sc}.{p}"]
+                    for p in ("kernels", "chain"))
+            print(f"bn {case} {sc} forward+backward at {shp}: kernels "
+                  f"{k:.3f} ms, eager chain {c:.3f} ms ({c / k:.2f}x)",
+                  flush=True)
+    return res
 
 
 def dilation_kernel_vs_plain() -> dict:
@@ -2473,16 +2726,19 @@ def sp_train_arm(name: str, nodes: str, dilate: bool, rconv: str,
                   walk_fwd=1, walk_bwd=1,
                   **(SP_LAUNCHES[rconv] if sp else dict(ARMS)[(rconv, "auto")]))
     set_sp_counts(dict.fromkeys(expect, 0))     # counts: this path only
+    zero_bn_counts()
     t0 = time.perf_counter()
     metrics = [run() for _ in range(n_steps)]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_steps
     launches = sp_counts()
+    bn_launches = bn_counts()
     losses = [float(m["loss"]) for m in metrics]
     want = {k: v * n_steps for k, v in expect.items()}
     if launches != want:
         fail(f"{name}: kernel launches {launches} in {n_steps} steps, want "
              f"{want}")
+    bn_per_step = check_bn_counts(name, bn_launches, n_steps)
     if not all(np.isfinite(losses)):
         fail(f"{name}: non-finite training loss: {losses}")
     res = dict(arm=name, steps=n_steps, step_ms=dt * 1e3,
@@ -2490,6 +2746,7 @@ def sp_train_arm(name: str, nodes: str, dilate: bool, rconv: str,
                max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                losses=losses, launches=launches,
                launches_per_step={k: v / n_steps for k, v in launches.items()},
+               bn_launches_per_step=bn_per_step,
                acc_last={k: float(v) for k, v in metrics[-1].items()
                          if k.startswith("acc")})
     what = (f"whole {SP_IMG} px frames, SLIC {NUM_SP} in the step"
@@ -2500,8 +2757,8 @@ def sp_train_arm(name: str, nodes: str, dilate: bool, rconv: str,
           f"{what}, rconv={rconv!r}, bf16 trunk): {res['step_ms']:.2f} "
           f"ms/step over {n_steps} steps, {res['clips_per_s']:.2f} clips/s; "
           f"peak memory {res['max_memory_gib']:.2f} GiB; losses "
-          f"{losses[0]:.4f} .. {losses[-1]:.4f}; launches per step {per_step}",
-          flush=True)
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; launches per step {per_step}; "
+          f"BN launches per step {bn_per_step}", flush=True)
     if profile:   # after the path's counts were read
         res["profile"] = profile_steps(run)
         mask = slic_fused(unnorm, NUM_SP, COMPACTNESS)
@@ -4529,6 +4786,7 @@ PHASES = dict(prop=lambda a: kernel_vs_plain(),
               small_train=lambda a: small_step_card_vs_cpu(),
               slic=lambda a: slic_kernel_vs_plain(),
               dilation=lambda a: dilation_kernel_vs_plain(),
+              bn=lambda a: bn_kernels_vs_plain(),
               sp_train=lambda a: sp_train_phase(a.steps),
               small_sp_train=lambda a: small_sp_step_card_vs_cpu(),
               ts_train=lambda a: ts_train_phase(a.steps),
@@ -4614,6 +4872,7 @@ def main() -> int:
     walk = timed("walk", walk_kernels_vs_plain)
     walk_sweep = timed("walk_sweep", walk_gate_sweep)
     rconv = timed("rconv", rconv_kernels_vs_plain)
+    bn = timed("bn", bn_kernels_vs_plain)
     train = timed("train", train_step_phase, args.steps)
     small_train = timed("small_train", small_step_card_vs_cpu)
     slic_res = timed("slic", slic_kernel_vs_plain)
@@ -4702,7 +4961,8 @@ def main() -> int:
                            end_to_end=e2e, small=small, eval_tail=tail,
                            walk=walk,
                            walk_sweep=walk_sweep,
-                           rconv=rconv, train=train, small_train=small_train,
+                           rconv=rconv, bn=bn, train=train,
+                           small_train=small_train,
                            slic=slic_res, dilation=dil, sp_train=sp_train,
                            small_sp_train=small_sp_train,
                            ts_train=ts_train, small_ts_train=small_ts_train,

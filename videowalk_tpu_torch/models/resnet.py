@@ -16,7 +16,10 @@ Counterpart of ``videowalk_tpu/models/resnet.py`` (torchvision
   statistics;
 - ``dtype``: parameters stay f32, convolutions compute in ``dtype`` (x and
   w cast, as the JAX package's ``PadConv`` does), BN statistics and the
-  normalization are f32 and cast back to ``dtype``.
+  normalization are f32 and cast back to ``dtype``;
+- every train-mode BN runs with what follows it (the residual add, the
+  ReLU, the projection's BN) as one ``ops/bn_act.py::bn_act``: the
+  hand-written kernels on the card, the eager chain on the CPU.
 
 Layout is NCHW (PyTorch's habit); module and parameter names are the
 reference ``state_dict`` names (``layer1.0.conv1.weight``,
@@ -61,6 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from videowalk_tpu_torch.ops.bn_act import bn_act, bn_affine
 from videowalk_tpu_torch.ops.rconv import (reflect_conv3x3,
                                            reflect_conv3x3_bnin_stats,
                                            reflect_conv3x3_stats)
@@ -124,10 +128,16 @@ class BatchNorm(nn.BatchNorm2d):
     ``FusedStatsBN``): mean = s1/count and var = max(0, s2/count − mean²)
     with count = N·H·W, and no reduction over ``x``.
 
-    ``fold_affine(x, moments)`` is train-mode BN reduced to ``(a, b)``
-    (the JAX package's ``BNAffine``): the same moments and
-    running-statistics update, and the normalize left to the consumer as
-    ``a·x + b``.
+    ``forward`` also takes what follows the BN in a block: ``shortcut`` (the
+    identity, added after the cast), ``proj = (yd, bn_d)`` (the projection's
+    raw conv output and its BN, whose cast output is added) and ``relu``.
+    Train mode runs the whole as ``ops/bn_act.py::bn_act``: hand-written
+    kernels on the card, the eager chain on the CPU.
+
+    ``fold_affine(x, moments)`` is train-mode BN reduced to ``(x, a, b)``
+    (the JAX package's ``BNAffine``; ``ops/bn_act.py::bn_affine``): the same
+    moments and running-statistics update, and the normalize left to the
+    consumer as ``a·x + b``, which takes the returned ``x``.
 
     Eval mode normalizes with the running statistics in f32."""
 
@@ -138,65 +148,31 @@ class BatchNorm(nn.BatchNorm2d):
         # attach_group): train-mode moments over its global batch
         self.group = None
 
-    def _batch_stats(self, x: torch.Tensor, xf: torch.Tensor, moments):
-        """Train mode: the batch ``(mean, var)`` in f32, from ``moments`` or
-        a reduce over ``xf``, and the running statistics updated.
-
-        With a ``group`` attached (``parallel/mesh.py::attach_group``),
-        each rank's ``(E[y], E[y²])`` are averaged over the group by one
-        differentiable all-reduce, so they are the global batch's: the ranks
-        hold equal row blocks (the global batch splits evenly), so the
-        global count is the group size times the local one. At a group of
-        one this is bitwise the ungrouped path. The all-reduce also runs on
-        a rematerialized block's recompute, on every rank alike."""
-        if moments is None:
-            mean = xf.mean(dim=(0, 2, 3))
-            ex2 = (xf * xf).mean(dim=(0, 2, 3))
-        else:
-            count = x.numel() // x.shape[1]
-            mean, ex2 = moments[0] / count, moments[1] / count
-        if self.group is not None:
-            from videowalk_tpu_torch.parallel.mesh import (all_reduce_sum,
-                                                           group_size)
-
-            packed = all_reduce_sum(torch.cat([mean, ex2]), self.group)
-            packed = packed / group_size(self.group)
-            mean, ex2 = packed.chunk(2)
-        var = torch.clamp(ex2 - mean * mean, min=0.0)
-        if getattr(_recompute, "on", False):
-            return mean, var
-        with torch.no_grad():
-            self.running_mean.mul_(1 - self.momentum).add_(
-                mean.detach(), alpha=self.momentum)
-            self.running_var.mul_(1 - self.momentum).add_(
-                var.detach(), alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
-        return mean, var
-
     def fold_affine(self, x: torch.Tensor,
-               moments: tuple[torch.Tensor, torch.Tensor] | None = None):
-        """Train-mode BN of ``x`` as its per-channel f32 affine ``(a, b)``:
-        ``a = rsqrt(var + eps)·weight``, ``b = bias − mean·a``. Gradients
-        reach weight, bias and (through the moments) ``x``."""
-        xf = (None if moments is not None
-              else x.to(torch.promote_types(x.dtype, torch.float32)))
-        mean, var = self._batch_stats(x, xf, moments)
-        a = torch.rsqrt(var + self.eps) * self.weight
-        return a, self.bias - mean * a
+                    moments: tuple[torch.Tensor, torch.Tensor] | None = None):
+        """Train-mode BN of ``x`` as ``(x, a, b)``: the per-channel f32
+        affine ``a = rsqrt(var + eps)·weight``, ``b = bias − mean·a``.
+        Gradients reach weight, bias and (through the moments) ``x``."""
+        return bn_affine(x, self, moments,
+                         update=not getattr(_recompute, "on", False))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                moments: tuple[torch.Tensor, torch.Tensor] | None = None
-                ) -> torch.Tensor:
+                moments: tuple[torch.Tensor, torch.Tensor] | None = None, *,
+                shortcut: torch.Tensor | None = None, proj=None,
+                relu: bool = False) -> torch.Tensor:
+        if train:
+            return bn_act(x, self, moments, shortcut=shortcut, proj=proj,
+                          relu=relu,
+                          update=not getattr(_recompute, "on", False))
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if not train:
-            y = F.batch_norm(xf, self.running_mean, self.running_var,
-                             self.weight, self.bias, False, 0.0, self.eps)
-            return y.to(self.dtype)
-        mean, var = self._batch_stats(x, xf, moments)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
-        return y.to(self.dtype)
+        y = F.batch_norm(xf, self.running_mean, self.running_var,
+                         self.weight, self.bias, False, 0.0, self.eps)
+        y = y.to(self.dtype)
+        if proj is not None:
+            shortcut = proj[1](proj[0], False)
+        if shortcut is not None:
+            y = y + shortcut
+        return F.relu(y) if relu else y
 
 
 class PadConv2d(nn.Conv2d):
@@ -271,13 +247,13 @@ def _projection(cin: int, cout: int, stride: int, padding_mode: str,
         BatchNorm(cout, dtype)])
 
 
-def _shortcut(downsample: nn.ModuleList | None, x: torch.Tensor,
-              train: bool) -> torch.Tensor:
-    """``x``, or its projection where the block has one."""
+def _shortcut(downsample: nn.ModuleList | None, x: torch.Tensor) -> dict:
+    """The block's last BN's ``shortcut=x``, or ``proj=(conv(x), bn)``
+    where the block has a projection."""
     if downsample is None:
-        return x
+        return dict(shortcut=x)
     conv, bn = downsample
-    return bn(conv(x), train)
+    return dict(proj=(conv(x), bn))
 
 
 class BasicBlock(nn.Module):
@@ -308,14 +284,14 @@ class BasicBlock(nn.Module):
             # the BN-input chain: conv1's raw output goes straight into
             # conv2's kernel, which applies bn1's affine and the ReLU to its
             # operand and emits bn2's moments
-            a, b = self.bn1.fold_affine(y1, m1)
+            y1, a, b = self.bn1.fold_affine(y1, m1)
             y, s1, s2 = self.conv2.forward_bnin_stats(y1, a, b)
-            y = self.bn2(y, train, moments=(s1, s2))
+            m2 = (s1, s2)
         else:
-            y = F.relu(self.bn1(y1, train, moments=m1))
+            y = self.bn1(y1, train, moments=m1, relu=True)
             y, m2 = _conv_moments(self.conv2, y, train, self.bn_fuse)
-            y = self.bn2(y, train, moments=m2)
-        return F.relu(y + _shortcut(self.downsample, x, train))
+        return self.bn2(y, train, moments=m2, relu=True,
+                        **_shortcut(self.downsample, x))
 
 
 class Bottleneck(nn.Module):
@@ -350,11 +326,11 @@ class Bottleneck(nn.Module):
                                           dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x), train))
+        y = self.bn1(self.conv1(x), train, relu=True)
         y, m2 = _conv_moments(self.conv2, y, train, self.bn_fuse)
-        y = F.relu(self.bn2(y, train, moments=m2))
-        y = self.bn3(self.conv3(y), train)
-        return F.relu(y + _shortcut(self.downsample, x, train))
+        y = self.bn2(y, train, moments=m2, relu=True)
+        return self.bn3(self.conv3(y), train, relu=True,
+                        **_shortcut(self.downsample, x))
 
 
 class ResNet(nn.Module):
@@ -404,7 +380,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, 3, H, W) -> (B, hid_dim, H/scale, W/scale) in ``dtype``."""
-        x = F.relu(self.bn1(self.conv1(x), train))
+        x = self.bn1(self.conv1(x), train, relu=True)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self.stages:
             remat = name in self.remat_stages and torch.is_grad_enabled()

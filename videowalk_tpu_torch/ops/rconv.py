@@ -13,7 +13,9 @@ Replaces the Pallas TPU kernels of ``videowalk_tpu/ops/rconv_kernel.py``:
   per-channel f32 sums of the *cast* output, ``s1 = Σ y`` and
   ``s2 = Σ y²`` over N·H·W (#5). Its backward folds the moment cotangents
   into the conv's, ``gy_eff = (gy.f32 + gs1 + 2·y.f32·gs2).to(gy.dtype)``
-  on the saved cast ``y``, and reuses dx and dW.
+  on the saved cast ``y`` (``ops/bn_act.py::bn_fold``; none where the BN
+  that took the moments folded them itself, as ``bn_act`` on the card
+  does), and reuses dx and dW.
 - ``reflect_conv3x3_bnin_stats(x, a, b, w) -> (y, s1, s2)``: the conv and
   moments of ``xn = relu(a·x + b).to(x.dtype)`` (f32 math, per-channel f32
   ``a``, ``b``: the previous BatchNorm's train-mode affine) from the raw
@@ -57,6 +59,8 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from videowalk_tpu_torch.ops.bn_act import bn_fold
 
 
 def rconv_supported(H: int, W: int, kernel: int, stride: int,
@@ -493,14 +497,19 @@ def _as_kernel_layout(t: torch.Tensor) -> torch.Tensor:
 
 def _fold_moment_cotangents(gy, gs1, gs2, y):
     """The moments' cotangents folded into the conv's, on the saved cast
-    ``y``: ``(gy.f32 + gs1 + 2·y.f32·gs2).to(y.dtype)``."""
-    return (_wide(gy) + gs1[None, :, None, None]
-            + 2.0 * _wide(y) * gs2[None, :, None, None]).to(y.dtype)
+    ``y``: ``(gy.f32 + gs1 + 2·y.f32·gs2).to(y.dtype)``
+    (``ops/bn_act.py::bn_fold``, a kernel on the card). ``gy`` None is 0;
+    ``gs1`` and ``gs2`` both None leave ``gy``: a train-mode BN on the
+    card folds them into ``y``'s gradient itself and returns none."""
+    if gy is None:
+        gy = torch.zeros_like(y)
+    return bn_fold(gy, gs1, gs2, y)
 
 
 class _ReflectConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, stats):
+        ctx.set_materialize_grads(False)
         x = _as_kernel_layout(x)
         if stats:
             y, s1, s2 = reflect_conv_fwd_stats(x, w)
@@ -545,6 +554,7 @@ def reflect_conv3x3_stats(x: torch.Tensor, w: torch.Tensor):
 class _ReflectConvBnin(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, a, b, w):
+        ctx.set_materialize_grads(False)
         x = _as_kernel_layout(x)
         y, s1, s2 = reflect_conv_fwd_bnin_stats(x, a, b, w)
         ctx.save_for_backward(x, a, b, w, y)

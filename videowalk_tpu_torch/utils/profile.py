@@ -14,7 +14,9 @@ all-reduces (``dp.all_reduce``), the train loop's host work (``data_wait``,
   parent. ``timed(...)`` is the same for a site whose caller
   reads the host seconds (``.seconds``) whether spans are on or not;
   ``begin``/``end`` a pair for autograd hooks; ``backward_span`` a span over
-  a layer's backward pass; ``spanned(name)`` a function decorator.
+  a layer's backward pass; ``spanned(name)`` a function decorator;
+  ``count(**counts)`` adds counts to the innermost open span (the trunk's
+  BN sites count ``bn_fused`` and ``bn_plain``, ``ops/bn_act.py``).
 - Off, the default, a site reads the two flags below and returns a shared
   null context: no ``record_function`` call, no CUDA event, no hook, no
   record. Spans are on while a ``torch.profiler`` session records, or
@@ -275,6 +277,18 @@ def begin(name: str, root: bool = False, **counts) -> _Record | None:
 def end(rec: _Record | None) -> None:
     if rec is not None:
         _close(rec, time.perf_counter_ns())
+
+
+def count(**counts) -> None:
+    """Add ``counts`` to the innermost open span of this thread (else the
+    open root); nothing while spans are off or no span is open."""
+    if not (_enabled or _profiler._is_profiler_enabled):
+        return
+    stack = _stack()
+    rec = stack[-1] if stack else (_roots[-1] if _roots else None)
+    if rec is not None:
+        for k, v in counts.items():
+            rec.counts[k] = rec.counts.get(k, 0) + v
 
 
 def spanned(name: str):

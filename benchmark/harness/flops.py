@@ -3,8 +3,9 @@ at a configuration's shapes, and propagation's work per target.
 
 Copied, not imported, from the program's own measurement scripts
 (``bench.py:140-154``'s conv count, ``chip_smoke.py``'s ``rconv_bounds``
-and ``ops/prop_sparse.py``'s ``valid_pairs``), so that the yardstick does
-not move when the program does."""
+and ``ops/prop_sparse.py``'s ``valid_pairs``) and its table of trunks
+(``models/encoder.py:_TRUNKS``, ``models/resnet.py``), so that the
+yardstick does not move when the program does."""
 
 from __future__ import annotations
 
@@ -17,16 +18,27 @@ HBM_RATE = 3.35e12
 
 STAGES = (("layer1", 64, 1), ("layer2", 128, 2), ("layer3", 256, 1),
           ("layer4", 512, 1))
+RESNET18 = ((2, 2, 2, 2), False)     # BasicBlocks
+RESNET50 = ((3, 4, 6, 3), True)      # Bottlenecks, expansion 4
+# --model-type -> (blocks a stage, Bottleneck); the padding (reflect or
+# zeros) leaves every shape as it is
+TRUNKS = {"scratch": RESNET18, "scratch_zeropad": RESNET18,
+          "imagenet18": RESNET18, "uvc": RESNET18, "scratch50": RESNET50,
+          "imagenet50": RESNET50, "moco50": RESNET50, "timecycle": RESNET50}
 
 
 def _out(n: int, k: int, s: int, p: int) -> int:
     return (n + 2 * p - k) // s + 1
 
 
-def resnet18_convs(h: int, w: int, remove_layers=()) -> list[dict]:
-    """Every convolution of the modified ResNet-18 (stride-1 layer3/4) on
-    one ``h x w`` image: ``cin, cout, k, stride`` and the input and output
-    sizes."""
+def trunk_convs(h: int, w: int, model_type: str,
+                remove_layers=()) -> list[dict]:
+    """Every convolution of ``model_type``'s modified ResNet (stride-1
+    layer3/4; a Bottleneck's stride on its 3x3) on one ``h x w`` image:
+    ``cin, cout, k, stride`` and the input and output sizes."""
+    if model_type not in TRUNKS:
+        raise ValueError(f"no trunk for --model-type {model_type!r}")
+    sizes, bottleneck = TRUNKS[model_type]
     convs = []
 
     def add(name, cin, cout, k, s, p, hi, wi):
@@ -38,16 +50,23 @@ def resnet18_convs(h: int, w: int, remove_layers=()) -> list[dict]:
     h, w = add("conv1", 3, 64, 7, 2, 3, h, w)
     h, w = _out(h, 3, 2, 1), _out(w, 3, 2, 1)           # max pool 3/2
     cin = 64
-    for stage, width, stride in STAGES:
+    for (stage, width, stride), n_blocks in zip(STAGES, sizes):
         if stage in remove_layers:
             continue
-        for b in range(2):
-            s = stride if b == 0 else 1
-            h1, w1 = add(f"{stage}.{b}.conv1", cin, width, 3, s, 1, h, w)
-            add(f"{stage}.{b}.conv2", width, width, 3, 1, 1, h1, w1)
-            if s != 1 or cin != width:
-                add(f"{stage}.{b}.downsample", cin, width, 1, s, 0, h, w)
-            cin, h, w = width, h1, w1
+        for b in range(n_blocks):
+            s, q = stride if b == 0 else 1, f"{stage}.{b}."
+            if bottleneck:
+                cout = 4 * width
+                add(q + "conv1", cin, width, 1, 1, 0, h, w)
+                h1, w1 = add(q + "conv2", width, width, 3, s, 1, h, w)
+                add(q + "conv3", width, cout, 1, 1, 0, h1, w1)
+            else:
+                cout = width
+                h1, w1 = add(q + "conv1", cin, width, 3, s, 1, h, w)
+                add(q + "conv2", width, width, 3, 1, 1, h1, w1)
+            if s != 1 or cin != cout:
+                add(q + "downsample", cin, cout, 1, s, 0, h, w)
+            cin, h, w = cout, h1, w1
     return convs
 
 
@@ -56,8 +75,10 @@ def conv_flops(c: dict) -> int:
     return 2 * c["h_out"] * c["w_out"] * c["k"] ** 2 * c["cin"] * c["cout"]
 
 
-def conv_fwd_flops_per_image(h: int, w: int, remove_layers=()) -> int:
-    return sum(conv_flops(c) for c in resnet18_convs(h, w, remove_layers))
+def conv_fwd_flops_per_image(h: int, w: int, model_type: str,
+                             remove_layers=()) -> int:
+    return sum(conv_flops(c)
+               for c in trunk_convs(h, w, model_type, remove_layers))
 
 
 def conv_bound_s(c: dict, images: int, passes=("fwd", "dx", "dw")) -> float:
@@ -73,11 +94,12 @@ def conv_bound_s(c: dict, images: int, passes=("fwd", "dx", "dw")) -> float:
     return sum(max(flops / BF16_PEAK, nbytes[p] / HBM_RATE) for p in passes)
 
 
-def trunk_bound_s(h: int, w: int, images: int, remove_layers=()) -> float:
+def trunk_bound_s(h: int, w: int, images: int, model_type: str,
+                  remove_layers=()) -> float:
     """Least time of a training step's trunk convolutions: forward, dx
     and dW of each, but the stem's dx (its input needs no gradient)."""
     total = 0.0
-    for c in resnet18_convs(h, w, remove_layers):
+    for c in trunk_convs(h, w, model_type, remove_layers):
         passes = ("fwd", "dw") if c["name"] == "conv1" else ("fwd", "dx", "dw")
         total += conv_bound_s(c, images, passes=passes)
     return total

@@ -2,7 +2,8 @@
 card's f32 peak (67 TFLOP/s: the encoder runs in f32 with TF32 off,
 ``cli/test.py::encode_video``, and propagation in f32 FMAs).
 
-FLOPs: the trunk's forward convolutions on every frame encoded (the
+FLOPs: the trunk's forward convolutions (the configuration's
+``--model-type`` and ``--remove-layers``) on every frame encoded (the
 ``videoLen`` copies of frame 0 included), and propagation's work on every
 target as ``prop_sparse_roofline`` counts it. Frames and seconds are the
 window's, less the traced video."""
@@ -18,7 +19,7 @@ def read(ctx):
     if not w["runs"] or seconds <= 0:
         return None
     enc = flops.conv_fwd_flops_per_image(ctx.height, ctx.width,
-                                         tuple(a.remove_layers))
+                                         a.model_type, tuple(a.remove_layers))
     H, W = math.ceil(ctx.height / 8), math.ceil(ctx.width / 8)
     total = 0
     for frames, targets, n_labels in w["runs"]:

@@ -3,10 +3,11 @@ convolutions over the device time of every convolution kernel, whichever
 library runs it (the reflect-conv kernels ``ops/csrc/rconv_slab.cu`` and
 their BN-moment reductions, or cuDNN), in %.
 
-The least time sums, over every conv of the trunk at the configuration's
-shapes, forward, dx and dW (no dx for the stem), each the larger of its
-multiply-adds over the bf16 peak and its bytes (each input read once, each
-output written once, in bf16) over the HBM rate."""
+The least time sums, over every conv of the configuration's trunk
+(``--model-type``) at its shapes, forward, dx and dW (no dx for the stem),
+each the larger of its multiply-adds over the bf16 peak and its bytes
+(each input read once, each output written once, in bf16) over the HBM
+rate."""
 
 from harness import flops
 
@@ -32,4 +33,5 @@ def read(ctx):
     device_s = ctx.trace.kernel_s(is_conv) / ctx.window["trace_steps"]
     if device_s <= 0:
         return None
-    return 100.0 * flops.trunk_bound_s(side, side, images) / device_s
+    return 100.0 * flops.trunk_bound_s(side, side, images, a.model_type,
+                                       tuple(a.remove_layers)) / device_s

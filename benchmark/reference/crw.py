@@ -4,13 +4,17 @@ superpixel nodes, the palindrome walk loss, and the first Adam steps.
 Weights come as a ``{state_dict name: tensor}`` dict in the reference
 code's names (``encoder.model.layer1.0.conv1.weight``,
 ``selfsim_fc.0.weight``); a block's shortcut projection is there where
-its ``downsample.0.weight`` is.
+its ``downsample.0.weight`` is, and a block is a Bottleneck where its
+``conv3.weight`` is (else a BasicBlock).
 
 The trunk is the modified ResNet (Jabri et al., ``code/resnet.py``):
 stride-1 layer3 and layer4, no fc, reflect padding (``F.pad`` then an
 unpadded conv). Train-mode BN takes the batch moments with the biased
 variance ``E[x^2] - E[x]^2`` (clamped at 0), eval-mode BN the running
-statistics, eps 1e-5.
+statistics, eps 1e-5. Inside ``global_batch(group)`` the batch is the
+global one whose equal row blocks the ranks of a ``torch.distributed``
+group hold: train-mode BN's moments and the first Adam steps' losses and
+gradients are then the global batch's, by all-reduces over the group.
 
 ``precision``: ``"f32"`` (TF32 off: the reference), ``"tf32"`` (TF32 on
 for matmuls and cuDNN) or ``"fp8"`` (each conv's input and weight rounded
@@ -23,6 +27,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -88,11 +93,64 @@ def conv(x, w, stride: int, pad: int, mode: str):
     return F.conv2d(x, w, stride=stride)
 
 
+# the process group whose ranks hold the global batch's row blocks, inside
+# global_batch(); None: the batch is this process's alone
+_GLOBAL = {"group": None}
+
+
+@contextlib.contextmanager
+def global_batch(group):
+    """Inside, the batch a rank holds is its equal row block of the global
+    batch of ``group``'s ranks (``None``: no group)."""
+    saved = _GLOBAL["group"]
+    _GLOBAL["group"] = group
+    try:
+        yield
+    finally:
+        _GLOBAL["group"] = saved
+
+
+class _GroupSum(torch.autograd.Function):
+    """The SUM over a process group; the gradient of each rank's input is
+    the SUM of every rank's output gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _group_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x`` averaged over the ranks of ``global_batch``'s group
+    (differentiable); ``x`` itself without one."""
+    group = _GLOBAL["group"]
+    if group is None:
+        return x
+    return _GroupSum.apply(x, group) / dist.get_world_size(group)
+
+
+def _moments(x):
+    """Per channel ``(E[x], E[x^2])`` of ``(B, C, H, W)`` over the batch and
+    space, the global batch's inside ``global_batch``."""
+    mean, ex2 = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+    if _GLOBAL["group"] is None:
+        return mean, ex2
+    return _group_mean(torch.cat([mean, ex2])).chunk(2)
+
+
 def batch_norm(x, sd, name: str, train: bool):
     w, b = sd[name + ".weight"], sd[name + ".bias"]
     if train:
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mean, ex2 = _moments(x)
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
     else:
         mean, var = sd[name + ".running_mean"], sd[name + ".running_var"]
     mul = torch.rsqrt(var + BN_EPS) * w
@@ -119,13 +177,30 @@ def _block(sd, q, s, x, train, mode):
     return F.relu(y + x)
 
 
+def _bottleneck(sd, q, s, x, train, mode):
+    """torchvision's Bottleneck: 1x1, 3x3 with the block's stride, 1x1 to
+    four times the width, each with its BN; the projection where its
+    weights are; ReLU of the sum."""
+    y = conv(x, sd[q + "conv1.weight"], 1, 0, mode)
+    y = F.relu(batch_norm(y, sd, q + "bn1", train))
+    y = conv(y, sd[q + "conv2.weight"], s, 1, mode)
+    y = F.relu(batch_norm(y, sd, q + "bn2", train))
+    y = conv(y, sd[q + "conv3.weight"], 1, 0, mode)
+    y = batch_norm(y, sd, q + "bn3", train)
+    if q + "downsample.0.weight" in sd:
+        x = batch_norm(conv(x, sd[q + "downsample.0.weight"], s, 0, mode),
+                       sd, q + "downsample.1", train)
+    return F.relu(y + x)
+
+
 def trunk(sd, x, *, train: bool, mode: str = "f32",
           prefix: str = "encoder.model."):
     """``(B, 3, H, W)`` -> ``(B, C, H/8, W/8)``: the stages whose weights
-    ``sd`` holds. Where gradients are taken, the stem and each block keep
-    only their input and compute again in the backward pass
+    ``sd`` holds, each block a BasicBlock or a Bottleneck as its weights
+    say. Where gradients are taken, the stem and each block keep only
+    their input and compute again in the backward pass
     (``torch.utils.checkpoint``: the same batch moments, the same values),
-    so that a global batch of 32 clips fits one card."""
+    so that a batch of 32 clips fits one card."""
     p = prefix
     saving = torch.is_grad_enabled()
 
@@ -139,7 +214,9 @@ def trunk(sd, x, *, train: bool, mode: str = "f32",
         b = 0
         while f"{p}{stage}.{b}.conv1.weight" in sd:
             q, s = f"{p}{stage}.{b}.", stride if b == 0 else 1
-            x = run(lambda t, q=q, s=s: _block(sd, q, s, t, train, mode), x)
+            block = _bottleneck if q + "conv3.weight" in sd else _block
+            x = run(lambda t, q=q, s=s, block=block:
+                    block(sd, q, s, t, train, mode), x)
             b += 1
     return x
 
@@ -266,7 +343,9 @@ def adam_steps(weights: dict, batches, loss_fn, *, lr: float,
     """Adam (no weight decay) on every float leaf of ``weights`` but the BN
     running statistics, one step a batch: ``loss_fn(sd, i, batch)``.
     Returns the losses, each leaf's gradient at step 1 and the leaves after
-    the last step (``{name: tensor}``)."""
+    the last step (``{name: tensor}``). Inside ``global_batch``, each
+    loss and gradient is the mean of the ranks' (equal row blocks: the
+    global batch's)."""
     leaves = {k: v.detach().clone().requires_grad_(True)
               for k, v in weights.items()
               if v.is_floating_point() and "running_" not in k}
@@ -278,6 +357,18 @@ def adam_steps(weights: dict, batches, loss_fn, *, lr: float,
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(sd, i, batch)
         loss.backward()
+        if _GLOBAL["group"] is not None:
+            with torch.no_grad():
+                for v in leaves.values():
+                    if v.grad is None:
+                        v.grad = torch.zeros_like(v)
+                flat = _group_mean(torch.cat([v.grad.reshape(-1)
+                                             for v in leaves.values()]))
+                for v, g in zip(leaves.values(),
+                                flat.split([v.numel()
+                                            for v in leaves.values()])):
+                    v.grad.copy_(g.view_as(v))
+                loss = _group_mean(loss.detach())
         if i == 0:
             grad1 = {k: (v.grad.detach().clone() if v.grad is not None
                          else torch.zeros_like(v)) for k, v in leaves.items()}

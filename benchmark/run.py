@@ -17,7 +17,15 @@ and the plain reference (``benchmark/reference/``) recomputes what the
 timed path produced; each number compared is printed with its limit on
 standard error's last lines and under ``checks`` in the result, the last
 line of standard output. Without a CUDA card, or with fewer than the cell
-asks for, the run exits non-zero and prints no result."""
+asks for, the run exits non-zero and prints no result.
+
+A cell with ``chips`` above 1 runs one process a card
+(``harness/ranks.py``), joined in one process group over NCCL; this
+process builds the kernels first, then waits for the ranks. Rank 0's
+window and check make the result (``setup_s`` from this process's start to
+rank 0's window start: ``time.perf_counter`` is the system's monotonic
+clock, one for every process); the memory peak is the fullest card's.
+Every rank, and this process, is checked for the JAX package's modules."""
 
 from __future__ import annotations
 
@@ -48,15 +56,19 @@ def parse(argv=None):
     return p.parse_args(argv)
 
 
-def make_runner(cell: dict, seed: int, device):
+def make_runner(cell: dict, seed: int, device, group=None):
+    """The cell's loop; ``group``: the process group of one process a card
+    (training only)."""
     loop = cell["traffic"]["loop"]
     if loop == "train":
         from harness.train import TrainCell
 
-        return TrainCell(cell, seed, device)
+        return TrainCell(cell, seed, device, group)
     if loop == "eval":
         from harness.eval import EvalCell
 
+        if cell["chips"] != 1 or group is not None:
+            raise ValueError("an eval cell runs on one card")
         return EvalCell(cell, seed, device)
     raise ValueError(f"unknown loop {loop!r}")
 
@@ -77,7 +89,7 @@ def metric_context(runner, window: dict, setup_s: float):
     trace = window.get("trace")
     ctx = types.SimpleNamespace(
         cell=runner.cell, args=runner.args, window=window, trace=trace,
-        setup_s=setup_s,
+        setup_s=setup_s, chips=int(runner.cell["chips"]),
         superpixel=getattr(runner, "superpixel", False))
     t = runner.cell["traffic"]
     if t["loop"] == "eval":
@@ -121,12 +133,13 @@ def summarize(runner, window: dict, setup_s: float, device,
 
 
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
-             t0: float) -> dict:
+             t0: float, group=None) -> dict:
     """Set-up, window, metrics and check of one run on one device; the
-    result line."""
+    result line. With ``group``, this rank's part of a run on one process
+    a card: the check is rank 0's."""
     import torch
 
-    runner = make_runner(cell, seed, device)
+    runner = make_runner(cell, seed, device, group)
     runner.setup()
     cuda = torch.device(device).type == "cuda"
     if cuda:
@@ -139,11 +152,39 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
     program = runner.program_records()
     runner.free()
     reference = runner.reference_records()
-    numbers = runner.compare(program, reference)
-    result["correct"], result["checks"] = judge(numbers,
-                                                cell["checks"]["limits"])
-    result["readings"] = numbers
+    if getattr(runner, "rank", 0) == 0:
+        numbers = runner.compare(program, reference)
+        result["correct"], result["checks"] = judge(numbers,
+                                                    cell["checks"]["limits"])
+        result["readings"] = numbers
     return result
+
+
+def run_rank(rank: int, device, group, cell: dict, seed: int,
+             seconds: float, trace: bool, t0: float) -> dict:
+    """One rank's part of a run (``harness/ranks.py``'s target)."""
+    return run_cell(cell, seed, seconds, trace, device, t0, group)
+
+
+def run_ranks(cell: dict, seed: int, seconds: float, trace: bool, t0: float,
+              device_type: str = "cuda", target=run_rank
+              ) -> tuple[dict, list]:
+    """A run on ``cell["chips"]`` processes, one a card: rank 0's result
+    with the fullest card's memory peak, and each rank's forbidden
+    modules."""
+    from harness import ranks
+
+    if device_type == "cuda":
+        from videowalk_tpu_torch.ops import _build
+
+        _build.build_all()
+    results, found = ranks.spawn(int(cell["chips"]), target,
+                                 (cell, seed, seconds, trace, t0),
+                                 device_type)
+    result = results[0]
+    result["device"]["memory_peak_bytes"] = max(
+        r["device"]["memory_peak_bytes"] for r in results)
+    return result, found
 
 
 def main(argv=None) -> int:
@@ -157,10 +198,18 @@ def main(argv=None) -> int:
     if torch.cuda.device_count() < cell["chips"]:
         common.fail(f"{a.workload} needs {cell['chips']} cards; "
                     f"{torch.cuda.device_count()} visible")
-    result = run_cell(cell, a.seed, a.seconds, bool(a.trace), "cuda", _T0)
-    found = common.forbidden_modules()
+    if cell["chips"] == 1:
+        result = run_cell(cell, a.seed, a.seconds, bool(a.trace), "cuda",
+                          _T0)
+        found = {}
+    else:
+        result, by_rank = run_ranks(cell, a.seed, a.seconds, bool(a.trace),
+                                    _T0)
+        found = {f"rank {r}": f for r, f in enumerate(by_rank) if f}
+    if common.forbidden_modules():
+        found["this process"] = common.forbidden_modules()
     if found:
-        common.fail(f"forbidden modules loaded in this process: {found}")
+        common.fail(f"forbidden modules loaded: {found}")
     for name, value in result.pop("readings").items():
         print(f"reading {name} {value!r}", file=sys.stderr)
     print(f"correct {result['correct']}", file=sys.stderr)

@@ -139,3 +139,30 @@ def test_eval_control_fails(card):
     ok, checks = run.judge(runner.compare(control, reference),
                            cell["checks"]["limits"])
     assert not ok, checks
+
+
+def tiny_resnet50() -> dict:
+    """The patch cell with ``scratch50``'s ResNet-50 trunk, by its flags
+    alone: the harness takes the trunk from the configuration."""
+    cell = tiny("train-patch-b32")
+    cell["config"]["train_flags"] += ["--model-type", "scratch50"]
+    return cell
+
+
+def test_resnet50_cell_is_correct():
+    torch.manual_seed(0)
+    result = run.run_cell(tiny_resnet50(), SEED, 0.5, False, "cpu",
+                          time.perf_counter())
+    assert result["correct"], result["checks"]
+
+
+@pytest.mark.parametrize("fault", [forward_only_step, half_batch_step])
+def test_resnet50_cell_faults_fail(monkeypatch, fault):
+    import videowalk_tpu_torch.parallel as parallel
+
+    monkeypatch.setattr(parallel, "make_train_step",
+                        fault(parallel.make_train_step))
+    torch.manual_seed(0)
+    result = run.run_cell(tiny_resnet50(), SEED, 0.5, False, "cpu",
+                          time.perf_counter())
+    assert not result["correct"], result["checks"]

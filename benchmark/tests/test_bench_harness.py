@@ -59,6 +59,8 @@ def test_names_and_units():
                     assert 1 <= len(e[k]) <= 200 and "\n" not in e[k]
     for w in BENCH["workloads"]:
         assert NAME.match(w["config"]) and NAME.match(w["traffic"])
+    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
+    assert len(pairs) == len(set(pairs))
     for c in BENCH["configs"]:
         assert all(NAME.match(k) for k in c["reduced"])
     for metric_group in (True, False):
@@ -149,3 +151,25 @@ def test_one_short_run_on_the_card(card):
     assert list(line)[-1] == "checks"
     assert line["device"]["platform"] == "gpu"
     assert math.isfinite(line["metrics"]["train_clips_per_s"]["value"])
+
+
+@pytest.mark.parametrize("twin,original", [
+    ("dp_clips_per_s", "train_clips_per_s"),
+    ("mfu.dp", "mfu.train"), ("device_idle.dp", "device_idle.train")])
+def test_four_card_twins_read_as_the_one_card_metrics(twin, original):
+    """A four-card cell's own names (its runs spread wider, so its rate
+    has a bound of its own) read what the one-card metrics read."""
+    import types
+
+    trace = types.SimpleNamespace(window_s=2.0, busy_s=1.9)
+    ctx = types.SimpleNamespace(
+        args=types.SimpleNamespace(img_size=256, patch_size=[64, 64, 3],
+                                   clip_len=8, model_type="scratch",
+                                   remove_layers=[]),
+        superpixel=False, chips=4,
+        window=dict(clips=12800, wall_s=24.0, periods_ms=[240.0, 250.5,
+                                                          241.0, 239.5],
+                    idle_trace=trace))
+    value = common.load_module("metrics", twin).read(ctx)
+    assert value is not None
+    assert value == common.load_module("metrics", original).read(ctx)

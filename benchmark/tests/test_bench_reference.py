@@ -17,8 +17,8 @@ from videowalk_tpu_torch.models import CRW, CRWConfig
 SEED = 2 ** 33 + 17
 
 
-def seeded_model(**kw):
-    cfg = CRWConfig(model_type="scratch", temperature=0.05, **kw)
+def seeded_model(model_type="scratch", **kw):
+    cfg = CRWConfig(model_type=model_type, temperature=0.05, **kw)
     model = CRW(cfg)
     weights = common.seeded_weights(model.state_dict(), SEED, "cpu")
     model.load_state_dict(weights)
@@ -41,6 +41,37 @@ def test_trunk_without_layer4():
     torch.testing.assert_close(ref.trunk(weights, x, train=False),
                                model.encoder.model(x, False),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_bottleneck_trunk(train):
+    """``scratch50``'s ResNet-50: the weights' ``conv3`` picks the
+    Bottleneck."""
+    model, weights = seeded_model("scratch50")
+    assert "encoder.model.layer1.0.conv3.weight" in weights
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(3))
+    want = model.encoder.model(x, train)
+    got = ref.trunk(weights, x, train=train)
+    assert got.shape == want.shape == (2, 2048, 8, 8)
+    # eval-mode BN on the seeded running statistics leaves 16 blocks
+    # unnormalized: the maps grow to ~1e3, and f32 rounding with them
+    scale = float(want.abs().max()) if not train else 1.0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_batch_norm_without_a_group_is_the_plain_formula():
+    """Train-mode BN outside ``global_batch``: the batch's own moments,
+    bitwise the formula the reference states."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(6, 5, 7, 3, generator=gen)
+    sd = {"bn.weight": torch.randn(5, generator=gen),
+          "bn.bias": torch.randn(5, generator=gen)}
+    mean = x.mean(dim=(0, 2, 3))
+    var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + ref.BN_EPS) * sd["bn.weight"]
+    want = ((x - mean[:, None, None]) * mul[:, None, None]
+            + sd["bn.bias"][:, None, None])
+    assert torch.equal(ref.batch_norm(x, sd, "bn", True), want)
 
 
 def walk_masks(q_shape, seed):
@@ -78,13 +109,15 @@ def test_superpixel_loss():
     assert float(got.detach()) == pytest.approx(float(want), rel=1e-5)
 
 
-def test_first_adam_step():
+@pytest.mark.parametrize("model_type", ["scratch", "scratch50"])
+def test_first_adam_step(model_type):
     from videowalk_tpu_torch.parallel import (create_train_state,
                                               make_optimizer, make_train_step)
 
     # bn_fuse "stats": the BN-input chain's f32 plain version moves these
     # gradients by ~2e-3 at this size (it agrees to 5e-6 in f64)
-    model, weights = seeded_model(edgedrop_rate=0.1, bn_fuse="stats")
+    model, weights = seeded_model(model_type, edgedrop_rate=0.1,
+                                  bn_fuse="stats")
     unit = inputs.moving_textures(torch.Generator().manual_seed(5), 2, 4, 64,
                                   8, "cpu")
     x = inputs.patch_grid(inputs.normalize(unit), 32)

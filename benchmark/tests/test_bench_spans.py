@@ -1,5 +1,6 @@
 """The per-layer metrics that read the program's spans
-(``benchmark/metrics/{trunk,nodes,walk}.device_ms.py``,
+(``benchmark/metrics/{trunk,nodes,walk}.device_ms.py``, ``dp.comm_ms.py``,
+``trunk.device_ms.dp.py``,
 ``eval.{labels,dump}_ms_per_video.py``): each fed a hand-built recorder
 summary, and read from the program's own recorder on the CPU; no reading
 without a trace, a root span, or a recorder (a program from before the
@@ -11,7 +12,8 @@ import pytest
 
 from harness import common
 
-TRAIN = ("trunk.device_ms", "nodes.device_ms", "walk.device_ms")
+TRAIN = ("trunk.device_ms", "nodes.device_ms", "walk.device_ms",
+         "dp.comm_ms", "trunk.device_ms.dp")
 EVAL = ("eval.labels_ms_per_video", "eval.dump_ms_per_video")
 
 
@@ -36,6 +38,7 @@ HAND = {
     "nodes.backward": _span(16, 3.0, 96.0),
     "walk": _span(16, 2.0, 16.0),
     "walk.backward": _span(16, 2.0, 32.0),
+    "dp.all_reduce": _span(16 * 81, 40.0, 56.0),
     "video": _span(2, 1200.0, 1190.0),
     "labels": _span(2, 14.0, 13.0),
     "dump": _span(2, 9.0, 8.5),
@@ -55,6 +58,8 @@ def test_readers_on_a_hand_built_recorder(hand):
     assert _read("trunk.device_ms", ctx) == pytest.approx(7200.0 / 16)
     assert _read("nodes.device_ms", ctx) == pytest.approx(160.0 / 16)
     assert _read("walk.device_ms", ctx) == pytest.approx(48.0 / 16)
+    assert _read("dp.comm_ms", ctx) == pytest.approx(56.0 / 16)
+    assert _read("trunk.device_ms.dp", ctx) == pytest.approx(7200.0 / 16)
     assert _read("eval.labels_ms_per_video", ctx) == pytest.approx(7.0)
     assert _read("eval.dump_ms_per_video", ctx) == pytest.approx(4.5)
 

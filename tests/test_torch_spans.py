@@ -1,14 +1,16 @@
-"""The port's span recorder (``videowalk_tpu_torch/utils/profile.py``) and
-its sites: nesting, parents and roots; the off path (no
-``record_function``, no hook, no CUDA event); on under a ``torch.profiler``
-session and off after it; the backward spans of ``trunk``, ``nodes`` and
-``walk`` in a CRW step; every span a ``user_annotation`` of an exported
+"""The port's span recorder (``videowalk_tpu_torch/utils/profile.py``) and its
+sites: nesting, parents and roots; the off path (no ``record_function``, no
+hook, no CUDA event); on under a ``torch.profiler`` session and off after
+it; the backward spans of ``trunk``, ``nodes`` and ``walk`` in a CRW step;
+a Bottleneck's ``pointwise`` spans (ResNet-50 only; the trunk's outputs
+bitwise as without spans); every span a ``user_annotation`` of an exported
 trace, nested as recorded; ``test()``'s seconds and ``log_every``'s data
 time read from the spans; ``Trace.stop``'s table. The ``-m cuda`` case
-checks on the card that the layer spans of a step cover its device time.
-No JAX here, so the file runs with ``--noconftest`` where JAX is not
+checks on the card that the layer spans of a step cover its device time. No
+JAX here, so the file runs with ``--noconftest`` where JAX is not
 installed."""
 
+import copy
 import json
 import os
 import threading
@@ -64,9 +66,9 @@ def _parent(rec):
     return rec.parent.name if rec.parent is not None else None
 
 
-def _patch_state(device="cpu", **cfg):
+def _patch_state(device="cpu", model_type="scratch", **cfg):
     torch.manual_seed(0)
-    model = CRW(CRWConfig(model_type="scratch", temperature=0.05,
+    model = CRW(CRWConfig(model_type=model_type, temperature=0.05,
                           edgedrop_rate=0.1, **cfg))
     return create_train_state(model, make_optimizer(lr=3e-4), device=device)
 
@@ -76,11 +78,15 @@ def _superpixel_batch(gen):
     return (unit - 0.5) / 0.25, slic_fused(unit, 9, 30.0)
 
 
-def _steps(superpixel: bool):
+def _steps(superpixel: bool, model_type: str = "scratch"):
     """A tiny CPU CRW state and a function that runs one train step of it
-    on a fixed batch (patches, or whole frames with SLIC ids)."""
+    on a fixed batch (patches, or whole frames with SLIC ids); ResNet-50
+    on a smaller batch of patches."""
     gen = torch.Generator().manual_seed(1)
-    if superpixel:
+    if model_type == "scratch50":
+        state = _patch_state(model_type=model_type)
+        batch, kw = torch.randn((1, 3, 4, 32, 32, 3), generator=gen), {}
+    elif superpixel:
         state = _patch_state(max_sp_num=12, dilate_superpixels=True,
                              dilation_kernel_size=7)
         frames, mask = _superpixel_batch(gen)
@@ -168,8 +174,9 @@ def test_off_path_makes_no_call(spans, monkeypatch):
     monkeypatch.setattr(torch.autograd.graph, "register_multi_grad_hook",
                         counting("register_multi_grad_hook"))
     assert not profile.on()
-    for superpixel in (False, True):
-        _, run = _steps(superpixel)
+    for superpixel, model_type in ((False, "scratch"), (True, "scratch"),
+                                   (False, "scratch50")):
+        _, run = _steps(superpixel, model_type)
         run()
 
     class NoGraph:
@@ -333,6 +340,52 @@ def test_trace_stop_prints_the_table(spans, tmp_path, capsys):
     assert table[0].endswith("  in step")
     assert table[1].endswith("  in - clips 2")
     assert os.listdir(tmp_path) == ["t.pt.trace.json"]
+
+
+@pytest.mark.parametrize("model_type,n", [("scratch", 0), ("scratch50", 36)])
+def test_pointwise_spans_of_the_bottleneck_convs(spans, log, model_type, n):
+    """ResNet-50's 36 1x1 convs (16 Bottlenecks' conv1 and conv3, four
+    projections) each run in a ``pointwise`` span inside ``trunk`` and
+    their backward in a ``pointwise.backward`` span inside
+    ``trunk.backward``, one at a time: a span closes on its weight's
+    gradient, before the next conv's backward opens. ResNet-18's blocks
+    open none."""
+    _, run = _steps(False, model_type)
+    run()
+    spans.enable()
+    run()
+    spans.disable()
+    s = spans.summary()
+    for name, parent in (("pointwise", "trunk"),
+                         ("pointwise.backward", "trunk.backward")):
+        if not n:
+            assert name not in s
+            continue
+        assert s[name]["n"] == n and s[name]["parents"] == [parent]
+        seen = [kind for kind, rec in log if rec.name == name]
+        assert seen == n * ["open", "close"]
+
+
+@pytest.mark.parametrize("model_type", ["scratch", "scratch50"])
+def test_spans_leave_the_trunk_bitwise(spans, model_type):
+    """A train-mode trunk forward and its input gradient with spans on are
+    bitwise those with spans off."""
+    torch.manual_seed(0)
+    model = CRW(CRWConfig(model_type=model_type)).encoder.model
+    x = torch.randn((2, 3, 32, 32), generator=torch.Generator().manual_seed(2))
+    outs = []
+    for on in (False, True):
+        m = copy.deepcopy(model)
+        xi = x.clone().requires_grad_(True)
+        if on:
+            spans.enable()
+        y = m(xi, True)
+        y.square().sum().backward()
+        spans.disable()
+        outs.append((y.detach(), xi.grad, m.conv1.weight.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert ("pointwise" in spans.summary()) == (model_type == "scratch50")
 
 
 @pytest.mark.cuda

@@ -70,6 +70,7 @@ from videowalk_tpu_torch.ops.rconv import (reflect_conv3x3,
                                            reflect_conv3x3_stats)
 from videowalk_tpu_torch.ops.reflect_conv import (check_rconv_mode,
                                                   rconv_kernel_routes)
+from videowalk_tpu_torch.utils.profile import backward_span, span
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1      # torch convention: new = 0.9 * running + 0.1 * batch
@@ -247,13 +248,27 @@ def _projection(cin: int, cout: int, stride: int, padding_mode: str,
         BatchNorm(cout, dtype)])
 
 
-def _shortcut(downsample: nn.ModuleList | None, x: torch.Tensor) -> dict:
+def _shortcut(downsample: nn.ModuleList | None, x: torch.Tensor,
+              pointwise: bool = False) -> dict:
     """The block's last BN's ``shortcut=x``, or ``proj=(conv(x), bn)``
-    where the block has a projection."""
+    where the block has a projection (its conv in a ``pointwise`` span
+    with ``pointwise``)."""
     if downsample is None:
         return dict(shortcut=x)
     conv, bn = downsample
-    return dict(proj=(conv(x), bn))
+    return dict(proj=(_pointwise(conv, x) if pointwise else conv(x), bn))
+
+
+def _pointwise(conv: PadConv2d, x: torch.Tensor) -> torch.Tensor:
+    """A Bottleneck's 1x1 conv in a ``pointwise`` span, and its dx and dW
+    in a ``pointwise.backward`` span. That span closes on the weight's
+    gradient, not on ``x``'s: one autograd node makes both, and a block
+    input that also feeds the projection gets its whole gradient only
+    after the rest of the block's backward."""
+    with span("pointwise"):
+        y = conv(x)
+    backward_span("pointwise.backward", y, conv)
+    return y
 
 
 class BasicBlock(nn.Module):
@@ -300,7 +315,8 @@ class Bottleneck(nn.Module):
     where the stride or the width changes. The 3x3 is a ``PadConv2d``
     (the reflect-conv kernels where it routes, with bn2's moments from its
     epilogue in train mode unless ``bn_fuse`` is off); the 1x1s and the
-    projection are plain convs."""
+    projection are plain convs, each in a ``pointwise`` span (its
+    backward in ``pointwise.backward``; ``utils/profile.py``)."""
 
     expansion = 4
 
@@ -326,11 +342,11 @@ class Bottleneck(nn.Module):
                                           dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.bn1(self.conv1(x), train, relu=True)
+        y = self.bn1(_pointwise(self.conv1, x), train, relu=True)
         y, m2 = _conv_moments(self.conv2, y, train, self.bn_fuse)
         y = self.bn2(y, train, moments=m2, relu=True)
-        return self.bn3(self.conv3(y), train, relu=True,
-                        **_shortcut(self.downsample, x))
+        return self.bn3(_pointwise(self.conv3, y), train, relu=True,
+                        **_shortcut(self.downsample, x, pointwise=True))
 
 
 class ResNet(nn.Module):

@@ -1,10 +1,12 @@
 """Spans of the program's layers, and ``--profile-dir``'s trace.
 
 A span names one stretch of the program's work: the train step
-(``step``) and its layers (``trunk``, ``nodes``, ``walk``, ``optimizer``,
-with ``sp_pool`` inside ``nodes``, and ``trunk.backward``,
-``nodes.backward``, ``walk.backward``), ``slic``, the data-parallel
-all-reduces (``dp.all_reduce``), the train loop's host work (``data_wait``,
+(``step``) and its layers (``trunk``, ``nodes``, ``walk``,
+``optimizer``, with ``sp_pool`` inside ``nodes``, a Bottleneck's 1x1
+convs ``pointwise`` inside ``trunk``, and ``trunk.backward``,
+``nodes.backward``, ``walk.backward``, with ``pointwise.backward``
+inside the first), ``slic``, the data-parallel all-reduces
+(``dp.all_reduce``), the train loop's host work (``data_wait``,
 ``augs``, ``fetch``, ``checkpoint``) and the eval's phases (``video``:
 ``encode``, ``pca_vis``, ``labels``, ``propagate``, ``dump``).
 

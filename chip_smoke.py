@@ -65,10 +65,11 @@ card.
    ``conv2d``; for each backward kernel alone, autograd of it for that
    kernel's inputs; for the chain after an elementwise affine + ReLU) with
    CUDA events. ptxas's verdict on each slab kernel: does it serialize
-   ``wgmma`` (C7513, C7515)? (The parent tree's kernels are timed by
-   running its own ``--phases rconv`` from an unpacked copy in the same
-   call.) Then the BN kernels (``bn``, ``ops/bn_act.py``): each pass
-   against its plain version on the card at the flagship's layer4 and the
+   ``wgmma`` (C7510-C7515), and its registers and spills? (The parent
+   tree's kernels are timed by running its own ``--phases rconv`` from an
+   unpacked copy in the same call.) Then the BN kernels (``bn``,
+   ``ops/bn_act.py``): each pass against its plain version on the card at
+   the flagship's layer4 and the
    superpixel step's 64x64 layer1, each pass's device ms at layer4 beside
    its bytes at 3.35 TB/s, and one BN with its add and ReLU forward and
    backward on the kernels and on the eager chain at both shapes. Every
@@ -1164,34 +1165,69 @@ def px_modes() -> list[str]:
     return [v.strip() for v in m.group(1).split(",")]
 
 
+def slab_kernel_name(mangled: str, modes: list[str]) -> str | None:
+    """The readable instantiation of a mangled slab kernel name:
+    ``rconv_slab_px<BN, MODE>``, ``rconv_slab_dw<BNIN>``; None for any other
+    function."""
+    import re
+
+    m = re.search(r"(rconv_slab_(?:px|dw))I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return None
+    args = re.findall(r"L[ib](\d+)E", m.group(2))
+    if m.group(1) == "rconv_slab_px":
+        return f"rconv_slab_px<{args[0]}, {modes[int(args[1])]}>"
+    return f"rconv_slab_dw<{'true' if args[0] == '1' else 'false'}>"
+
+
 def wgmma_verdicts(log: str) -> dict:
     """ptxas's verdict on each slab kernel of a build log: whether it
-    serializes the kernel's ``wgmma`` (C7513, C7515: the reason as ptxas
+    serializes the kernel's ``wgmma`` (C7510-C7515: the reason as ptxas
     gives it), by instantiation: ``rconv_slab_px<BN, MODE>``,
     ``rconv_slab_dw<BNIN>``."""
     import re
 
     modes = px_modes()
-
-    def readable(mangled):
-        m = re.search(r"(rconv_slab_(?:px|dw))I((?:L[ib]\d+E)+)E", mangled)
-        if not m:
-            return None
-        args = re.findall(r"L[ib](\d+)E", m.group(2))
-        if m.group(1) == "rconv_slab_px":
-            return f"rconv_slab_px<{args[0]}, {modes[int(args[1])]}>"
-        return f"rconv_slab_dw<{'true' if args[0] == '1' else 'false'}>"
-
     out = {}
     for line in log.splitlines():
         m = re.search(r"entry function '([^']+)'", line)
-        name = m and readable(m.group(1))
+        name = m and slab_kernel_name(m.group(1), modes)
         if name:
             out.setdefault(name, "not serialized")
-        c = re.search(r"\((C751\d)\)(.*?)(?:in the function '([^']+)')", line)
-        if c and readable(c.group(3)):
-            out[readable(c.group(3))] = (f"serialized ({c.group(1)}:"
-                                         f"{c.group(2).rstrip()})")
+        c = re.search(r"\((C751\d)\)(.*?)(?:(?:in|for) the function '([^']+)')",
+                      line)
+        if c and slab_kernel_name(c.group(3), modes):
+            out[slab_kernel_name(c.group(3), modes)] = (
+                f"serialized ({c.group(1)}:{c.group(2).rstrip()})")
+    return out
+
+
+def ptxas_resources(log: str) -> dict:
+    """Each slab kernel's registers and spill bytes from ptxas's ``-v``
+    lines of a build log: ``{instantiation: dict(registers, spill_stores,
+    spill_loads)}``."""
+    import re
+
+    modes = px_modes()
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )([^' ]+)",
+                      line)
+        if m:
+            name = slab_kernel_name(m.group(1), modes)
+            if name:
+                out.setdefault(name, dict(registers=None, spill_stores=0,
+                                          spill_loads=0))
+            continue
+        if name is None:
+            continue
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if sp:
+            out[name]["spill_stores"] = int(sp.group(1))
+            out[name]["spill_loads"] = int(sp.group(2))
+        reg = re.search(r"Used (\d+) registers", line)
+        if reg:
+            out[name]["registers"] = int(reg.group(1))
     return out
 
 
@@ -4846,6 +4882,10 @@ def main() -> int:
               "kept build log", flush=True)
     for kernel, verdict in verdicts.items():
         print(f"  ptxas wgmma verdict {kernel}: {verdict}", flush=True)
+    for kernel, r in ptxas_resources(slab_log or "").items():
+        print(f"  ptxas {kernel}: {r['registers']} registers, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B",
+              flush=True)
     if verdicts:
         n_ser = sum(v.startswith("serialized") for v in verdicts.values())
         print(f"  ptxas serializes the wgmma of {n_ser} of {len(verdicts)} "

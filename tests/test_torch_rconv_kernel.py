@@ -124,35 +124,107 @@ def test_build_keeps_the_ptxas_log_beside_the_library(monkeypatch, tmp_path):
     assert _build.build_log("rconv_slab") is None     # a log without its library
 
 
-def test_wgmma_verdicts_read_a_ptxas_log():
-    """``chip_smoke.py`` names each slab kernel's instantiation and whether
-    ptxas serialized its ``wgmma`` (C7515), from ptxas's own lines."""
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
                                    "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    fn = ("_ZN46_GLOBAL__N__3f08cc69_13_rconv_slab_cu_1d4e251213rconv_slab_px"
-          "ILi128ELi2EEEvPK13__nv_bfloat16S3_PS1_NS_5PxAuxENS_3GeoEiii")
+    return smoke
+
+
+# ptxas's name of rconv_slab_px<128, FWD_STATS>: the tensor map first
+_PX_MANGLED = ("_ZN46_GLOBAL__N__3f08cc69_13_rconv_slab_cu_1d4e251213rconv_slab_px"
+               "ILi128ELi2EEEv14CUtensorMap_stPK13__nv_bfloat16PS2_NS_5PxAuxE"
+               "NS_3GeoEiii")
+
+
+def test_wgmma_verdicts_read_a_ptxas_log():
+    """``chip_smoke.py`` names each slab kernel's instantiation and whether
+    ptxas serialized its ``wgmma`` (C7515; C7512, which names "the
+    function" with "for"), from ptxas's own lines."""
+    smoke = _chip_smoke()
+    fn = _PX_MANGLED
+    dx_bnin = fn.replace("ILi128ELi2EE", "ILi128ELi1EE")
     log = "\n".join((
         f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'",
         "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
         "instructions are serialized due to non wgmma instructions defining "
         f"accumulator registers in the function '{fn}'",
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113"
-        "rconv_slab_pxILi64ELi0EEEvPK13__nv_bfloat16' for 'sm_90a'",
+        "rconv_slab_pxILi64ELi0EEEv14CUtensorMap_stPK13__nv_bfloat16' for "
+        "'sm_90a'",
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113"
         "rconv_slab_dwILb1EEEvPK13__nv_bfloat16' for 'sm_90a'",
+        f"ptxas info    : Compiling entry function '{dx_bnin}' for 'sm_90a'",
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to insufficient register resources "
+        f"for the function '{dx_bnin}'",
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111"
         "reduce_rowsILi8EEEvPKfPfix' for 'sm_90a'"))
     assert smoke.px_modes() == ["DX", "DX_BNIN", "FWD_STATS", "FWD_BNIN_STATS",
                                 "FWD"]
     got = smoke.wgmma_verdicts(log)
     assert set(got) == {"rconv_slab_px<128, FWD_STATS>", "rconv_slab_px<64, DX>",
-                        "rconv_slab_dw<true>"}
+                        "rconv_slab_dw<true>", "rconv_slab_px<128, DX_BNIN>"}
     assert got["rconv_slab_px<128, FWD_STATS>"].startswith("serialized (C7515")
+    assert got["rconv_slab_px<128, DX_BNIN>"].startswith("serialized (C7512")
     assert got["rconv_slab_px<64, DX>"] == "not serialized"
     assert got["rconv_slab_dw<true>"] == "not serialized"
+
+
+def test_ptxas_resources_read_a_ptxas_log():
+    """``chip_smoke.py`` reads each slab kernel's registers and spill bytes
+    from ptxas's ``-v`` lines, and nothing of other functions."""
+    smoke = _chip_smoke()
+    other = "_ZN12_GLOBAL__N_111reduce_rowsILi8EEEvPKfPfix"
+    log = "\n".join((
+        f"ptxas info    : Compiling entry function '{_PX_MANGLED}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {_PX_MANGLED}",
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 112 registers, used 2 barriers, 528 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{other}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {other}",
+        "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 16 registers, 384 bytes cmem[0]"))
+    assert smoke.ptxas_resources(log) == {
+        "rconv_slab_px<128, FWD_STATS>": dict(registers=112, spill_stores=8,
+                                              spill_loads=12)}
+
+
+@pytest.mark.cuda
+def test_px_kernels_keep_wgmma_verdicts_without_spills_on_card():
+    """ptxas's verdicts on the build of ``rconv_slab.cu``: none of the ten
+    pixel-tiled instantiations (BN 64 and 128, five modes) has its
+    ``wgmma`` serialized for an operand defined inside the pipeline or an
+    accumulator moved across it (C7510, C7513, C7515), and none spills.
+    Two blocks of nine warps an SM leave 96 registers a thread: ptxas
+    serializes the five BN 128 instantiations' ``wgmma`` for want of
+    registers (C7512), a layout that measured faster than one block an SM
+    with 168 registers and no serialization (``PERF.md``); no other slab
+    kernel is serialized at all."""
+    _need_card()
+    from videowalk_tpu_torch.ops import _build
+
+    rc._slab_lib()                                   # built, with its log
+    log = _build.build_log("rconv_slab")
+    assert log is not None
+    smoke = _chip_smoke()
+    verdicts, res = smoke.wgmma_verdicts(log), smoke.ptxas_resources(log)
+    px = {f"rconv_slab_px<{bn}, {m}>" for bn in (64, 128)
+          for m in smoke.px_modes()}
+    assert px <= set(verdicts) and px <= set(res)
+    for name in sorted(px):
+        assert not any(code in verdicts[name]
+                       for code in ("C7510", "C7513", "C7515")), (
+            name, verdicts[name])
+        assert res[name]["spill_stores"] == res[name]["spill_loads"] == 0, (
+            name, res[name])
+    bn128 = {name for name in px if name.startswith("rconv_slab_px<128")}
+    assert {name for name, v in verdicts.items()
+            if v.startswith("serialized (C7512")} == bn128, verdicts
+    assert all(v == "not serialized" for name, v in verdicts.items()
+               if name not in bn128), verdicts
 
 
 @pytest.mark.cuda
@@ -614,3 +686,61 @@ def test_bnin_wrappers_refuse_what_the_kernels_do_not_take():
     x12, w12, _ = _inputs(2, 64, 64, 12, 12, torch.bfloat16, seed=1)
     with pytest.raises(ValueError, match="12x12"):
         rc.reflect_conv_fwd_bnin_stats(x12, a, b, w12)
+
+
+# ------------------------------- pixel tiles at odd and partial counts
+
+# (N, Cin, Cout, H, W): 128-pixel tiles odd in number, the last one ragged,
+# or fewer than one tile
+PX_TILE_SHAPES = [
+    (5, 64, 64, 8, 8),           # 3 tiles, the last ragged; BN 64
+    (9, 128, 256, 8, 16),        # 9 whole tiles; BN 128 both ways
+    (5, 512, 512, 8, 8),         # 3 tiles at layer4's width: 32 K chunks
+    (1, 24, 40, 8, 8),           # 64 pixels, under one tile; channel tails
+    (1, 512, 512, 8, 16),        # exactly one tile
+]
+
+
+def _px_outputs(x, w, gy, a, b):
+    """Every pixel-tiled kernel's outputs: #4, #5, #6, #9, #7."""
+    return dict(fwd=(rc.reflect_conv_fwd(x, w),),
+                fwd_stats=rc.reflect_conv_fwd_stats(x, w),
+                fwd_bnin_stats=rc.reflect_conv_fwd_bnin_stats(x, a, b, w),
+                dx=(rc.reflect_conv_dx(gy, w, x),),
+                dx_bnin=rc.reflect_conv_dx_bnin(gy, w, x, a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,cin,cout,H,W", PX_TILE_SHAPES)
+def test_px_kernels_at_odd_and_partial_tile_counts_on_card(N, cin, cout, H, W):
+    """Each bf16 pixel-tiled mode at an odd number of tiles, a ragged last
+    tile, or less than one tile: against the plain version at the
+    tolerances above, and #5, #6 and #7 (sums through the per-tile
+    partials) bitwise repeatable."""
+    _need_card()
+    tol = TOL[torch.bfloat16]
+    x, w, gy = _inputs(N, cin, cout, H, W, torch.bfloat16, seed=N + cin + W)
+    a, b = _affine(cin, seed=cout + H)
+    got = _px_outputs(x, w, gy, a, b)
+    xn = rc.bnin_plain(x, a, b)[0]
+    y_ref = rc.reflect_conv_plain(x, w)
+    yb_ref = rc.reflect_conv_plain(xn, w)
+    dx_ref = rc.reflect_conv_plain_bwd(x, w, gy)[0]
+    dxb_ref = rc.reflect_conv_dx_bnin_plain(gy, w, x, a, b)[0]
+    _close("fwd", got["fwd"][0], y_ref, tol["y"])
+    _close("fwd_stats", got["fwd_stats"][0], y_ref, tol["y"])
+    assert torch.equal(got["fwd"][0], got["fwd_stats"][0])
+    _close("fwd_bnin_stats", got["fwd_bnin_stats"][0], yb_ref, tol["y"])
+    _close("dx", got["dx"][0], dx_ref, tol["dx"])
+    _close("dx_bnin", got["dx_bnin"][0], dxb_ref, tol["dx"])
+    for name, ref in (("fwd_stats", y_ref), ("fwd_bnin_stats", yb_ref)):
+        y, s1, s2 = got[name]
+        assert _moment_err(s1, s2, y) <= tol["mom"], name
+        assert _moment_err(s1, s2, ref) <= tol["mom_ref"], name
+    assert _dab_err(got["dx_bnin"][1], got["dx_bnin"][2], gy, w, x, a,
+                    b) <= AB_TOL[torch.bfloat16]
+    for _ in range(2):
+        again = _px_outputs(x, w, gy, a, b)
+        for name in ("fwd_stats", "fwd_bnin_stats", "dx_bnin"):
+            assert all(torch.equal(p, q)
+                       for p, q in zip(got[name], again[name])), name

@@ -57,16 +57,33 @@
 //
 // The pixel-tiled kernel rconv_slab_px: the forward and dx are one main
 // loop, templated on the mode. Block: 128 output pixels x 128 (or 64)
-// output channels, two warpgroups of 64 pixel rows; a K chunk is 16
-// channels: the slab (<= 192 rows) plus all nine 16 x BN weight tiles
-// (128-byte swizzled, the layout the descriptor reads without bank
-// conflicts; an unswizzled B measured slower than mma.sync) land together,
-// two chunks in flight (~94-101 KB: two blocks an SM). A tap is one
-// wgmma.m64nBNk16 a warpgroup; two A register sets let a tap's gather
-// overlap the previous tap's product. Per block a table sends each tap's
-// A row of each pixel to a slab row, a zero row (pixels past M) or, for
-// dx only, a leg-sum row. Grid: output-channel tiles fastest, then pixel
-// tiles.
+// output channels, two consumer warpgroups of 64 pixel rows and one
+// producer warp; a K chunk is 16 channels: the slab (<= 192 rows) plus all
+// nine 16 x BN weight tiles (128-byte swizzled, the layout the descriptor
+// reads without bank conflicts; an unswizzled B measured slower than
+// mma.sync), a ring of two stages (~94-101 KB: two blocks an SM; a third
+// at BN 64, where it fits, measured within the noise, PERF.md). The
+// producer warp alone loads: the slab by cp.async, each lane's copies
+// arriving on the stage's full mbarrier (cp.async.mbarrier.arrive.noinc),
+// the weight tiles by TMA (a 3-D tensor map over wk (9, K, N), boxes of 64
+// N x 16 K landing 128-byte swizzled, K past a tap's end zero-filled). The
+// consumers wait only on a stage's full barrier and release it on its
+// empty barrier (one arrival a warpgroup) at the next chunk's second tap,
+// once their products on it are done: no block barrier and no wgmma drain
+// a chunk, and the math threads compute no copy address. Two A register
+// sets, alternating over the whole tap sequence (chunks in pairs), let a
+// tap's gather overlap the previous tap's product across chunks too.
+// Two blocks of nine warps an SM leave 96 registers a thread: at BN 128
+// ptxas serializes the wgmma for want of registers (C7512), yet this ran
+// faster than one block an SM with four stages and 168 registers, not
+// serialized (PERF.md). Clusters of two blocks on neighbouring pixel
+// tiles, each producer multicasting half of a chunk's weight boxes into
+// both, halve the weight tiles' L2 traffic, but ran 12-14% slower in every
+// mode (PERF.md): each refill of the ring then also waits for the other
+// block's consumers. A tap is one wgmma.m64nBNk16 a warpgroup. Per block a
+// table sends each tap's A row of each pixel to a slab row, a zero row
+// (pixels past M) or, for dx only, a leg-sum row. Grid: output-channel
+// tiles fastest, then pixel tiles.
 // forward (#4): M = N*H*W output pixels, N = Cout, K = Cin with B = W[t]
 //   (w9, K rows, N contiguous). Output pixel (h, w) of tap (dy, dx) reads x
 //   at (refl(h+dy-1), refl(w+dx-1)): always one slab row, so the forward has
@@ -83,17 +100,17 @@
 //   row: y = 0, and they add nothing.
 // forward of the chain (#6): #5 with xn = bf16(relu(fmaf(x, a, b))) (f32
 //   math, rounded once) rebuilt ONCE per landed slab element, not once per
-//   gathered tap copy: after cp.async.wait_group of a chunk each thread
-//   rewrites the x vectors it copied itself (its own copies are visible to
-//   it without a barrier), and the chunk's one barrier publishes them. With
-//   256 threads and 2 vectors a slab row, a thread's vectors share one
-//   8-channel half, so one 8 + 8 float read of (a, b) a chunk serves them
-//   all; it is issued before the wait. Zero-filled vectors (rows outside the
-//   pixels, channel tails) stay zero, never relu(b). The gate is
-//   fmaf(x, a, b) > 0, as #7's, so a pixel kept forward is kept backward.
-//   Measured against this design and dropped (PERF.md): a third chunk in
-//   flight (slower at every shape) and (a, b) from a shared copy loaded
-//   once a block (no resolved difference).
+//   gathered tap copy: once a chunk's full barrier has passed, each consumer
+//   thread rewrites its share of the landed x vectors, and a barrier of the
+//   consumer warps alone publishes them. With 256 consumer threads and 2
+//   vectors a slab row, a thread's vectors share one 8-channel half; the
+//   producer copies the chunk's (a, b) beside the slab, so the rewrite
+//   reads them from shared memory, a pair at a time. Zero-filled vectors
+//   (rows outside the pixels, channel tails) stay zero, never relu(b). The
+//   gate is fmaf(x, a, b) > 0, as #7's, so a pixel kept forward is kept
+//   backward. Measured against the earlier design and dropped (PERF.md): a
+//   third chunk in flight (slower at every shape); the rewrite by the
+//   producer warp alone (slower than the consumers' own rewrite).
 // dx (#9): M = N*H*W input pixels, N = Cin, K = Cout with W[t]^T (w9t).
 //   Input pixel (i, j) of tap (dy, dx) collects gy at the direct h =
 //   i-dy+1 (when inside) and, folded back through the pad, h = 0 when dy =
@@ -105,6 +122,8 @@
 //   folds gy[h,0]+gy[h,2] and gy[h,W-1]+gy[h,W-3]; per image in the tile the
 //   row folds gy[0,w]+gy[2,w] (and gy[H-1,w]+gy[H-3,w]) and the 4 corners.
 //   The tap loop is then only ldmatrix + wgmma: no global load inside it.
+//   The consumer warps sum a chunk's legs once its full barrier has
+//   passed, and a barrier of the consumer warps alone publishes them.
 // dx of the chain (#7): the same main loop on gy; only the epilogue
 //   differs. The f32 tile dxn is staged in the freed stage memory; a thread
 //   keeps one vector and walks its rows: it reads x at the output pixel
@@ -136,18 +155,22 @@
 //   gathers, wgmma's B reads) as it has tensor cycles, so the rewrite costs
 //   its 16-byte read and write a vector; reading (a, b) from shared memory
 //   per vector as well cost about twice as much on an H100.
-// Not yet used: TMA, a producer warp, clusters.
+// The pixel-tiled kernel's bound is still the 0.96 ms of tensor work at the
+// flagship's shape; its weight-tile traffic from L2 a pass there is 6,272
+// blocks x 32 chunks x 36.9 KB = 7.4 GB (the distinct bytes are ~0.41 GB).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (videowalk_tpu_torch/ops/_build.py); plain C interface, loaded with ctypes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int NT = 256;                 // threads per block (8 warps)
 constexpr int SMS = 132;                // H100 SXM streaming multiprocessors
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -220,6 +243,52 @@ template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 // cp.async's writes (generic proxy) made visible to wgmma (async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- mbarriers and TMA (the pixel-tiled kernel's pipeline)
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count)
+               : "memory");
+}
+// one arrival, and bytes more that the phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+// one arrival once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_mbar_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" :: "r"(bar)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// named barrier 1 over the first n threads (the consumer warps)
+template <int N> __device__ __forceinline__ void bar_sync1() {
+  asm volatile("bar.sync 1, %0;" :: "n"(N) : "memory");
+}
+// a box of a 3-D tensor map into this block's shared memory at dst, its
+// bytes counted on bar
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+         "r"(c2) : "memory");
 }
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], const unsigned (&a)[4],
                                            uint64_t desc) {
@@ -300,14 +369,6 @@ __device__ __forceinline__ void load8f(float (&f)[8], const float* src) {
   f[0] = lo.x, f[1] = lo.y, f[2] = lo.z, f[3] = lo.w;
   f[4] = hi.x, f[5] = hi.y, f[6] = hi.z, f[7] = hi.w;
 }
-// the same through the read-only data cache
-__device__ __forceinline__ void ldg8f(float (&f)[8], const float* src) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
-  const float4 hi = __ldg(reinterpret_cast<const float4*>(src) + 1);
-  f[0] = lo.x, f[1] = lo.y, f[2] = lo.z, f[3] = lo.w;
-  f[4] = hi.x, f[5] = hi.y, f[6] = hi.z, f[7] = hi.w;
-}
-
 // a 16-byte vector of x rewritten in place as xn = bf16(relu(fmaf(x, a, b)))
 __device__ __forceinline__ void bnin_vec(uint4* vec, const float (&av)[8],
                                          const float (&bv)[8]) {
@@ -324,42 +385,51 @@ namespace pxk {
 enum Mode { DX, DX_BNIN, FWD_STATS, FWD_BNIN_STATS, FWD };
 constexpr int BM = 128;                 // output pixels of a tile
 constexpr int BK = 16;                  // K channels of a chunk
+constexpr int NTC = 256;                // consumer threads: two warpgroups
+constexpr int NTP = NTC + 32;           // and the producer warp
 constexpr int SLAB_MAX = BM + 2 * 32;   // slab rows at W = 32
 constexpr int LEG_MAX = 80;             // dx's leg-sum rows (largest at W = 32)
 constexpr int A_STRIDE = BK * 2 + 16;   // bytes: 48, conflict-free ldmatrix
 constexpr int SM_SMEM = 233472;         // shared memory of an SM (228 KB)
+constexpr int BOX_N = 64;               // a weight box: 64 N x 16 K, 2 KB
+constexpr int S = 2;                    // stages of the ring: chunk c in c & 1
 template <int BN, int MODE> struct Cfg {
   static constexpr bool FORWARD =
       MODE == FWD || MODE == FWD_STATS || MODE == FWD_BNIN_STATS;
   static constexpr int LEGS = FORWARD ? 0 : LEG_MAX;    // the forward has none
   static constexpr int ZERO_ROW = SLAB_MAX + LEGS;
-  static constexpr int A_BYTES = ((ZERO_ROW + 1) * A_STRIDE + 1023) / 1024 * 1024;
+  // #6: the chunk's 16 a then 16 b (f32) behind the zero row
+  static constexpr int AB_OFF = (ZERO_ROW + 1) * A_STRIDE;
+  static constexpr int A_BYTES = (AB_OFF + 128 + 1023) / 1024 * 1024;
   // a tap's B tile (16 K x BN), 128-byte swizzled MN-major: K row k of N
   // block b (64 wide) at b*2048 + (k/8)*1024 + (k%8)*128, its 16-byte chunk
-  // c at (c ^ k%8)*16
+  // c at (c ^ k%8)*16: what a TMA box of 64 N x 16 K lands with
+  // CU_TENSOR_MAP_SWIZZLE_128B at a 1024-byte aligned address
   static constexpr int TAP_B = BK * BN * 2;
+  static constexpr int NBOX = 9 * BN / BOX_N;           // boxes of a chunk
   static constexpr int B_BYTES = 9 * TAP_B;             // all nine B tiles
   static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int S = 2;                           // chunks in flight
   static constexpr int TABLES = 9 * BM * 2 + LEGS * 8;
-  static constexpr int SMEM = S * STAGE + TABLES;
+  static constexpr int BARS = S * STAGE + TABLES;       // full[S], empty[S]
+  static constexpr int SMEM = BARS + 2 * S * 8;
   // the epilogue: the tile staged in bf16 (#9, #4, #5, #6) or f32 (#7), then
   // the (RG, 2, BN) row-group sums of #5, #6, #7 behind it; a thread keeps
   // one 8-channel vector of RG row groups
   static constexpr int C_STRIDE = BN + 8;               // bf16 tile
   static constexpr int F_STRIDE = BN + 8;               // f32 tile
-  static constexpr int CV = BN / 8, RG = NT / CV;
-  static_assert(S >= 2 && STAGE % 1024 == 0 && A_BYTES % 1024 == 0,
+  static constexpr int CV = BN / 8, RG = NTC / CV;
+  static_assert(STAGE % 1024 == 0 && A_BYTES % 1024 == 0 && TAP_B % 2048 == 0,
                 "swizzle atoms");
+  static_assert(NBOX <= 32, "a box a producer lane");
   // two blocks an SM (1 KB of an SM's shared memory is reserved a block)
   static_assert(2 * (SMEM + 1024) <= SM_SMEM, "two blocks fit");
-  static_assert(NT % CV == 0 && BM % RG == 0 && 2 * BN <= NT,
+  static_assert(NTC % CV == 0 && BM % RG == 0 && 2 * BN <= NTC,
                 "two sums: a thread per sum");
   static_assert(BM * C_STRIDE * 2 + RG * 2 * BN * 4 <= S * STAGE,
                 "bf16 epilogue staging");
   static_assert((BM * F_STRIDE + RG * 2 * BN) * 4 <= S * STAGE,
                 "f32 epilogue staging");
-  static_assert(NT % 2 == 0, "a thread copies one 8-channel half of its rows");
+  static_assert(BARS % 8 == 0, "mbarrier alignment");
 };
 }  // namespace pxk
 
@@ -373,27 +443,30 @@ struct PxAux {
   float* part;
 };
 
-// out (M, Nout) from src (M, K) and the nine B tiles wk (9, K, Nout):
+// out (M, Nout) from src (M, K) and the nine B tiles wk (9, K, Nout), read
+// through the tensor map wmap:
 //   FWD             y of x (K = Cin) with w9;
 //   FWD_STATS       the same, and the moments' partials;
 //   FWD_BNIN_STATS  the same of xn = bf16(relu(a*x + b)) rebuilt in the slab;
 //   DX              dx of gy (K = Cout) with w9t;
 //   DX_BNIN         the chain's dx = bf16(dxn*g*a) and the [da; db] partials.
-// Grid: ntiles (Nout) fastest, then 128-pixel tiles.
+// Grid: ntiles (Nout) fastest, then the pixel tiles. Warps 0-7 are the
+// consumers, warp 8 the producer.
 template <int BN, int MODE>
-__global__ void __launch_bounds__(NT, 2) rconv_slab_px(
-    const __nv_bfloat16* __restrict__ src, const __nv_bfloat16* __restrict__ wk,
+__global__ void __launch_bounds__(pxk::NTP, 2) rconv_slab_px(
+    const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __restrict__ src,
     __nv_bfloat16* __restrict__ out, PxAux aux, Geo g, int kdim, int ndim,
     int ntiles) {
   using namespace pxk;
   using C = Cfg<BN, MODE>;
   constexpr bool BNIN_A = MODE == FWD_BNIN_STATS;   // xn rebuilt in the slab
   extern __shared__ __align__(1024) unsigned char smem[];
-  short* arow = reinterpret_cast<short*>(smem + C::S * C::STAGE);  // [9][BM]
+  short* arow = reinterpret_cast<short*>(smem + S * C::STAGE);     // [9][BM]
   short4* legsrc = reinterpret_cast<short4*>(arow + 9 * BM);      // [LEGS]
+  const unsigned fullb = smem_u32(smem + C::BARS);       // full[s] at + 8s
+  const unsigned emptyb = fullb + S * 8;                 // empty[s] at + 8s
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nt = blockIdx.x % ntiles;
-  const int mt = blockIdx.x / ntiles;
+  const int nt = blockIdx.x % ntiles, mt = blockIdx.x / ntiles;
   const long long m0 = (long long)mt * BM;
   const int n0 = nt * BN;
   const int H = g.H, W = g.W;
@@ -402,7 +475,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
   // ---- tables, once per block: each tap's A row of each pixel (and, for
   // dx, the slab rows that each leg-sum row adds up; -1: none)
   if constexpr (C::FORWARD) {
-    for (int e = tid; e < 9 * BM; e += NT) {
+    for (int e = tid; e < 9 * BM; e += NTP) {
       const int t = e / BM, r = e % BM, dy = t / 3, dxo = t % 3;
       const long long p = m0 + r;
       int row = C::ZERO_ROW;
@@ -420,7 +493,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
     const int NB = 2 * (HW < BM ? BM / HW : 1);  // row-fold blocks
     // the image of the tile's first pixel starts this far before (or after) m0
     const int img0 = -(int)(m0 % HW);
-    for (int e = tid; e < 9 * BM; e += NT) {
+    for (int e = tid; e < 9 * BM; e += NTP) {
       const int t = e / BM, r = e % BM, dy = t / 3, dxo = t % 3;
       const long long p = m0 + r;
       int row = C::ZERO_ROW;
@@ -444,7 +517,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
       }
       arow[e] = (short)row;
     }
-    for (int e = tid; e < C::LEGS; e += NT) {
+    for (int e = tid; e < C::LEGS; e += NTP) {
       short4 s = make_short4(-1, -1, -1, -1);
       const int l = SLAB_MAX + e;
       if (l >= CF && l < RF) {                   // column folds of slab row sr
@@ -474,51 +547,92 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
     }
   }
   // the zero row of every stage
-  if (tid < C::S * (A_STRIDE / 16))
+  if (tid < S * (A_STRIDE / 16))
     reinterpret_cast<uint4*>(smem + (tid / (A_STRIDE / 16)) * C::STAGE
                              + C::ZERO_ROW * A_STRIDE)[tid % (A_STRIDE / 16)] =
         make_uint4(0, 0, 0, 0);
+  // a stage is full when the producer's 32 lanes' slab copies have landed
+  // (32 arrivals) and its lane 0 has armed it with the weight tiles' bytes
+  // (1 arrival); empty when both consumer warpgroups have released it
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(fullb + s * 8, 33);
+      mbar_init(emptyb + s * 8, 2);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();                 // the tables, zero rows and barriers
 
   const int KC = (kdim + BK - 1) / BK;
-  // a thread copies (and, for #6, rebuilds) the 8-channel half hv of its
-  // slab rows: v % 2 with v = tid + i*NT
+  if (warp == NTC / 32) {
+    // ---- the producer warp: chunk c into stage c % S once the consumers
+    // have released chunk c - S there
+    const int hv = lane & 1;      // a lane copies one 8-channel half
+    asm volatile("prefetch.tensormap [%0];"
+                 :: "l"(reinterpret_cast<uint64_t>(&wmap)) : "memory");
+    for (int c = 0; c < KC; ++c) {
+      const int st = c & 1;
+      if (c >= S) mbar_wait(emptyb + st * 8, ((c >> 1) & 1) ^ 1);
+      const unsigned full = fullb + st * 8;
+      unsigned char* As = smem + st * C::STAGE;
+      const int k0 = c * BK;
+      if (lane == 0) mbar_arrive_expect_tx(full, C::B_BYTES);
+      // a weight box a lane: box b is tap b / (BN/64), N block b % (BN/64)
+      if (lane < C::NBOX) {
+        const int t = lane / (BN / BOX_N), nb = lane % (BN / BOX_N);
+        tma_load_3d(smem_u32(As + C::A_BYTES + t * C::TAP_B + nb * 2048), &wmap,
+                    full, n0 + nb * BOX_N, k0, t);
+      }
+      for (int v = lane; v < SLAB * 2; v += 32) {   // the slab: 2 vectors a row
+        const int s = v >> 1;
+        const long long q = m0 - W + s;
+        const bool ok = q >= 0 && q < g.M && k0 + hv * 8 < kdim;
+        cp_async16(As + s * A_STRIDE + hv * 16,
+                   ok ? src + q * kdim + k0 + hv * 8 : src, ok);
+      }
+      if (BNIN_A && lane < 8) {   // #6: the chunk's (a, b), 4 floats a lane
+        const int k = k0 + (lane & 3) * 4;
+        const bool ok = k < kdim;
+        cp_async16(As + C::AB_OFF + lane * 16,
+                   ok ? aux.ab + (lane >> 2) * kdim + k : aux.ab, ok);
+      }
+      cp_async_mbar_arrive(full);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  // ---- the consumer warpgroups
+  // #6: this thread's share of the landed x vectors of chunk c in the
+  // stage at As as xn; zero-filled ones (rows outside the pixels, channel
+  // tails) stay zero. A thread's vectors v = tid + i*NTC share the half
+  // hv = tid & 1, whose 8 + 8 floats of the landed (a, b) they read.
   const int hv = tid & 1;
-  auto issue = [&](int c, int st) {
-    unsigned char* As = smem + st * C::STAGE;
-    unsigned char* Bs = As + C::A_BYTES;
-    const int k0 = c * BK;
-    for (int v = tid; v < SLAB * 2; v += NT) {   // the slab: 2 vectors a row
-      const int s = v >> 1;
-      const long long q = m0 - W + s;
-      const bool ok = q >= 0 && q < g.M && k0 + hv * 8 < kdim;
-      cp_async16(As + s * A_STRIDE + hv * 16,
-                 ok ? src + q * kdim + k0 + hv * 8 : src, ok);
-    }
-    constexpr int BV = BN / 8;                  // vectors of a B row
-    for (int v = tid; v < 9 * BK * BV; v += NT) {
-      const int t = v / (BK * BV), kr = (v / BV) % BK, nv = v % BV;
-      const int k = k0 + kr, n = n0 + nv * 8;
-      const bool ok = k < kdim && n < ndim;
-      cp_async16(Bs + t * C::TAP_B + (nv >> 3) * 2048 + (kr >> 3) * 1024
-                     + (kr & 7) * 128 + (((nv & 7) ^ (kr & 7)) << 4),
-                 ok ? wk + ((long long)t * kdim + k) * ndim + n : wk, ok);
-    }
-  };
-  // #6: this thread's own landed x vectors of chunk c in stage st as xn;
-  // zero-filled ones (rows outside the pixels, channel tails) stay zero
-  auto rebuild = [&](int c, int st, const float (&av)[8], const float (&bv)[8]) {
+  auto rebuild = [&](int c, unsigned char* As) {
     if (c * BK + hv * 8 >= kdim) return;
-    unsigned char* As = smem + st * C::STAGE + hv * 16;
-    for (int v = tid; v < SLAB * 2; v += NT) {
+    const float* ab = reinterpret_cast<const float*>(As + C::AB_OFF) + hv * 8;
+    As += hv * 16;
+    for (int v = tid; v < SLAB * 2; v += NTC) {
       const long long q = m0 - W + (v >> 1);
-      if (q >= 0 && q < g.M)
-        bnin_vec(reinterpret_cast<uint4*>(As + (v >> 1) * A_STRIDE), av, bv);
+      if (q < 0 || q >= g.M) continue;
+      // bnin_vec's arithmetic a pair at a time: few registers beside the
+      // accumulators
+      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(As + (v >> 1) * A_STRIDE);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a2 = *reinterpret_cast<const float2*>(ab + 2 * e);
+        const float2 b2 = *reinterpret_cast<const float2*>(ab + 16 + 2 * e);
+        const float2 f = __bfloat1622float2(x[e]);
+        x[e] = __floats2bfloat162_rn(fmaxf(fmaf(f.x, a2.x, b2.x), 0.f),
+                                     fmaxf(fmaf(f.y, a2.y, b2.y), 0.f));
+      }
     }
   };
-  // dx: the leg sums of stage st from its landed slab, f32, rounded once
-  auto legs = [&](int st) {
-    unsigned char* As = smem + st * C::STAGE;
-    for (int v = tid; v < C::LEGS * 2; v += NT) {
+  // dx: the leg sums of the stage at As from its landed slab, f32, rounded
+  // once
+  auto legs = [&](unsigned char* As) {
+    for (int v = tid; v < C::LEGS * 2; v += NTC) {
       const short4 s = legsrc[v >> 1];
       if (s.x < 0) continue;
       const int h = v & 1;
@@ -551,58 +665,61 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
   // lane roles in ldmatrix: A rows (l&7) + 8*((l>>3)&1), k half l>>4
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lhalf = lane >> 4;
   const short* ar = arow + warp * 16 + lrow;
+  // the release of a stage: one arrival a warpgroup
+  const bool releaser = (tid & 127) == 0;
 
-#pragma unroll
-  for (int s = 0; s < C::S - 1; ++s) {
-    if (s < KC) issue(s, s);
-    cp_async_commit();
-  }
-  for (int c = 0; c < KC; ++c) {
-    const int st = c % C::S;
-    float av[8], bv[8];         // #6: this thread's (a, b), read before the wait
+  // two A register sets, alternating over the whole tap sequence (nine taps
+  // a chunk: a chunk of parity P gives tap t set (t + P) & 1), so a set is
+  // rewritten only after the product two taps back, which read it, is done
+  // (or ptxas serializes every wgmma)
+  unsigned a[2][4];
+  auto chunk = [&](int c, auto parity) {
+    constexpr int P = decltype(parity)::value;    // = c & 1, its stage
+    // the stage's offset through an opaque move, so that the compiler
+    // does not hoist the taps' descriptors out of the loop (18 registers
+    // held across it)
+    int st_off;
+    asm volatile("mov.b32 %0, %1;" : "=r"(st_off) : "r"(P * C::STAGE));
+    mbar_wait(fullb + P * 8, (c >> 1) & 1);       // chunk c landed
     if constexpr (BNIN_A) {
-      const int k = c * BK + hv * 8;
-      if (k < kdim) {
-        ldg8f(av, aux.ab + k);
-        ldg8f(bv, aux.ab + kdim + k);
-      }
+      rebuild(c, smem + st_off);
+      bar_sync1<NTC>();         // the rebuilt slab is visible
     }
-    cp_async_wait<C::S - 2>();  // this thread's copies of chunk c landed
-    if constexpr (BNIN_A) rebuild(c, st, av, bv);
-    fence_proxy_async();        // the landed B tiles, for wgmma
-    wgmma_wait<0>();            // chunk c-1's products have read their stage
-    __syncthreads();            // chunk c landed (and rebuilt); chunk c-1's
-                                // stage is free
-    if (c + C::S - 1 < KC) issue(c + C::S - 1, (c + C::S - 1) % C::S);
-    cp_async_commit();
     if constexpr (!C::FORWARD) {
-      legs(st);
-      __syncthreads();          // the leg sums are visible
+      legs(smem + st_off);
+      bar_sync1<NTC>();         // the leg sums are visible
     }
-    const unsigned As = smem_u32(smem + st * C::STAGE);
+    const unsigned As = smem_u32(smem) + st_off;
     const unsigned Bs = As + C::A_BYTES;
-    // one m64 x BN x k16 product a tap, A from the slab through this warp's
-    // ldmatrix rows; two register sets, so a tap's gather overlaps the
-    // previous tap's product (an A set is rewritten only after its product
-    // is done, or ptxas serializes every wgmma)
-    unsigned a[2][4];
 #pragma unroll
     for (int t = 0; t < 9; ++t) {
-      if (t >= 2) wgmma_wait<1>();
-      ldsm_x4(a[t & 1], As + ar[t * BM] * A_STRIDE + lhalf * 16);
+      wgmma_wait<1>();
+      // at tap 1 the products of chunk c - 1 are done: release its stage
+      // (not the last S chunks', which no load waits for)
+      if (t == 1 && c >= 1 && c - 1 + S < KC && releaser)
+        mbar_arrive(emptyb + (P ^ 1) * 8);
+      ldsm_x4(a[(t + P) & 1], As + ar[t * BM] * A_STRIDE + lhalf * 16);
       wgmma_fence();
       const uint64_t desc = mn_desc_sw128(Bs + t * C::TAP_B, 2048, 1024);
       if constexpr (BN == 128)
-        wgmma_n128(reinterpret_cast<float(&)[64]>(acc), a[t & 1], desc);
+        wgmma_n128(reinterpret_cast<float(&)[64]>(acc), a[(t + P) & 1], desc);
       else
-        wgmma_n64(reinterpret_cast<float(&)[32]>(acc), a[t & 1], desc);
+        wgmma_n64(reinterpret_cast<float(&)[32]>(acc), a[(t + P) & 1], desc);
       wgmma_commit();
     }
+  };
+  // chunks in pairs, then an odd last one: on every path a chunk of parity
+  // P follows one of parity 1 - P, so the A sets alternate
+  int c = 0;
+  for (; c + 1 < KC; c += 2) {
+    chunk(c, std::integral_constant<int, 0>{});
+    chunk(c + 1, std::integral_constant<int, 1>{});
   }
-  cp_async_wait<0>();
+  if (c < KC) chunk(c, std::integral_constant<int, 0>{});
   wgmma_wait<0>();
   fence_acc(reinterpret_cast<float(&)[BN / 2]>(acc));
-  __syncthreads();
+  bar_sync1<NTC>();             // both warpgroups' products are done: the
+                                // stages are free for the epilogue
 
   const int gr = lane >> 2, gc = (lane & 3) * 2;
   // #5, #6 and #7: a thread keeps one 8-channel vector (cv) of the staged
@@ -617,16 +734,9 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
   for (int e = 0; e < 8; ++e) sa[e] = sb[e] = 0.f;
   float* red;                   // (RG, 2, BN) behind the staged tile
   if constexpr (MODE == DX_BNIN) {
-    // ---- #7: the f32 tile dxn; x at the thread's rows is loaded before
-    // the staging
-    uint4 xr[RPT];
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const long long p = m0 + rg + k * C::RG;
-      xr[k] = n < ndim && p < g.M
-          ? __ldg(reinterpret_cast<const uint4*>(aux.x + p * ndim + n))
-          : make_uint4(0, 0, 0, 0);
-    }
+    // ---- #7: the f32 tile dxn; x at the thread's rows, four rows in
+    // flight at a time, the first four loaded while the staging's barrier
+    // waits (the accumulators are free by then)
     float* Cf = reinterpret_cast<float*>(smem);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
@@ -636,27 +746,44 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
       *reinterpret_cast<float2*>(Cf + (r + 8) * C::F_STRIDE + col) =
           make_float2(acc[j][2], acc[j][3]);
     }
-    __syncthreads();
+    constexpr int XB = 4;
+    static_assert(RPT % XB == 0, "whole batches of rows");
+    uint4 xr[XB];
+    auto load_x = [&](int k0) {
+#pragma unroll
+      for (int k = 0; k < XB; ++k) {
+        const long long p = m0 + rg + (k0 + k) * C::RG;
+        xr[k] = n < ndim && p < g.M
+            ? __ldg(reinterpret_cast<const uint4*>(aux.x + p * ndim + n))
+            : make_uint4(0, 0, 0, 0);
+      }
+    };
+    load_x(0);
+    bar_sync1<NTC>();
     if (n < ndim) {
       float av[8], bv[8];
       load8f(av, aux.ab + n);
       load8f(bv, aux.ab + ndim + n);
 #pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        const int r = rg + k * C::RG;
-        const long long p = m0 + r;
-        if (p >= g.M) break;
-        float v[8], xv[8], d[8];
-        load8f(v, Cf + r * C::F_STRIDE + cv * 8);
-        unpack8(xv, xr[k]);
+      for (int k0 = 0; k0 < RPT; k0 += XB) {
+        if (k0 > 0) load_x(k0);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float gd = fmaf(xv[e], av[e], bv[e]) > 0.f ? v[e] : 0.f;
-          d[e] = gd * av[e];
-          sa[e] = fmaf(gd, xv[e], sa[e]);
-          sb[e] += gd;
+        for (int k = 0; k < XB; ++k) {
+          const int r = rg + (k0 + k) * C::RG;
+          const long long p = m0 + r;
+          if (p >= g.M) break;
+          float v[8], xv[8], d[8];
+          load8f(v, Cf + r * C::F_STRIDE + cv * 8);
+          unpack8(xv, xr[k]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float gd = fmaf(xv[e], av[e], bv[e]) > 0.f ? v[e] : 0.f;
+            d[e] = gd * av[e];
+            sa[e] = fmaf(gd, xv[e], sa[e]);
+            sb[e] += gd;
+          }
+          *reinterpret_cast<uint4*>(out + p * ndim + n) = pack8(d);
         }
-        *reinterpret_cast<uint4*>(out + p * ndim + n) = pack8(d);
       }
     }
     red = Cf + BM * C::F_STRIDE;
@@ -671,10 +798,10 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
       *reinterpret_cast<__nv_bfloat162*>(Cs + (r + 8) * C::C_STRIDE + col) =
           __floats2bfloat162_rn(acc[j][2], acc[j][3]);
     }
-    __syncthreads();
+    bar_sync1<NTC>();
     if constexpr (MODE == DX || MODE == FWD) {
       // #9, #4: 16-byte stores
-      for (int v = tid; v < BM * BN / 8; v += NT) {
+      for (int v = tid; v < BM * BN / 8; v += NTC) {
         const int r = v / (BN / 8), c8 = v % (BN / 8);
         const long long p = m0 + r;
         if (p < g.M && n0 + c8 * 8 < ndim)
@@ -709,7 +836,7 @@ __global__ void __launch_bounds__(NT, 2) rconv_slab_px(
     red[(rg * 2) * BN + cv * 8 + e] = sa[e];
     red[(rg * 2 + 1) * BN + cv * 8 + e] = sb[e];
   }
-  __syncthreads();
+  bar_sync1<NTC>();
   if (tid < 2 * BN) {
     const int j = tid / BN, col = tid % BN;
     if (n0 + col < ndim) {
@@ -930,19 +1057,67 @@ Geo make_geo(int N, int H, int W) {
   return g;
 }
 
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime, so that
+// the library links against the runtime alone
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the TMA map of the nine B tiles wk (9, kdim, ndim) bf16: boxes of 64 N x
+// 16 K of one tap, 128-byte swizzled; K past a tap's end and N past ndim
+// read as zeros
+cudaError_t weight_map(CUtensorMap* map, const void* wk, int kdim, int ndim) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)ndim, (cuuint64_t)kdim, 9};
+  const cuuint64_t strides[2] = {(cuuint64_t)ndim * 2, (cuuint64_t)kdim * ndim * 2};
+  const cuuint32_t box[3] = {pxk::BOX_N, pxk::BK, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                            const_cast<void*>(wk), dims, strides, box, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int BN, int MODE>
 cudaError_t launch_px(const void* src, const void* wk, void* out,
                       const PxAux& aux, const Geo& g, int kdim, int ndim,
                       cudaStream_t st) {
   using C = pxk::Cfg<BN, MODE>;
   auto kern = rconv_slab_px<BN, MODE>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  CUtensorMap wmap;
+  cudaError_t e = weight_map(&wmap, wk, kdim, ndim);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::SMEM);
   if (e != cudaSuccess) return e;
   const int ntiles = (ndim + BN - 1) / BN;
   const long long blocks = ntiles * ((g.M + pxk::BM - 1) / pxk::BM);
-  kern<<<(unsigned)blocks, NT, C::SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(src), static_cast<const __nv_bfloat16*>(wk),
+  kern<<<(unsigned)blocks, pxk::NTP, C::SMEM, st>>>(
+      wmap, static_cast<const __nv_bfloat16*>(src),
       static_cast<__nv_bfloat16*>(out), aux, g, kdim, ndim, ntiles);
   return cudaGetLastError();
 }
